@@ -1,0 +1,50 @@
+"""grape_tpu_torch — the PyTorch/CUDA port of grape_tpu.
+
+A GRAPE quantum-optimal-control engine: piecewise-constant pulse
+optimization over Schrödinger dynamics for final-time functionals plus a
+pulse running cost, exact per-time-step gradients (rank-1 Fréchet traces),
+semi-automatic differentiation of functionals via ``torch.autograd``, and a
+host-side C++ L-BFGS-B optimizer with box constraints.  The heavy phases of
+the gate-optimization path run in hand-written CUDA kernels for Hopper
+(``ops.hopper_prop``, ``ops.hopper_frechet``).
+
+This package imports ``torch`` and ``numpy`` only — nothing of JAX and
+nothing of ``grape_tpu``, which stays in the repository as the reference.
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.
+"""
+
+from .amplitudes import (
+    ComplexAmplitude, CustomAmplitude, LockedAmplitude, ShapedAmplitude,
+)
+from .controls import discretize, discretize_on_midpoints, get_controls
+from .convert import compiled_problem_from_numpy
+from .fg import CompiledProblem, build_f, build_fg, compile_problem
+from .generators import Generator, hamiltonian
+from .info_table import make_grape_print_iters
+from .interfaces import check_generator, check_problem, check_state
+from .optimize import optimize, optimize_problem
+from .result import GrapeResult
+from .trajectory import ControlProblem, Trajectory
+from .workspace import (
+    GrapeWrk, gradient, norm_search, pulse_update, search_direction,
+    step_width, vec_angle,
+)
+from . import functionals, models, shapes
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "optimize", "optimize_problem", "GrapeResult", "Trajectory",
+    "ControlProblem", "hamiltonian", "Generator",
+    "ShapedAmplitude", "LockedAmplitude", "ComplexAmplitude",
+    "CustomAmplitude",
+    "discretize", "discretize_on_midpoints", "get_controls",
+    "functionals", "models", "shapes",
+    "CompiledProblem", "compile_problem", "build_fg", "build_f",
+    "compiled_problem_from_numpy",
+    "check_state", "check_generator", "check_problem",
+    "make_grape_print_iters",
+    "GrapeWrk", "step_width", "search_direction", "norm_search", "gradient",
+    "pulse_update", "vec_angle",
+]

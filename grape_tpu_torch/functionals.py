@@ -1,0 +1,228 @@
+"""Optimization functionals and semi-automatic differentiation.
+
+Counterpart of ``grape_tpu/functionals.py`` (itself the analog of
+``QuantumControl.Functionals``): the standard final-time functionals
+``J_T_sm`` / ``J_T_re`` / ``J_T_ss`` with their analytic ``chi``
+counterparts, the pulse running cost ``J_a_fluence``, and the semi-AD
+constructors ``make_chi`` / ``make_grad_J_a`` on ``torch.autograd``.
+
+Conventions: the co-state is
+
+    |χ_k(T)⟩ = -∂J_T/∂⟨Ψ_k(T)| = -∂J_T/∂Ψ_k* .
+
+For a real function of a complex tensor, ``torch.autograd`` returns
+``∂J/∂Re[z] + i ∂J/∂Im[z] = 2 ∂J/∂z*``, so ``χ = -½ Ψ.grad`` with NO
+conjugation.  (``jax.grad`` returns the conjugate of that, which is why the
+JAX package has ``χ = -½ conj(g)``.)
+
+**Batched API**: functionals receive the stacked final states ``Psi (K, d)``
+(torch tensor), the list of :class:`~grape_tpu_torch.trajectory.Trajectory`
+objects (static), and optionally ``tau (K,)`` — the overlaps
+``τ_k = ⟨Ψ_k^tgt|Ψ_k(T)⟩`` — via keyword.
+"""
+
+import inspect
+
+import numpy as np
+import torch
+
+from .config import real_dtype
+
+__all__ = [
+    "J_T_sm", "J_T_re", "J_T_ss", "F_sm", "F_re", "F_ss",
+    "chi_sm", "chi_re", "chi_ss",
+    "J_a_fluence", "grad_J_a_fluence",
+    "make_chi", "make_grad_J_a", "make_analytic_chi",
+    "taus", "weights_of", "accepts_tau",
+]
+
+_ANALYTIC_CHI = {}
+
+
+def weights_of(trajectories, like):
+    """Trajectory weights ``(K,)`` as a real tensor on the device, and of
+    the precision, of the tensor ``like``."""
+    w = np.asarray([getattr(t, "weight", 1.0) for t in trajectories],
+                   dtype=np.float64)
+    return torch.as_tensor(w, dtype=real_dtype(like.dtype),
+                           device=like.device)
+
+
+def _targets(trajectories, like):
+    tgt = np.stack([np.asarray(t.target_state) for t in trajectories])
+    return torch.as_tensor(tgt, dtype=like.dtype, device=like.device)
+
+
+def taus(Psi, trajectories):
+    """Overlaps ``τ_k = ⟨Ψ_k^tgt | Ψ_k⟩`` for stacked states ``Psi (K, d)``."""
+    tgt = _targets(trajectories, Psi)
+    return torch.sum(torch.conj(tgt) * Psi, dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Standard final-time functionals
+# --------------------------------------------------------------------------
+
+def J_T_sm(Psi, trajectories, tau=None):
+    """Square-modulus functional ``1 - |Σ_k w_k τ_k|² / K²``."""
+    if tau is None:
+        tau = taus(Psi, trajectories)
+    w = weights_of(trajectories, tau)
+    K = len(trajectories)
+    f = torch.sum(w * tau)
+    return 1.0 - torch.abs(f) ** 2 / K**2
+
+
+def chi_sm(Psi, trajectories, tau=None):
+    """Analytic ``χ_k = (Σ_j w_j τ_j / K²) w_k |Ψ_k^tgt⟩`` for `J_T_sm`."""
+    if tau is None:
+        tau = taus(Psi, trajectories)
+    w = weights_of(trajectories, tau)
+    K = len(trajectories)
+    f = torch.sum(w * tau)
+    tgt = _targets(trajectories, Psi)
+    return (f / K**2) * (w[:, None] * tgt)
+
+
+def J_T_re(Psi, trajectories, tau=None):
+    """Real-part functional ``1 - Re[Σ_k w_k τ_k] / K``."""
+    if tau is None:
+        tau = taus(Psi, trajectories)
+    w = weights_of(trajectories, tau)
+    K = len(trajectories)
+    return 1.0 - torch.real(torch.sum(w * tau)) / K
+
+
+def chi_re(Psi, trajectories, tau=None):
+    """Analytic ``χ_k = w_k |Ψ_k^tgt⟩ / (2K)`` for `J_T_re`."""
+    K = len(trajectories)
+    w = weights_of(trajectories, Psi)
+    tgt = _targets(trajectories, Psi)
+    return (w[:, None] / (2 * K)) * tgt
+
+
+def J_T_ss(Psi, trajectories, tau=None):
+    """State-to-state functional ``1 - Σ_k w_k |τ_k|² / K``."""
+    if tau is None:
+        tau = taus(Psi, trajectories)
+    w = weights_of(trajectories, tau)
+    K = len(trajectories)
+    return 1.0 - torch.sum(w * torch.abs(tau) ** 2) / K
+
+
+def chi_ss(Psi, trajectories, tau=None):
+    """Analytic ``χ_k = (w_k/K) τ_k |Ψ_k^tgt⟩`` for `J_T_ss`."""
+    if tau is None:
+        tau = taus(Psi, trajectories)
+    w = weights_of(trajectories, tau)
+    K = len(trajectories)
+    tgt = _targets(trajectories, Psi)
+    return (w * tau / K)[:, None] * tgt
+
+
+_ANALYTIC_CHI[J_T_sm] = chi_sm
+_ANALYTIC_CHI[J_T_re] = chi_re
+_ANALYTIC_CHI[J_T_ss] = chi_ss
+
+
+def F_sm(Psi, trajectories, tau=None):
+    """Square-modulus fidelity ``1 - J_T_sm``."""
+    return 1.0 - J_T_sm(Psi, trajectories, tau=tau)
+
+
+def F_re(Psi, trajectories, tau=None):
+    """Real-part fidelity ``1 - J_T_re``."""
+    return 1.0 - J_T_re(Psi, trajectories, tau=tau)
+
+
+def F_ss(Psi, trajectories, tau=None):
+    """State-to-state fidelity ``1 - J_T_ss``."""
+    return 1.0 - J_T_ss(Psi, trajectories, tau=tau)
+
+
+# --------------------------------------------------------------------------
+# Pulse running costs
+# --------------------------------------------------------------------------
+
+def _dt_like(tlist, like):
+    tl = torch.as_tensor(tlist, dtype=like.dtype, device=like.device)
+    return torch.diff(tl)
+
+
+def J_a_fluence(pulsevals, tlist):
+    """Fluence ``Σ_{nl} ε_{nl}² dt_n`` (pulsevals ``(L, N_T)`` or flat)."""
+    pulsevals = torch.as_tensor(pulsevals)
+    dt = _dt_like(tlist, pulsevals)
+    eps = torch.reshape(pulsevals, (-1, dt.shape[0]))
+    return torch.sum(eps**2 * dt[None, :])
+
+
+def grad_J_a_fluence(pulsevals, tlist):
+    pulsevals = torch.as_tensor(pulsevals)
+    dt = _dt_like(tlist, pulsevals)
+    eps = torch.reshape(pulsevals, (-1, dt.shape[0]))
+    return torch.reshape(2.0 * eps * dt[None, :], pulsevals.shape)
+
+
+# --------------------------------------------------------------------------
+# Semi-automatic differentiation
+# --------------------------------------------------------------------------
+
+def accepts_tau(fn):
+    """Whether `fn` has a ``tau`` keyword argument (reference's tau protocol)."""
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):  # pragma: no cover
+        return False
+    return "tau" in sig.parameters
+
+
+def make_analytic_chi(J_T, chi):
+    """Register an analytic ``chi`` for a functional (used by `make_chi`)."""
+    _ANALYTIC_CHI[J_T] = chi
+    return chi
+
+
+def make_chi(J_T, trajectories, mode="auto"):
+    """Construct ``chi(Psi, trajectories[, tau]) -> χ (K, d)`` for ``J_T``.
+
+    ``mode="analytic"`` requires a registered analytic chi; ``mode="automatic"``
+    forces AD; ``mode="auto"`` (default) prefers analytic, falling back to
+    ``torch.autograd`` semi-AD:  ``χ = -½ ∇_Ψ J_T`` (no conjugation, see the
+    module docstring).
+    """
+    if mode in ("auto", "analytic") and J_T in _ANALYTIC_CHI:
+        return _ANALYTIC_CHI[J_T]
+    if mode == "analytic":
+        raise ValueError(f"No analytic chi registered for {J_T}")
+
+    J_T_takes_tau = accepts_tau(J_T)
+
+    def chi_ad(Psi, trajectories, tau=None):
+        # Differentiate w.r.t. Psi directly; tau (if used by J_T) is
+        # recomputed inside so the AD chain rule flows through it.
+        P = Psi.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            if J_T_takes_tau:
+                val = J_T(P, trajectories, tau=taus(P, trajectories))
+            else:
+                val = J_T(P, trajectories)
+            (g,) = torch.autograd.grad(val, P)
+        return -0.5 * g
+
+    return chi_ad
+
+
+def make_grad_J_a(J_a, tlist):
+    """Gradient of a pulse running cost via ``torch.autograd`` (real
+    pulsevals); the fluence has its analytic gradient."""
+    if J_a is J_a_fluence:
+        return grad_J_a_fluence
+
+    def grad_J_a(pulsevals, tlist):
+        p = torch.as_tensor(pulsevals).detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            (g,) = torch.autograd.grad(J_a(p, tlist), p)
+        return g
+
+    return grad_J_a

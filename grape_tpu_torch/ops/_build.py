@@ -1,0 +1,152 @@
+"""Build and load the hand-written CUDA kernels.
+
+The sources under ``grape_tpu_torch/csrc`` are compiled with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface and loaded with
+``ctypes`` (no PyTorch headers: the build takes seconds).  Each ``.cu`` is
+compiled to an object file by its own ``nvcc`` process, all started
+together, then linked.  The library is built at first use and rebuilt when a
+source is newer than it.
+
+The build directory is ``build/grape_tpu_torch`` beside the package (listed
+in ``.gitignore``).
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+
+__all__ = ["build_dir", "load_kernels", "kernel_sources", "last_build"]
+
+_PKG = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+_CSRC = os.path.join(_PKG, "csrc")
+_LIB = None
+# {"seconds": float, "rebuilt": bool, "log": str} of the latest load
+last_build = {}
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC",
+]
+
+
+def build_dir():
+    """The (created) directory that holds everything this package builds."""
+    path = os.path.join(os.path.dirname(_PKG), "build", "grape_tpu_torch")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def kernel_sources():
+    """``(cu_files, header_files)`` under ``csrc``, sorted."""
+    names = sorted(os.listdir(_CSRC))
+    cu = [os.path.join(_CSRC, n) for n in names if n.endswith(".cu")]
+    hdr = [os.path.join(_CSRC, n) for n in names if n.endswith(".cuh")]
+    return cu, hdr
+
+
+def _nvcc():
+    exe = shutil.which("nvcc")
+    if exe is None:
+        cand = os.path.join(
+            os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"
+        )
+        if os.path.exists(cand):
+            exe = cand
+    if exe is None:
+        raise RuntimeError(
+            "nvcc not found: the grape_tpu_torch CUDA kernels are built "
+            "from source at first use and need the CUDA toolkit"
+        )
+    return exe
+
+
+def _build(so, verbose):
+    nvcc = _nvcc()
+    cu, _ = kernel_sources()
+    out = build_dir()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    procs = []
+    objs = []
+    for src in cu:
+        obj = os.path.join(
+            out, os.path.basename(src)[:-3] + f".{os.getpid()}.o"
+        )
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra, "-c", src, "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    log = []
+    failed = False
+    for src, p in zip(cu, procs):
+        text, _ = p.communicate()
+        log.append(f"== nvcc {os.path.basename(src)} (rc {p.returncode})\n"
+                   f"{text}")
+        failed = failed or p.returncode != 0
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(log))
+    tmp = f"{so}.{os.getpid()}.tmp"
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    log.append(f"== link (rc {link.returncode})\n{link.stdout}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + "\n".join(log))
+    os.replace(tmp, so)
+    return "\n".join(log)
+
+
+def _declare(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.grape_propagators.restype = i
+    lib.grape_propagators.argtypes = [p, p, p, p, i, i, i, i, p, i, p, p]
+    lib.grape_forward_apply.restype = i
+    lib.grape_forward_apply.argtypes = [p, p, p, i, i, i, p]
+    lib.grape_chi_scan.restype = i
+    lib.grape_chi_scan.argtypes = [p, p, p, i, i, i, p]
+    lib.grape_frechet_trace.restype = i
+    lib.grape_frechet_trace.argtypes = [
+        p, p, p, p, p, p, i, i, i, i, i, p, i, p, p,
+    ]
+    lib.grape_propagator_scratch_matrices.restype = i
+    lib.grape_propagator_scratch_matrices.argtypes = []
+    lib.grape_frechet_scratch_matrices.restype = i
+    lib.grape_frechet_scratch_matrices.argtypes = [i]
+    lib.grape_error_string.restype = ctypes.c_char_p
+    lib.grape_error_string.argtypes = [i]
+
+
+def load_kernels(verbose=False):
+    """The loaded kernel library (built first if missing or stale)."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    t0 = time.perf_counter()
+    so = os.path.join(build_dir(), "libgrape_kernels.so")
+    cu, hdr = kernel_sources()
+    newest = max(os.path.getmtime(f) for f in cu + hdr)
+    rebuilt = False
+    log = ""
+    if not os.path.exists(so) or os.path.getmtime(so) < newest:
+        log = _build(so, verbose)
+        rebuilt = True
+    lib = ctypes.CDLL(so)
+    _declare(lib)
+    _LIB = lib
+    last_build.update(
+        seconds=time.perf_counter() - t0, rebuilt=rebuilt, log=log
+    )
+    return lib
+
+
+def check(lib, code, what):
+    """Raise if a C entry point returned a CUDA error code."""
+    if code != 0:
+        msg = lib.grape_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

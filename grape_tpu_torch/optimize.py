@@ -1,0 +1,221 @@
+"""GRAPE optimization front end.
+
+Counterpart of ``grape_tpu/optimize.py``: entry points, the ``fg`` closure
+over the workspace, the optimizer backend, the convergence-check protocol,
+per-iteration result updates, and result finalization.  The host-side
+L-BFGS-B consumes function/gradient values from the device evaluation.
+"""
+
+import datetime
+import traceback
+
+import numpy as np
+
+from .controls import discretize
+from .workspace import GrapeWrk
+
+__all__ = ["optimize", "optimize_problem", "run_optimizer"]
+
+
+def optimize_problem(problem, method="grape", **updates):
+    """Optimize a :class:`~grape_tpu_torch.trajectory.ControlProblem`
+    (``QuantumControl.optimize(problem; method=GRAPE)`` analog).  Krotov's
+    method is not ported yet."""
+    kwargs = dict(problem.kwargs)
+    kwargs.update(updates)
+    method_l = str(method).lower()
+    if method_l == "krotov":
+        raise NotImplementedError(
+            "method='krotov' is not ported to grape_tpu_torch yet"
+        )
+    if method_l != "grape":
+        raise ValueError(
+            f"Unknown optimization method {method!r} (supported: 'grape')"
+        )
+    return optimize(problem.trajectories, problem.tlist, **kwargs)
+
+
+def optimize(trajectories, tlist, **kwargs):
+    """Run a GRAPE optimization; returns a :class:`GrapeResult`.
+
+    Keyword arguments: required ``J_T``; optional ``chi``, ``chi_min_norm``,
+    ``J_a``, ``grad_J_a``, ``lambda_a``, ``gradient_method`` (``"gradgen"``),
+    ``dtype``, ``upper_bound``/``lower_bound``/``pulse_options``,
+    ``callback``, ``check_convergence``, ``iter_start``/``iter_stop``,
+    ``continue_from``, ``verbose``, ``rethrow_exceptions``,
+    ``print_iters``/``print_iter_info``/``store_iter_info``, optimizer
+    tuning (``lbfgsb_m``, ``lbfgsb_factr``, ``lbfgsb_pgtol``,
+    ``lbfgsb_iprint``) and ``device``.
+
+    ``device=None`` means the CUDA device and raises if there is none;
+    pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.
+    Options of ``grape_tpu.optimize`` that are not ported yet
+    (``gradient_method="taylor"``, ``prop_method="cheby"|"newton"``,
+    ``storage_mode="recompute"``, ``g_b``/``xi``, ``mesh=``, an
+    ``optimizer=`` other than the native L-BFGS-B, ...) raise
+    ``NotImplementedError`` naming the option.
+    """
+    if "update_hook" in kwargs or "info_hook" in kwargs:
+        raise ValueError(
+            "The `update_hook` and `info_hook` arguments have been "
+            "superseded by the `callback` argument"
+        )
+    callback = _wrap_callback(kwargs)
+    check_convergence = kwargs.get("check_convergence", lambda res: res)
+
+    if kwargs.get("check", True):
+        from .interfaces import check_problem
+
+        check_problem(trajectories, tlist)
+
+    wrk = GrapeWrk(trajectories, tlist, kwargs)
+
+    if wrk.cp.J_a is None and "grad_J_a" in kwargs:
+        import warnings
+        warnings.warn("Argument `grad_J_a` was given without `J_a`. Ignoring")
+
+    def fg(F, G, x):
+        """Reference ``fg!`` closure."""
+        if G is None:
+            return wrk.evaluate_functional(x)
+        J, _ = wrk.evaluate_gradient(x, G_out=G)
+        return J
+
+    optimizer = _get_optimizer(wrk)
+    try:
+        run_optimizer(optimizer, wrk, fg, callback, check_convergence)
+    except KeyboardInterrupt:
+        wrk.result.message = "Exception: InterruptException"
+    except Exception as exc:
+        if kwargs.get("rethrow_exceptions", False):
+            raise
+        wrk.result.message = f"Exception: {exc}"
+        if kwargs.get("verbose", False):
+            traceback.print_exc()
+
+    finalize_result(wrk)
+    return wrk.result
+
+
+def _wrap_callback(kwargs):
+    """Combine user callback(s) and iteration printing into one callable."""
+    from .info_table import make_grape_print_iters
+
+    cbs = []
+    user_cb = kwargs.get("callback", None)
+    if user_cb is not None:
+        if isinstance(user_cb, (tuple, list)):
+            cbs.extend(user_cb)
+        else:
+            cbs.append(user_cb)
+    print_iters = kwargs.get("print_iters", True)
+    print_iter_info = kwargs.get("print_iter_info", None)
+    store_iter_info = kwargs.get("store_iter_info", None)
+    if print_iters or store_iter_info is not None:
+        cbs.append(
+            make_grape_print_iters(
+                print_iter_info=print_iter_info,
+                store_iter_info=store_iter_info,
+                print_iters=print_iters,
+                g_b=kwargs.get("g_b", None),
+            )
+        )
+
+    def combined(wrk, iteration):
+        records = ()
+        for cb in cbs:
+            res = cb(wrk, iteration)
+            if res is not None and res != ():
+                if not isinstance(res, tuple):
+                    res = (res,)
+                records = records + res
+        return records if records else None
+
+    return combined
+
+
+def _get_optimizer(wrk):
+    """The native C++ L-BFGS-B reverse-communication backend (exact
+    reference semantics); it is the only backend ported so far."""
+    opt = wrk.kwargs.get("optimizer", None)
+    if opt in (None, "auto", "lbfgsb"):
+        from .optimizers.lbfgsb import LBFGSB
+
+        return LBFGSB(
+            m=int(wrk.kwargs.get("lbfgsb_m", 10)),
+            factr=float(wrk.kwargs.get("lbfgsb_factr", 1e1)),
+            pgtol=float(wrk.kwargs.get("lbfgsb_pgtol", 1e-15)),
+            iprint=int(wrk.kwargs.get("lbfgsb_iprint", -1)),
+        )
+    raise NotImplementedError(
+        f"optimizer={opt!r} is not ported to grape_tpu_torch yet (only the "
+        "native L-BFGS-B, optimizer='lbfgsb')"
+    )
+
+
+def run_optimizer(optimizer, wrk, fg, callback, check_convergence):
+    """Dispatch to the optimizer backend."""
+    if hasattr(optimizer, "run"):
+        return optimizer.run(wrk, fg, callback, check_convergence)
+    raise ValueError(f"Unknown optimizer: {optimizer!r}")
+
+
+def apply_convergence_check(result, check_convergence):
+    """Convergence-check protocol: the check may return a bool, a reason
+    string (empty = not converged), ``None``, or the (possibly mutated)
+    result object."""
+    if result.converged:
+        return
+    converged = check_convergence(result)
+    if isinstance(converged, (bool, np.bool_)):
+        result.converged = bool(converged)
+        if converged:
+            result.message = "Convergence check returned true"
+    elif isinstance(converged, str):
+        if converged:
+            result.converged = True
+            result.message = converged
+    elif converged is None or converged is result:
+        pass
+    else:
+        import warnings
+        warnings.warn(
+            "The check_convergence function did not return a Boolean, "
+            "String, None, or modified GrapeResult object"
+        )
+
+
+def update_result(wrk, i):
+    """Per-iteration result update."""
+    res = wrk.result
+    if wrk.states is not None:
+        res.states = [np.asarray(s) for s in wrk.states]
+    res.tau_vals = np.asarray(wrk.tau_vals).copy()
+    res.J_T_prev = res.J_T
+    res.J_T = wrk.J_parts[0]
+    res.J_a_prev = res.J_a
+    res.J_a = wrk.J_parts[1]
+    if res.J_a > 0.0:
+        lambda_a = wrk.kwargs.get("lambda_a", 1.0)
+        res.J_a /= lambda_a
+    res.J_b_prev = res.J_b
+    res.J_b = 0.0  # state running costs are not ported
+    if i > 0:
+        res.iter = i
+    if i >= res.iter_stop:
+        res.converged = True
+        res.message = "Reached maximum number of iterations"
+    prev_time = res.end_local_time
+    res.end_local_time = datetime.datetime.now()
+    res.secs = (res.end_local_time - prev_time).total_seconds()
+
+
+def finalize_result(wrk):
+    """Discretize final midpoint pulses back onto the time-grid points."""
+    res = wrk.result
+    res.end_local_time = datetime.datetime.now()
+    N_T = len(res.tlist) - 1
+    res.optimized_controls = [
+        discretize(wrk.pulsevals[l * N_T:(l + 1) * N_T], res.tlist)
+        for l in range(len(wrk.controls))
+    ]

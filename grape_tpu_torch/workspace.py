@@ -1,0 +1,310 @@
+"""GRAPE workspace.
+
+Counterpart of ``grape_tpu/workspace.py`` (the analog of GRAPE.jl's
+``GrapeWrk``), holding the mutable host-side optimization state around the
+purely-functional device evaluation: the flat pulse vector (layout
+``pulsevals[l*N_T + n]``), gradient buffers, bounds, evaluation counters,
+the result object, and optimizer-introspection state (step width, search
+direction) for callbacks.
+
+The pulse vector is simply the argument of ``fg``; mutation by the optimizer
+(or by a callback) is honored because every evaluation passes the current
+vector to the device.
+
+Left out on purpose, as workarounds of the TPU platform the port does not
+have: background pre-warm threads (there is no compile step to hide),
+multi-call evaluations and device-argument builds.  ``mesh=`` sharding is
+not ported yet and raises.
+"""
+
+import numpy as np
+
+from .controls import discretize_on_midpoints
+from .fg import build_f, build_fg, compile_problem
+from .result import GrapeResult
+
+__all__ = [
+    "GrapeWrk", "step_width", "search_direction", "norm_search",
+    "gradient", "pulse_update", "vec_angle",
+]
+
+# keywords that optimize() and the workspace consume themselves, not
+# compile_problem
+_OPTIMIZE_KEYS = frozenset({
+    "callback", "check_convergence", "iter_start", "iter_stop",
+    "continue_from", "verbose", "rethrow_exceptions", "print_iters",
+    "print_iter_info", "store_iter_info", "lbfgsb_m", "lbfgsb_factr",
+    "lbfgsb_pgtol", "lbfgsb_iprint", "optimizer", "upper_bound",
+    "lower_bound", "pulse_options", "check",
+})
+
+# keywords of grape_tpu.optimize() whose feature is not ported yet
+_UNPORTED_OPTIMIZE_KEYS = frozenset({
+    "eval_device_calls", "prewarm_envelope", "atexit_filename",
+    "atexit_config_digest", "profile_dir", "device_loop_iters",
+    "max_embedded_constant_bytes", "use_pallas", "gradgen_pallas_precision",
+})
+
+
+def _compile_kwargs(kwargs):
+    """The subset of ``optimize`` keywords that ``compile_problem`` takes;
+    raises for an unported or unknown one instead of ignoring it."""
+    out = {}
+    for key, val in kwargs.items():
+        if key in _OPTIMIZE_KEYS:
+            continue
+        if key in _UNPORTED_OPTIMIZE_KEYS:
+            raise NotImplementedError(
+                f"{key}= is not ported to grape_tpu_torch"
+            )
+        out[key] = val
+    return out
+
+
+def _to_numpy(x, dtype=None):
+    arr = x.detach().cpu().numpy()
+    return arr if dtype is None else arr.astype(dtype)
+
+
+class GrapeWrk:
+    def __init__(self, trajectories, tlist, kwargs):
+        self.kwargs = dict(kwargs)
+        self.trajectories = list(trajectories)
+        self.tlist = np.asarray(tlist, dtype=np.float64)
+        self.cp = compile_problem(
+            trajectories, tlist, **_compile_kwargs(self.kwargs)
+        )
+        self.controls = self.cp.controls
+        L, N_T = self.cp.n_controls, self.cp.n_timesteps
+        self.n = L * N_T
+
+        # bounds (flat, same l-major layout as pulsevals) — built before
+        # the envelope bucketing, which uses them as per-control caps
+        ub = float(self.kwargs.get("upper_bound", np.inf))
+        lb = float(self.kwargs.get("lower_bound", -np.inf))
+        self.upper_bounds = np.full(self.n, ub)
+        self.lower_bounds = np.full(self.n, lb)
+        pulse_options = self.kwargs.get("pulse_options", None)
+        if pulse_options:
+            for l, control in enumerate(self.controls):
+                options = None
+                for key, val in pulse_options.items():
+                    if key is control:
+                        options = val
+                        break
+                if options is None:
+                    continue
+                sl = slice(l * N_T, (l + 1) * N_T)
+                if "upper_bounds" in options:
+                    self.upper_bounds[sl] = np.asarray(
+                        options["upper_bounds"], dtype=np.float64
+                    )
+                if "lower_bounds" in options:
+                    self.lower_bounds[sl] = np.asarray(
+                        options["lower_bounds"], dtype=np.float64
+                    )
+
+        # Amplitude-envelope bucketing: the squaring count of the kernels
+        # and of the chunked Fréchet pass is derived from the envelope.
+        # Controls with FINITE box bounds use the bound itself as the
+        # envelope (pulses can never exceed it); unbounded controls get a
+        # power-of-two bucket that grows only when the optimizer pushes a
+        # pulse beyond it.  The policy is the reference's, so the count
+        # equals the reference's for the same pulse; here it is a runtime
+        # integer handed to the kernels, so growing the bucket rebuilds
+        # nothing.
+        self._program_cache = {}
+        self._amp_bucket = self._bucket_for(
+            np.max(np.abs(self.cp.guess_pulsevals), axis=1)
+        )
+        self.fg, self.f = self._programs()
+
+        continue_from = self.kwargs.get("continue_from", None)
+        if continue_from is not None:
+            import logging
+            logging.getLogger(__name__).info(
+                "Continuing previous optimization"
+            )
+            result = continue_from
+            if not isinstance(result, GrapeResult):
+                result = GrapeResult.from_result(
+                    result, self.trajectories, tlist, self.kwargs
+                )
+            result.iter_stop = int(self.kwargs.get("iter_stop", 5000))
+            result.converged = False
+            import datetime
+            result.start_local_time = datetime.datetime.now()
+            result.message = "in progress"
+            self.pulsevals = np.concatenate(
+                [
+                    discretize_on_midpoints(c, result.tlist)
+                    for c in result.optimized_controls
+                ]
+            )
+            self.result = result
+        else:
+            self.result = GrapeResult(self.trajectories, tlist, self.kwargs)
+            self.pulsevals = self.cp.guess_pulsevals.reshape(-1).copy()
+
+        self.pulsevals_guess = self.pulsevals.copy()
+        self.gradient = np.zeros(self.n)
+        self.grad_J_Tb = np.zeros(self.n)
+        self.grad_J_a = np.zeros(self.n)
+        self.J_parts = np.zeros(3)
+        self.tau_vals = np.zeros(self.cp.n_traj, dtype=np.complex128)
+        self.states = None  # (K, d) final states of latest evaluation
+        self.fg_count = np.zeros(2, dtype=np.int64)  # [fg_calls, f_calls]
+
+        # optimizer-introspection state (filled by the backend)
+        self.optimizer = self.kwargs.get("optimizer", None)
+        self.optimizer_state = None
+        self.alpha = 0.0            # last line-search step width
+        self.searchdirection = np.zeros(self.n)
+        self.gradient_guess = np.zeros(self.n)  # gradient at start of iter
+
+    # -- amplitude-envelope bucketing --------------------------------------
+
+    def _bucket_for(self, amps):
+        """Per-control amplitude envelope.
+
+        Controls with a finite box bound in the VICINITY of the current
+        amplitudes (within 16× of the natural power-of-two bucket) use
+        the bound itself: the L-BFGS-B iterates can never exceed it, and
+        the envelope is exact.  Loose sanity bounds far above the real
+        amplitudes are NOT used (they would over-size the squaring count);
+        those controls grow power-of-two buckets like unbounded ones.
+        Amplitudes beyond the bound (callback mutation) also fall back to
+        the growing bucket — correctness never depends on the iterates
+        respecting the bounds."""
+        amps = np.maximum(np.asarray(amps, dtype=np.float64), 0.05)
+        L, N_T = self.cp.n_controls, self.cp.n_timesteps
+        cap = np.maximum(
+            np.abs(self.upper_bounds.reshape(L, N_T)).max(axis=1),
+            np.abs(self.lower_bounds.reshape(L, N_T)).max(axis=1),
+        )  # (L,) per-control bound envelope; inf where unbounded
+        grown = np.exp2(np.ceil(np.log2(2.0 * amps)))
+        use_cap = (
+            np.isfinite(cap) & (amps <= cap) & (cap <= 16.0 * grown)
+        )
+        self._bucket_capped = use_cap
+        return tuple(np.where(use_cap, cap, grown))
+
+    def _build_programs(self, key):
+        """Build (fg, f) for an envelope bucket `key`."""
+        amp_max = np.asarray(key) if key is not None else None
+        return (
+            build_fg(self.cp, amp_max=amp_max),
+            build_f(self.cp, amp_max=amp_max),
+        )
+
+    def _programs(self):
+        key = self._amp_bucket
+        if key not in self._program_cache:
+            self._program_cache[key] = self._build_programs(key)
+        return self._program_cache[key]
+
+    def _ensure_envelope(self, x):
+        """Grow the envelope bucket if the pulse exceeds it."""
+        N_T = self.cp.n_timesteps
+        amps = np.max(
+            np.abs(np.reshape(np.asarray(x), (-1, N_T))), axis=1
+        )
+        if np.any(amps > np.asarray(self._amp_bucket)):
+            self._amp_bucket = self._bucket_for(
+                np.maximum(amps, np.asarray(self._amp_bucket))
+            )
+            self.fg, self.f = self._programs()
+
+    # -- device evaluation entry points ------------------------------------
+
+    def _store_common(self, aux):
+        self.J_parts[:] = _to_numpy(aux["J_parts"], np.float64)
+        self.tau_vals[:] = _to_numpy(aux["tau"])
+        self.states = _to_numpy(aux["psi_T"])
+
+    def evaluate_functional(self, x, count_call=True):
+        self._ensure_envelope(x)
+        J, aux = self.f(np.asarray(x, dtype=np.float64))
+        if count_call:
+            self.fg_count[1] += 1
+            self.result.f_calls += 1
+        self._store_common(aux)
+        return float(J)
+
+    def evaluate_gradient(self, x, G_out=None):
+        self._ensure_envelope(x)
+        J, G, aux = self.fg(np.asarray(x, dtype=np.float64))
+        self.fg_count[0] += 1
+        self.result.fg_calls += 1
+        self._store_common(aux)
+        if not bool(aux["chi_ok"]):
+            raise RuntimeError(
+                f"The norm of a state χ(T) is below chi_min_norm="
+                f"{self.cp.chi_min_norm}: the gradient is zero"
+            )
+        G = _to_numpy(G, np.float64)
+        if G_out is not None:
+            G_out[:] = G
+        self.gradient[:] = G
+        self.grad_J_Tb[:] = _to_numpy(aux["grad_J_Tb"], np.float64)
+        self.grad_J_a[:] = _to_numpy(aux["grad_J_a"], np.float64)
+        return float(J), G
+
+
+# --------------------------------------------------------------------------
+# Introspection helpers: callback-safe access to optimizer internals.
+# --------------------------------------------------------------------------
+
+def step_width(wrk):
+    """Line-search step width α of the current iteration."""
+    return float(wrk.alpha)
+
+
+def search_direction(wrk):
+    """Search direction used in the current iteration (falls back to ``-∇J``
+    before the first iteration)."""
+    s = np.asarray(wrk.searchdirection)
+    if not np.any(s):
+        return -np.asarray(wrk.gradient)
+    return s
+
+
+def norm_search(wrk):
+    return float(np.linalg.norm(search_direction(wrk)))
+
+
+def gradient(wrk, which="initial"):
+    """Gradient associated with the current iteration.
+
+    ``which="initial"``: gradient at the iterate from which the current
+    iteration started (what determined the search direction);
+    ``which="final"``: gradient at the optimized point of the iteration."""
+    if which == "final":
+        return np.asarray(wrk.gradient)
+    g = np.asarray(wrk.gradient_guess)
+    if not np.any(g):
+        return np.asarray(wrk.gradient)
+    return g
+
+
+def pulse_update(wrk):
+    """``pulsevals - pulsevals_guess`` for the current iteration."""
+    return np.asarray(wrk.pulsevals) - np.asarray(wrk.pulsevals_guess)
+
+
+def vec_angle(v1, v2, unit="rad"):
+    """Angle between two vectors, numerically robust 2·atan form."""
+    v1 = np.asarray(v1, dtype=np.float64)
+    v2 = np.asarray(v2, dtype=np.float64)
+    n1 = np.linalg.norm(v1)
+    n2 = np.linalg.norm(v2)
+    if n1 == 0 or n2 == 0:
+        return 0.0
+    u1 = v1 / n1
+    u2 = v2 / n2
+    angle = 2 * np.arctan2(
+        np.linalg.norm(u1 - u2), np.linalg.norm(u1 + u2)
+    )
+    if unit == "degree":
+        return float(np.degrees(angle))
+    return float(angle)

@@ -1,0 +1,118 @@
+"""The port stands alone: ``grape_tpu_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of the JAX package, and an entry point that is not
+told ``device="cpu"`` refuses to run without a CUDA device."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import grape_tpu_torch as gt
+from grape_tpu_torch.functionals import J_T_sm
+from grape_tpu_torch.models import tls_problem
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "optax", "grape_tpu")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _dirs, names in os.walk(os.path.join(ROOT, "grape_tpu_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 20  # the package and chip_smoke.py were found
+    bad = []
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            if top in FORBIDDEN:
+                bad.append((os.path.relpath(path, ROOT), mod))
+    assert not bad, bad
+
+
+def test_importing_the_port_does_not_load_jax():
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, grape_tpu_torch, grape_tpu_torch.ops.hopper_prop, "
+        "grape_tpu_torch.ops.hopper_frechet, grape_tpu_torch.optimizers.lbfgsb;"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'grape_tpu', 'triton')];"
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+ENTRY_POINTS = ["optimize", "optimize_problem", "compile_problem",
+                "build_fg", "build_f", "compiled_problem_from_numpy"]
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_device_none_raises_without_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("this check is about a machine without a CUDA device")
+    problem = tls_problem(n_steps=10, J_T=J_T_sm)
+    trajs, tlist = problem.trajectories, problem.tlist
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "optimize":
+            gt.optimize(trajs, tlist, J_T=J_T_sm, rethrow_exceptions=True)
+        elif entry == "optimize_problem":
+            gt.optimize_problem(problem, rethrow_exceptions=True)
+        elif entry == "compile_problem":
+            gt.compile_problem(trajs, tlist, J_T=J_T_sm)
+        elif entry == "compiled_problem_from_numpy":
+            gt.compiled_problem_from_numpy({}, J_T="J_T_sm")
+        else:
+            cp = gt.compile_problem(trajs, tlist, J_T=J_T_sm, device="cpu")
+            # a problem compiled for the CPU, explicitly asked onto CUDA
+            getattr(gt, entry)(cp, device="cuda")(
+                cp.guess_pulsevals.reshape(-1)
+            )
+
+
+def test_kernel_wrappers_refuse_bad_inputs_before_any_launch():
+    """The wrappers validate dtype, shape and contiguity for the kernels;
+    the checks themselves are plain Python and run here."""
+    from grape_tpu_torch.ops.hopper_prop import (
+        _check_generator_args, _check_tensor,
+    )
+
+    d, T, N = 4, 2, 3
+    H0 = torch.zeros((d, d), dtype=torch.complex64)
+    ops = torch.zeros((T, d, d), dtype=torch.complex64)
+    co = torch.zeros((N, T), dtype=torch.float32)
+    dts = torch.zeros((N,), dtype=torch.float32)
+    assert _check_generator_args(H0, ops, co, dts) == (T, d, N)
+    with pytest.raises(ValueError, match="complex64"):
+        _check_generator_args(H0.to(torch.complex128), ops, co, dts)
+    with pytest.raises(ValueError, match="float32"):
+        _check_generator_args(H0, ops, co.double(), dts)
+    with pytest.raises(ValueError, match="shape"):
+        _check_generator_args(H0, ops, co, dts[:2])
+    with pytest.raises(ValueError, match="contiguous"):
+        _check_tensor("x", ops.transpose(1, 2), torch.complex64, (T, d, d),
+                      ops.device)

@@ -1,0 +1,166 @@
+"""End to end through ``grape_tpu_torch.optimize(..., device="cpu")`` in
+complex128: the reference anchors of the TLS state transfer, the golden
+J_T series recorded from the JAX package, exception capture, and the
+options that are not ported yet."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import grape_tpu_torch as gt
+from grape_tpu_torch import optimize, optimize_problem
+from grape_tpu_torch.functionals import J_T_sm
+from grape_tpu_torch.models import tls_problem, two_transmon_cz_problem
+
+torch.set_num_threads(1)
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "traces.json")
+
+
+def _tls_quickstart():
+    def eps(t):
+        return 0.2 * float(gt.shapes.flattop(t, T=5, t_rise=0.3,
+                                             func="blackman"))
+
+    sz = np.array([[1, 0], [0, -1]], dtype=complex)
+    sx = np.array([[0, 1], [1, 0]], dtype=complex)
+    H = gt.hamiltonian(-0.5 * sz, (sx, eps))
+    tlist = np.linspace(0, 5, 501)
+    return [gt.Trajectory([1, 0], H, target_state=[0, 1])], tlist
+
+
+def test_tls_anchor(capsys):
+    trajs, tlist = _tls_quickstart()
+    res = optimize(trajs, tlist, iter_stop=5, J_T=J_T_sm, device="cpu")
+    assert res.J_T < 1e-3
+    assert 0.75 < np.max(np.abs(res.optimized_controls[0])) < 0.85
+    assert res.iter == 5 and res.converged
+    assert res.message == "Reached maximum number of iterations"
+    header = capsys.readouterr().out.splitlines()[0]
+    assert header.split() == [
+        "iter.", "J_T", "ǁ∇Jǁ", "ǁΔϵǁ", "ΔJ", "FG(F)", "secs",
+    ]
+
+
+def test_bounds_anchor():
+    trajs, tlist = _tls_quickstart()
+    res = optimize(
+        trajs, tlist, iter_stop=5, J_T=J_T_sm, device="cpu",
+        lower_bound=-0.7, upper_bound=0.7, print_iters=False,
+    )
+    assert np.max(np.abs(res.optimized_controls[0])) <= 0.700001
+    assert res.J_T < 0.1
+
+
+def test_tls_golden_trace():
+    """The per-iteration J_T series of the JAX package's ``tls_gradgen``
+    golden trace, within the band the golden-trace tests use."""
+    with open(GOLDEN) as f:
+        golden = json.load(f)["tls_gradgen"]
+    trace = []
+    res = optimize_problem(
+        tls_problem(n_steps=500, T=5.0, J_T=J_T_sm, iter_stop=5),
+        callback=lambda wrk, it: trace.append(float(wrk.result.J_T)),
+        print_iters=False, rethrow_exceptions=True, device="cpu",
+    )
+    assert len(trace) == len(golden["J_T_trace"])
+    np.testing.assert_allclose(
+        trace, golden["J_T_trace"], rtol=1e-3, atol=1e-10
+    )
+    assert res.iter == golden["iter"]
+    assert res.converged == golden["converged"]
+    assert res.message == golden["message"]
+    assert res.J_T < 1e-3
+
+
+def test_cz_small_optimizes_in_both_precisions():
+    """The gate problem through optimize_problem: complex128 (plain path) and
+    complex64 (the kernels' plain versions) both descend, and agree."""
+    finals = {}
+    for dtype in (np.complex128, np.complex64):
+        trace = []
+        res = optimize_problem(
+            two_transmon_cz_problem(d=3, n_steps=20, T=5.0, iter_stop=3),
+            callback=lambda wrk, it: trace.append(float(wrk.result.J_T)),
+            print_iters=False, rethrow_exceptions=True, device="cpu",
+            dtype=dtype,
+        )
+        assert all(b < a for a, b in zip(trace, trace[1:])), trace
+        assert res.fg_calls >= 4
+        finals[dtype] = trace
+    np.testing.assert_allclose(
+        finals[np.complex64], finals[np.complex128], rtol=1e-3
+    )
+
+
+def test_exception_is_captured_in_the_message():
+    trajs, tlist = _tls_quickstart()
+
+    def J_T_bad(Psi, trajectories):
+        raise ValueError("boom")
+
+    res = optimize(trajs, tlist, iter_stop=2, J_T=J_T_bad, device="cpu",
+                   print_iters=False)
+    assert res.message.startswith("Exception:") and "boom" in res.message
+    with pytest.raises(ValueError, match="boom"):
+        optimize(trajs, tlist, iter_stop=2, J_T=J_T_bad, device="cpu",
+                 print_iters=False, rethrow_exceptions=True)
+
+
+def test_check_convergence_and_records():
+    trajs, tlist = _tls_quickstart()
+    res = optimize(
+        trajs, tlist, iter_stop=20, J_T=J_T_sm, device="cpu",
+        print_iters=False, store_iter_info=["iter.", "J_T"],
+        check_convergence=lambda r: "J_T < 0.03" if r.J_T < 0.03 else "",
+    )
+    assert res.converged and res.message == "J_T < 0.03"
+    assert res.iter == 2
+    assert [r[0] for r in res.records] == [0, 1, 2]
+
+
+UNPORTED = {
+    "gradient_method": "taylor",
+    "prop_method": "cheby",
+    "fw_prop_method": "newton",
+    "storage_mode": "recompute",
+    "g_b": lambda Psi, trajectories, tlist, n: Psi.abs().sum(-1),
+    "xi": lambda Psi, trajectories, tlist, n: Psi,
+    "mesh": object(),
+    "optimizer": "scipy-lbfgsb",
+    "fw_prop_callback": lambda values, tlist: None,
+    "eval_device_calls": 4,
+    "reuse_propagators": False,
+    "taylor_grad_max_order": 50,
+}
+
+
+@pytest.mark.parametrize("option", sorted(UNPORTED))
+def test_unported_option_raises(option):
+    trajs, tlist = _tls_quickstart()
+    with pytest.raises(NotImplementedError, match=option.split("_")[0]):
+        optimize(trajs, tlist, J_T=J_T_sm, device="cpu", print_iters=False,
+                 rethrow_exceptions=True, **{option: UNPORTED[option]})
+
+
+def test_unported_constructs_raise():
+    trajs, tlist = _tls_quickstart()
+    with pytest.raises(NotImplementedError, match="CustomAmplitude"):
+        gt.CustomAmplitude(lambda v, t: v[0] ** 2, lambda t: 0.1)
+    with pytest.raises(NotImplementedError, match="krotov"):
+        optimize_problem(tls_problem(J_T=J_T_sm), method="krotov",
+                         device="cpu")
+    # two different Hamiltonians: per-trajectory generators
+    H2 = gt.hamiltonian(
+        np.diag([0.3, -0.3]).astype(complex),
+        (np.array([[0, 1], [1, 0]], dtype=complex), lambda t: 0.1),
+    )
+    other = gt.Trajectory([0, 1], H2, target_state=[1, 0])
+    with pytest.raises(NotImplementedError, match="per-trajectory"):
+        gt.compile_problem(trajs + [other], tlist, J_T=J_T_sm, device="cpu")
+    with pytest.raises(TypeError, match="no_such_option"):
+        optimize(trajs, tlist, J_T=J_T_sm, device="cpu", print_iters=False,
+                 rethrow_exceptions=True, no_such_option=1)
