@@ -3,15 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from ``grape_tpu_torch/csrc`` and holds each
-against its plain PyTorch version on the card at the main path's shapes
-(the two-transmon CZ gate: dim = 100, K = 4 trajectories, T = 4 control
-terms, N_T = 2000 steps) and at a few other shapes, then runs the same
-problem through ``compile_problem`` / ``build_fg`` and through five
-L-BFGS-B iterations of ``optimize_problem``, and checks that every
-evaluation went through the kernels.  Each phase prints one JSON line and raises on failure; the last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
-script exits with a non-zero code and prints no result.
+Builds the CUDA kernels from ``grape_tpu_torch/csrc`` and holds each wrapper
+against its plain PyTorch version on the card at the shapes of the paths
+that use it and at a few other shapes, then drives two paths through
+``compile_problem`` / ``build_fg`` and through five L-BFGS-B iterations of
+``optimize_problem`` each, and checks that every evaluation went through
+the kernels:
+
+- the two-transmon CZ gate (dim = 100, K = 4 trajectories under one shared
+  generator, T = 4 control terms, N_T = 2000 steps);
+- its robust ensemble (8 Hamiltonian samples x 4 basis states: K = 32
+  trajectories in G = 8 generator groups of 4), and the same ensemble with
+  one generator per trajectory (group size 1), whose propagator stream is
+  past its storage budget and is formed again for the co-state chain.
+
+Each phase prints one JSON line and raises on failure; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
+with a non-zero code and prints no result.
 
 Imports ``grape_tpu_torch`` (from the directory of this script) and nothing
 of JAX or of the JAX package.
@@ -30,8 +38,9 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-# main-path configuration (BASELINE config 4)
+# main-path configurations (BASELINE configs 4 and 5)
 D_TRANSMON, N_STEPS, ITER_STOP = 10, 2000, 5
+N_SAMPLES, N_BASIS = 8, 4
 SEED = 0
 
 # published peaks of one H100 SXM (dense, no sparsity)
@@ -55,8 +64,9 @@ def require(cond, msg):
         raise AssertionError(msg)
 
 
-def median_ms(fn, reps=5):
-    """Median CUDA-event time of ``fn`` in ms, after one warm call."""
+def median_ms(fn, reps=5, runs=None):
+    """Median CUDA-event time of ``fn`` in ms, after one warm call; the
+    single times are appended to ``runs`` where one is given."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -68,7 +78,27 @@ def median_ms(fn, reps=5):
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
+    if runs is not None:
+        runs.extend(times)
     return float(np.median(times))
+
+
+def under_load(fn, n):
+    """SM clock (MHz) and power draw (W) as ``nvidia-smi`` reads them while
+    ``n`` launches of ``fn`` are in flight: a card that holds its clock
+    over a 50 ms kernel may not hold it over half a second of the same
+    arithmetic."""
+    for _ in range(n):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    sm, power = (float(v) for v in out.split(","))
+    return {"launches_in_flight": n, "clocks_sm_mhz": sm,
+            "power_draw_w": power}
 
 
 def max_abs(a, b):
@@ -120,6 +150,480 @@ def frechet_needed_flops(d, K, T, N_T, s):
     return N_T * min(factored, dense)
 
 
+def zero_counts(*modules):
+    for mod in modules:
+        for key in mod.launches:
+            mod.launches[key] = 0
+
+
+def read_counts(*modules):
+    out = {}
+    for mod in modules:
+        out.update(mod.launches)
+    return out
+
+
+def finite(*tensors):
+    return all(bool(torch.isfinite(torch.view_as_real(x)).all())
+               for x in tensors)
+
+
+def random_group_inputs(rng, dev, d, G, gs, T, N_T, hscale, per_group):
+    """Seeded random grouped kernel inputs on the card: Hermitian drifts
+    and operators per group, a coefficient table (one, or one per group),
+    slightly uneven time steps, unit-norm states and co-states."""
+    c64 = lambda x: torch.tensor(x, dtype=torch.complex64, device=dev)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+
+    def herm(*shape):
+        A = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+        return (A + A.conj().swapaxes(-1, -2)) / np.sqrt(shape[-1])
+
+    def unit(K):
+        v = rng.normal(size=(K, d)) + 1j * rng.normal(size=(K, d))
+        return c64(v / np.linalg.norm(v, axis=1, keepdims=True))
+
+    shape = (G, N_T, T) if per_group else (N_T, T)
+    return (c64(hscale * herm(G, d, d)), c64(herm(G, T, d, d)),
+            f32(0.3 * rng.normal(size=shape)),
+            f32(0.025 * (1 + 0.1 * rng.uniform(size=N_T))),
+            unit(G * gs), unit(G * gs))
+
+
+def ensemble_kernel_phases(cp, s_main, rng, dev):
+    """Phases ``kernel_check_ensemble`` and ``kernel_shapes_ensemble`` and
+    the times of the ensemble wrappers at the ensemble path's shapes.
+
+    Returns ``{name: {"err", "ms", "plain_ms", "flops", "bytes",
+    "library_ms", ...}}`` for ``forward_scan_grouped``,
+    ``forward_scan_pertraj``, ``chi_scan_grouped``, ``chi_scan_recompute``
+    and ``frechet_trace_pertraj``."""
+    from grape_tpu_torch.ops import hopper_frechet as hf
+    from grape_tpu_torch.ops import hopper_prop as hp
+    from grape_tpu_torch.ops import plain_versions
+
+    c64 = lambda x: torch.tensor(x, dtype=torch.complex64, device=dev)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    d, K, N_T = cp.dim, cp.n_traj, cp.n_timesteps
+    G, T, L = cp.H0.shape[0], cp.ops.shape[1], cp.n_controls
+    gs = K // G
+    H0g, opsg = c64(cp.H0), c64(cp.ops)
+    # one generator per trajectory: the same operators repeated gs times
+    H0k = H0g.repeat_interleave(gs, dim=0).contiguous()
+    opsk = opsg.repeat_interleave(gs, dim=0).contiguous()
+    eps = cp.guess_pulsevals + 0.02 * rng.normal(size=(L, N_T))
+    coeffs = f32(np.einsum("ntl,ln->nt", cp.M, eps) + cp.Mfix)
+    dts = f32(np.diff(cp.tlist))
+    psi0 = c64(cp.psi0)
+    chi0 = rng.normal(size=(K, d)) + 1j * rng.normal(size=(K, d))
+    chi0 = c64(chi0 / np.linalg.norm(chi0, axis=1, keepdims=True))
+
+    names = ("forward_scan_grouped", "forward_scan_pertraj",
+             "chi_scan_grouped", "chi_scan_recompute",
+             "frechet_trace_pertraj")
+    out = {name: {"err": 0.0} for name in names}
+    checks = []
+    for s in sorted({s_main, 2}):
+        st, U = hp.forward_scan_grouped(H0g, opsg, coeffs, dts, psi0, gs, s)
+        st_k, U_k = hp.forward_scan_pertraj(H0k, opsk, coeffs, dts, psi0, s)
+        st_w, U_w = hp.forward_scan_pertraj(H0k, opsk, coeffs, dts, psi0, s,
+                                            with_propagators=False)
+        chis = hp.chi_scan_grouped(U, chi0)
+        chis_r = hp.chi_scan_recompute(H0k, opsk, coeffs, dts, chi0, s)
+        psis = st[:-1].contiguous()
+        trj = hf.frechet_trace_pertraj(H0g, opsg, coeffs, dts, psis, chis, s,
+                                       group_size=gs)
+        trj_k = hf.frechet_trace_pertraj(H0k, opsk, coeffs, dts, psis, chis,
+                                         s)
+        torch.cuda.synchronize()
+        with plain_versions():
+            st_p, U_p = hp.forward_scan_grouped(H0g, opsg, coeffs, dts, psi0,
+                                                gs, s)
+            chis_p = hp.chi_scan_grouped(U, chi0)
+            trj_p = hf.frechet_trace_pertraj(H0g, opsg, coeffs, dts, psis,
+                                             chis, s, group_size=gs)
+        torch.cuda.synchronize()
+        require(finite(st, U, st_k, U_k, st_w, chis, chis_r, trj, trj_k),
+                f"an ensemble kernel output is not finite at s={s}")
+        require(st.shape == (N_T + 1, K, d) and U.shape == (N_T, G, d, d)
+                and U_k.shape == (N_T, K, d, d) and U_w is None
+                and chis.shape == (N_T, K, d) and trj.shape == (N_T, K, T),
+                "an ensemble kernel output has the wrong shape")
+        # the per-trajectory versions on repeated operators compute the
+        # grouped versions' function: held against the same plain results
+        U_pk = U_p.repeat_interleave(gs, dim=1)
+        scale = max(float(trj_p.abs().max()), 1.0)
+        e = {
+            "forward_scan_grouped": max(max_abs(st, st_p), max_abs(U, U_p)),
+            "forward_scan_pertraj": max(max_abs(st_k, st_p),
+                                        max_abs(U_k, U_pk),
+                                        max_abs(st_w, st_p)),
+            "chi_scan_grouped": max_abs(chis, chis_p),
+            "chi_scan_recompute": max_abs(chis_r, chis_p),
+            "frechet_trace_pertraj": max(max_abs(trj, trj_p),
+                                         max_abs(trj_k, trj_p)),
+        }
+        del U_k, U_pk, U_p
+        checks.append({"s": s, **e, "trj_scale": scale,
+                       "trj_max": float(trj_p.abs().max())})
+        for name, val in e.items():
+            tol = TOL_TRJ * scale if name.startswith("frechet") else TOL_STATE
+            require(val < tol, f"{name} disagrees with its plain version "
+                    f"at s={s}: {val} (tolerance {tol})")
+            out[name]["err"] = max(out[name]["err"], val)
+    emit({"phase": "kernel_check_ensemble",
+          "shape": {"d": d, "G": G, "gs": gs, "K": K, "T": T, "N_T": N_T},
+          "s_main_path": s_main, "tol_state": TOL_STATE,
+          "tol_trj_of_scale": TOL_TRJ, "checks": checks})
+
+    # ragged and edge shapes: group sizes that do not fill a scan block of
+    # 4 or straddle two, one group, K not a multiple of 4, tiny and ragged
+    # d, one step, a coefficient table per group; windows of 3 steps for
+    # the versions that keep no propagator stream
+    shape_checks = []
+    for (d_, G_, gs_, T_, N_, s_, h_, pg_) in [
+            (64, 3, 1, 2, 40, 1, 20.0, False),
+            (5, 2, 3, 3, 9, 4, 100.0, True),
+            (130, 2, 5, 1, 3, 1, 20.0, False),
+            (2, 1, 1, 1, 1, 0, 5.0, True),
+            (64, 1, 7, 2, 30, 0, 10.0, False),
+            (100, 3, 4, 4, 10, 2, 40.0, True),
+            (5, 5, 1, 2, 500, 0, 5.0, True)]:
+        Hs, Os, cs, ts, p0, x0_ = random_group_inputs(
+            rng, dev, d_, G_, gs_, T_, N_, h_, pg_)
+        window_bytes = hp._WINDOW_BYTES
+
+        def run():
+            st, U = hp.forward_scan_grouped(Hs, Os, cs, ts, p0, gs_, s_)
+            chis = hp.chi_scan_grouped(U, x0_)
+            hp._WINDOW_BYTES = 3 * G_ * d_ * d_ * 8
+            try:
+                st_w, _ = hp.forward_scan_grouped(
+                    Hs, Os, cs, ts, p0, gs_, s_, with_propagators=False)
+                chis_r = hp.chi_scan_recompute(Hs, Os, cs, ts, x0_, s_)
+            finally:
+                hp._WINDOW_BYTES = window_bytes
+            trj = hf.frechet_trace_pertraj(
+                Hs, Os, cs, ts, st[:-1].contiguous(), chis, s_,
+                group_size=gs_)
+            return st, U, chis, st_w, chis_r, trj
+
+        got = run()
+        torch.cuda.synchronize()
+        with plain_versions():
+            want = run()
+        scale = max(float(want[5].abs().max()), 1.0)
+        errs = [max_abs(a, b) for a, b in zip(got, want)]
+        errs[5] /= scale
+        shape_checks.append({"d": d_, "G": G_, "gs": gs_, "T": T_, "N_T": N_,
+                             "s": s_, "table_per_group": pg_,
+                             "max_abs_err": max(errs)})
+        require(max(errs) < TOL_TRJ, "ensemble kernels disagree with their "
+                f"plain versions at shape {shape_checks[-1]}: {errs}")
+    # identical operators in every group: the grouped and per-trajectory
+    # wrappers must give what the shared-generator wrappers give
+    d_, G_, gs_, T_, N_, s_ = 64, 2, 3, 2, 50, 1
+    Hs, Os, cs, ts, p0, x0_ = random_group_inputs(
+        rng, dev, d_, 1, G_ * gs_, T_, N_, 20.0, False)
+    Hg, Og = Hs.repeat(G_, 1, 1), Os.repeat(G_, 1, 1, 1)
+    Hk, Ok = Hs.repeat(G_ * gs_, 1, 1), Os.repeat(G_ * gs_, 1, 1, 1)
+    st_s, U_s = hp.forward_scan_shared(Hs[0], Os[0], cs, ts, p0, s_)
+    st_g, U_g = hp.forward_scan_grouped(Hg, Og, cs, ts, p0, gs_, s_)
+    st_k, U_k = hp.forward_scan_pertraj(Hk, Ok, cs, ts, p0, s_)
+    chis_s = hp.chi_scan_shared(U_s, x0_)
+    chis_g = hp.chi_scan_grouped(U_g, x0_)
+    psis = st_s[:-1].contiguous()
+    trj_s = hf.frechet_trace_shared(Hs[0], Os[0], cs, ts, psis, chis_s, s_)
+    trj_g = hf.frechet_trace_pertraj(Hg, Og, cs, ts, psis, chis_s, s_,
+                                     group_size=gs_)
+    trj_k = hf.frechet_trace_pertraj(Hk, Ok, cs, ts, psis, chis_s, s_)
+    same = max(
+        max_abs(st_g, st_s), max_abs(st_k, st_s),
+        max_abs(U_g, U_s[:, None].expand_as(U_g)),
+        max_abs(U_k, U_s[:, None].expand_as(U_k)),
+        max_abs(chis_g, chis_s), max_abs(trj_g, trj_s),
+        max_abs(trj_k, trj_s),
+    )
+    require(same < 1e-6, "with identical operators the grouped kernels "
+            f"differ from the shared ones by {same}")
+    emit({"phase": "kernel_shapes_ensemble", "tol": TOL_TRJ,
+          "checks": shape_checks, "identical_operators_max_abs_diff": same})
+    del st_s, U_s, st_g, U_g, st_k, U_k
+
+    # ---- times at the ensemble path's shapes and squaring count ----------
+    s = s_main
+    st, U = hp.forward_scan_grouped(H0g, opsg, coeffs, dts, psi0, gs, s)
+    chis = hp.chi_scan_grouped(U, chi0)
+    psis = st[:-1].contiguous()
+    calls = {
+        "forward_scan_grouped": lambda: hp.forward_scan_grouped(
+            H0g, opsg, coeffs, dts, psi0, gs, s),
+        # as the per-trajectory path calls it at this size: no stream kept
+        "forward_scan_pertraj": lambda: hp.forward_scan_pertraj(
+            H0k, opsk, coeffs, dts, psi0, s, with_propagators=False),
+        "chi_scan_grouped": lambda: hp.chi_scan_grouped(U, chi0),
+        "chi_scan_recompute": lambda: hp.chi_scan_recompute(
+            H0k, opsk, coeffs, dts, chi0, s),
+        "frechet_trace_pertraj": lambda: hf.frechet_trace_pertraj(
+            H0g, opsg, coeffs, dts, psis, chis, s, group_size=gs),
+    }
+    for name, fn in calls.items():
+        out[name]["ms_runs"] = []
+        out[name]["ms"] = median_ms(fn, runs=out[name]["ms_runs"])
+    with plain_versions():
+        for name, fn in calls.items():
+            heavy = name in ("forward_scan_pertraj", "chi_scan_recompute")
+            out[name]["plain_ms"] = median_ms(fn, reps=1 if heavy else 3)
+    out["forward_scan_grouped"]["propagators_only_ms"] = median_ms(
+        lambda: hp.propagators(H0g, opsg, coeffs, dts, s))
+    out["forward_scan_pertraj"]["with_propagators_ms"] = median_ms(
+        lambda: hp.forward_scan_pertraj(H0k, opsk, coeffs, dts, psi0, s),
+        reps=3)
+    out["frechet_trace_pertraj"]["under_load"] = under_load(
+        calls["frechet_trace_pertraj"], 3)
+    out["frechet_trace_pertraj"]["group_size_1_ms"] = median_ms(
+        lambda: hf.frechet_trace_pertraj(H0k, opsk, coeffs, dts, psis, chis,
+                                         s), reps=3)
+    # the same launches with the cached device memory handed back first,
+    # so that the kernel's scratch is a fresh allocation: fg evaluations
+    # holding this kernel spread far more than its median alone does
+    torch.cuda.empty_cache()
+    fresh = out["frechet_trace_pertraj"]["fresh_scratch_ms_runs"] = []
+    median_ms(calls["frechet_trace_pertraj"], reps=3, runs=fresh)
+    trj = calls["frechet_trace_pertraj"]()
+
+    cmm = 8.0 * d ** 3
+    apply_flops = 8.0 * K * d * d
+    out["forward_scan_grouped"].update(
+        flops=N_T * (G * (6 + s) * cmm + apply_flops),
+        bytes=nbytes(H0g, opsg, coeffs, dts, psi0, st, U))
+    out["forward_scan_pertraj"].update(
+        flops=N_T * (K * (6 + s) * cmm + apply_flops),
+        bytes=nbytes(H0k, opsk, coeffs, dts, psi0, st))
+    out["chi_scan_grouped"].update(
+        flops=(N_T - 1) * apply_flops, bytes=nbytes(U, chi0, chis))
+    out["chi_scan_recompute"].update(
+        flops=N_T * K * (6 + s) * cmm + (N_T - 1) * apply_flops,
+        bytes=nbytes(H0k, opsk, coeffs, dts, chi0, chis))
+    out["frechet_trace_pertraj"].update(
+        flops=G * frechet_needed_flops(d, gs, T, N_T, s),
+        bytes=nbytes(H0g, opsg, coeffs, dts, psis, chis, trj),
+        algorithm_flops=N_T * G * (
+            (5 + s) * cmm + gs * ((12 + 2 * s) * cmm + 8.0 * T * d * d)))
+    del st, U, chis, psis, trj, calls
+    torch.cuda.empty_cache()
+
+    # yardstick for the propagator half of the forward scans: the library
+    # call that computes the same exponentials (never used by the port).
+    # One call on all N_T * K = 64000 matrices of the per-trajectory scan
+    # reserves about 66 GB of workspace and faults with an illegal memory
+    # access when that is not free (torch 2.11.0+cu128), so that scan's
+    # yardstick is the sum over gs calls of N_T * G matrices each.
+    co_c = coeffs.to(torch.complex64)
+    a_c = (-1j * dts.to(torch.complex64))[:, None, None, None]
+    for name, Hx, Ox, parts in (("forward_scan_grouped", H0g, opsg, 1),
+                                ("forward_scan_pertraj", H0k, opsk, gs)):
+        total = 0.0
+        for steps in torch.arange(N_T, device=dev).chunk(parts):
+            A_lib = (a_c[steps] * (Hx[None] + torch.einsum(
+                "nt,gtij->ngij", co_c[steps], Ox))).reshape(-1, d, d)
+            total += median_ms(lambda: torch.linalg.matrix_exp(A_lib),
+                               reps=3)
+            shape = tuple(A_lib.shape)
+            del A_lib
+            torch.cuda.empty_cache()
+        out[name]["library_ms"] = total
+        out[name]["library_call"] = (
+            f"torch.linalg.matrix_exp on {shape}, {parts} call(s) summed: "
+            "the propagators only")
+    for name in ("chi_scan_grouped", "chi_scan_recompute",
+                 "frechet_trace_pertraj"):
+        out[name]["library_ms"] = None
+    return out
+
+
+def fg_against_plain(fg, x0, what):
+    """One evaluation through the kernels and one with the plain versions
+    forced, on the same pulse: ``(J, g, aux, |ΔJ|, gradient difference as
+    a share of its max)``, held to 1e-5 and 2e-3."""
+    from grape_tpu_torch.ops import plain_versions
+
+    J, g, aux = fg(x0)
+    torch.cuda.synchronize()
+    with plain_versions():
+        J_p, g_p, _ = fg(x0)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(g).all()) and math.isfinite(float(J))
+            and bool(aux["chi_ok"]), f"{what}: fg output is not finite")
+    dJ = abs(float(J) - float(J_p))
+    dg = max_abs(g, g_p) / float(g_p.abs().max())
+    require(dJ < 1e-5, f"{what}: J kernels {float(J)} vs plain {float(J_p)}")
+    require(dg < 2e-3, f"{what}: gradient differs by {dg} of its max")
+    return J, g, aux, dJ, dg
+
+
+def timed_ms(fn, reps):
+    """Host-clock ms per call of ``fn`` over ``reps`` calls, synchronised."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def ensemble_paths(problem, cp, s_ens):
+    """Phases ``fg_ensemble`` and ``optimize_ensemble``: the grouped path
+    (8 groups of 4) and the per-trajectory path (group size 1), each with
+    the launch counts set to 0 just before and read just after.  Returns
+    the two count dictionaries."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.fg import (
+        _effective_group_size, _gg_u_bytes_ok, _static_squarings,
+    )
+    from grape_tpu_torch.functionals import make_ensemble_gate_functional
+    from grape_tpu_torch.models import two_transmon_cz_ensemble_problem
+    from grape_tpu_torch.ops import hopper_frechet, hopper_prop
+
+    K, d, N_T, L = cp.n_traj, cp.dim, cp.n_timesteps, cp.n_controls
+    x0 = cp.guess_pulsevals.reshape(-1)
+
+    # the per-trajectory problems are built before any count is set to 0:
+    # (a) the SAME operators under one generator object per trajectory,
+    # (b) 32 samples that really differ, one basis state of each
+    rebuilt = [
+        gt.Trajectory(t.initial_state,
+                      gt.hamiltonian(t.generator.drift, *t.generator.terms),
+                      target_state=t.target_state)
+        for t in problem.trajectories
+    ]
+    cp_same = gt.compile_problem(rebuilt, problem.tlist, dtype=np.complex64,
+                                 **problem.kwargs)
+    wide = two_transmon_cz_ensemble_problem(
+        n_samples=K, d=D_TRANSMON, n_steps=N_STEPS, seed=SEED + 1)
+    distinct = [wide.trajectories[N_BASIS * i + i % N_BASIS]
+                for i in range(K)]
+    cp_diff = gt.compile_problem(distinct, wide.tlist, dtype=np.complex64,
+                                 J_T=make_ensemble_gate_functional(N_BASIS))
+    for c in (cp_same, cp_diff):
+        require(c.H0.shape[0] == K and _effective_group_size(c) == 1
+                and not c.shared_generator and not _gg_u_bytes_ok(c),
+                "the per-trajectory problems must hold K generators and a "
+                "propagator stream past its budget")
+    require(_gg_u_bytes_ok(cp) and _effective_group_size(cp) == N_BASIS,
+            "the grouped problem must keep its propagator stream")
+
+    # a d = 3 ensemble in complex64 through the kernels against complex128
+    # plain (Padé-13), both on the card
+    small = two_transmon_cz_ensemble_problem(n_samples=3, d=3, n_steps=20,
+                                             T=5.0)
+    cp64, cp128 = (
+        gt.compile_problem(small.trajectories, small.tlist, dtype=dt,
+                           **small.kwargs)
+        for dt in (np.complex64, np.complex128)
+    )
+    xs = cp64.guess_pulsevals.reshape(-1)
+    Js, gs_, _ = gt.build_fg(cp64)(xs)
+    Jr, gr, _ = gt.build_fg(cp128)(xs)
+    dJs = abs(float(Js) - float(Jr))
+    dgs = float((gs_.double() - gr).abs().max() / gr.abs().max())
+    require(dJs < 1e-5 and dgs < 2e-3,
+            f"small ensemble: dJ {dJs}, dgrad {dgs}")
+
+    # ---- the grouped path: every count set to 0 just before --------------
+    zero_counts(hopper_prop, hopper_frechet)
+    fg = gt.build_fg(cp)
+    J, g, aux, dJ, dg = fg_against_plain(fg, x0, "fg_ensemble")
+    n_fg = 1
+    require(g.shape == (L * N_T,) and g.device.type == "cuda"
+            and aux["psi_T"].shape == (K, d),
+            "fg_ensemble output has the wrong shape or device")
+    reps = 3
+    fg_ms = timed_ms(lambda: fg(x0), reps)
+    n_fg += reps
+
+    series, iter_secs, iter_fg = [], [], []
+
+    def record(wrk, iteration):
+        series.append(float(wrk.result.J_T))
+        iter_secs.append(float(wrk.result.secs))
+        iter_fg.append(int(wrk.fg_count[0]))
+
+    t0 = time.perf_counter()
+    res = gt.optimize_problem(
+        problem, iter_stop=ITER_STOP, dtype=np.complex64, print_iters=False,
+        rethrow_exceptions=True, callback=record,
+    )
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    # one more evaluation at once: a card that lost clock over the run
+    # shows it here against ms_per_eval above
+    fg_ms_after = timed_ms(lambda: fg(x0), 1)
+    counts = read_counts(hopper_prop, hopper_frechet)
+    n_fg += res.fg_calls + 1
+    require(len(series) == ITER_STOP + 1 and res.iter == ITER_STOP,
+            f"optimize_ensemble: {res.message}, series {series}")
+    require(all(math.isfinite(v) for v in series)
+            and all(b < a for a, b in zip(series, series[1:])),
+            f"ensemble J_T does not fall monotonically: {series}")
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"forward_scan_grouped": n_fg + res.f_calls,
+                   "chi_scan_grouped": n_fg, "frechet_trace_pertraj": n_fg})
+    require(counts == expect, f"ensemble launch counts {counts} do not "
+            f"match the evaluations {expect}")
+
+    # ---- the per-trajectory path: counts set to 0 again -------------------
+    zero_counts(hopper_prop, hopper_frechet)
+    J_same, g_same, _ = gt.build_fg(cp_same)(x0)
+    torch.cuda.synchronize()
+    dJ_same = abs(float(J_same) - float(J))
+    dg_same = max_abs(g_same, g) / float(g.abs().max())
+    require(dJ_same < 1e-5 and dg_same < 2e-3,
+            "one generator per trajectory with the grouped problem's "
+            f"operators: dJ {dJ_same}, dgrad {dg_same} against the grouped "
+            "path")
+    fg_diff = gt.build_fg(cp_diff)
+    x_diff = cp_diff.guess_pulsevals.reshape(-1)
+    J_d, g_d, _, dJ_d, dg_d = fg_against_plain(fg_diff, x_diff,
+                                               "fg_ensemble distinct")
+    fg_diff_ms = timed_ms(lambda: fg_diff(x_diff), 2)
+    Jf, _ = gt.build_f(cp_diff)(x_diff)
+    require(abs(float(Jf) - float(J_d)) < 1e-5,
+            "build_f disagrees with build_fg on the distinct ensemble")
+    counts_k = read_counts(hopper_prop, hopper_frechet)
+    expect = dict.fromkeys(counts_k, 0)
+    expect.update({"forward_scan_pertraj": 5, "chi_scan_recompute": 4,
+                   "frechet_trace_pertraj": 4})
+    require(counts_k == expect, f"per-trajectory launch counts {counts_k} "
+            f"do not match the evaluations {expect}")
+
+    emit({"phase": "fg_ensemble", "J": float(J),
+          "grad_norm": float(g.norm()), "ms_per_eval": fg_ms,
+          "J_abs_diff_vs_plain": dJ, "grad_diff_of_max_vs_plain": dg,
+          "squarings": s_ens, "dtype": "complex64",
+          "small_d3": {"J_complex64_kernels": float(Js),
+                       "J_complex128_plain": float(Jr), "J_abs_diff": dJs,
+                       "grad_diff_of_max": dgs},
+          "per_trajectory": {
+              "same_operators_J_abs_diff_vs_grouped": dJ_same,
+              "same_operators_grad_diff_of_max_vs_grouped": dg_same,
+              "distinct_J": float(J_d), "distinct_ms_per_eval": fg_diff_ms,
+              "distinct_J_abs_diff_vs_plain": dJ_d,
+              "distinct_grad_diff_of_max_vs_plain": dg_d,
+              "squarings": _static_squarings(cp_diff),
+              "launches": counts_k}})
+    steady_s = sum(iter_secs[1:])
+    emit({"phase": "optimize_ensemble", "J_T_series": series,
+          "iterations": res.iter, "seconds": opt_s,
+          "iters_per_second": res.iter / opt_s,
+          "iteration_seconds": iter_secs, "iteration_fg_calls": iter_fg,
+          "steady_ms_per_fg": steady_s / max(sum(iter_fg[1:]), 1) * 1e3,
+          "steady_iters_per_second": ITER_STOP / steady_s,
+          "fg_calls": res.fg_calls, "f_calls": res.f_calls,
+          "fg_ms_right_after": fg_ms_after,
+          "message": res.message, "launches": counts})
+    return counts, counts_k
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: "
@@ -129,7 +633,10 @@ def main():
 
     import grape_tpu_torch as gt
     from grape_tpu_torch.fg import _static_squarings
-    from grape_tpu_torch.models import two_transmon_cz_problem
+    from grape_tpu_torch.functionals import make_ensemble_gate_functional
+    from grape_tpu_torch.models import (
+        two_transmon_cz_ensemble_problem, two_transmon_cz_problem,
+    )
     from grape_tpu_torch.ops import _build, hopper_frechet, hopper_prop
     from grape_tpu_torch.ops import plain_versions
     from grape_tpu_torch.optimizers import lbfgsb
@@ -302,6 +809,20 @@ def main():
     }
     propagators_ms = median_ms(
         lambda: hopper_prop.propagators_shared(H0, ops, coeffs, dts, s))
+    frechet_under_load = under_load(
+        lambda: hopper_frechet.frechet_trace_shared(
+            H0, ops, coeffs, dts, psis, chis, s), 20)
+    # is the Frechet kernel's time linear in the number of (step, group)
+    # items?  The same launch on the time grid repeated 2, 4 and 8 times
+    # (8 x 2000 steps is the ensemble path's item count)
+    frechet_ms_by_steps = {}
+    for mult in (1, 2, 4, 8):
+        co_m, dts_m = coeffs.repeat(mult, 1), dts.repeat(mult)
+        psis_m, chis_m = psis.repeat(mult, 1, 1), chis.repeat(mult, 1, 1)
+        frechet_ms_by_steps[N_T * mult] = median_ms(
+            lambda: hopper_frechet.frechet_trace_shared(
+                H0, ops, co_m, dts_m, psis_m, chis_m, s), reps=3)
+    del co_m, dts_m, psis_m, chis_m
     with plain_versions():
         plain_ms = {
             "forward_scan_shared": median_ms(
@@ -340,6 +861,21 @@ def main():
                                        trj),
     }
 
+    # ---- the ensemble path's problem and its kernels ----------------------
+    ens_problem = two_transmon_cz_ensemble_problem(
+        n_samples=N_SAMPLES, d=D_TRANSMON, n_steps=N_STEPS)
+    cp_ens = gt.compile_problem(
+        ens_problem.trajectories, ens_problem.tlist, dtype=np.complex64,
+        **ens_problem.kwargs,
+    )
+    require((cp_ens.dim, cp_ens.n_traj, cp_ens.H0.shape[0],
+             cp_ens.gen_group_size, cp_ens.ops.shape[1], cp_ens.n_controls,
+             cp_ens.n_timesteps) == (100, 32, 8, 4, 4, 4, 2000)
+            and cp_ens.ops_grouped and not cp_ens.shared_generator,
+            "unexpected ensemble-path shape")
+    s_ens = _static_squarings(cp_ens)
+    ens = ensemble_kernel_phases(cp_ens, s_ens, rng, dev)
+
     # ---- small-input reference, before the main path is counted ----------
     # the kernel path in complex64 against the plain complex128 path
     # (Padé-13), both on the card, on the d = 3 CZ problem
@@ -359,9 +895,7 @@ def main():
           "grad_diff_of_max": dgs})
 
     # ---- the main path: every count set to 0 just before -----------------
-    for counts in (hopper_prop.launches, hopper_frechet.launches):
-        for key in counts:
-            counts[key] = 0
+    zero_counts(hopper_prop, hopper_frechet)
 
     # ---- phase 4: one fg evaluation through compile_problem / build_fg ----
     fg = gt.build_fg(cp)
@@ -369,7 +903,11 @@ def main():
     J, g, aux = fg(x0)
     torch.cuda.synchronize()
     n_fg = 1
-    counts_after_one = {**hopper_prop.launches, **hopper_frechet.launches}
+    counts_after_one = {
+        name: n for name, n in read_counts(hopper_prop,
+                                           hopper_frechet).items()
+        if name.endswith("_shared")
+    }
     require(all(v >= 1 for v in counts_after_one.values()),
             f"one fg evaluation did not launch every kernel: "
             f"{counts_after_one}")
@@ -426,11 +964,12 @@ def main():
             f"J_T does not fall monotonically: {series}")
 
     # ---- the counts, read just after the main path ------------------------
-    counts = {**hopper_prop.launches, **hopper_frechet.launches}
+    counts = read_counts(hopper_prop, hopper_frechet)
     n_fg += res.fg_calls
     n_f = res.f_calls
-    expect = {"forward_scan_shared": n_fg + n_f, "chi_scan_shared": n_fg,
-              "frechet_trace_shared": n_fg}
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"forward_scan_shared": n_fg + n_f,
+                   "chi_scan_shared": n_fg, "frechet_trace_shared": n_fg})
     require(counts == expect,
             f"launch counts {counts} do not match the evaluations {expect}")
     # iteration 0 is the set-up (compile_problem, the guess's fg); the
@@ -444,34 +983,60 @@ def main():
           "fg_calls": res.fg_calls, "f_calls": res.f_calls,
           "message": res.message, "launches": counts})
 
+    # ---- the ensemble paths, each with its own counted run ----------------
+    counts_ens, counts_pertraj = ensemble_paths(ens_problem, cp_ens, s_ens)
+
+    prop_cu = "grape_tpu_torch/csrc/prop_scan.cu"
+    frechet_cu = "grape_tpu_torch/csrc/frechet_trace.cu"
+    # name -> (source, what it replaces, the counted run that drives it)
     meta = {
         "forward_scan_shared": (
-            "grape_tpu_torch/csrc/prop_scan.cu",
-            "grape_tpu/ops/pallas_prop.py:373"),
+            prop_cu, "grape_tpu/ops/pallas_prop.py:373", counts),
         "chi_scan_shared": (
-            "grape_tpu_torch/csrc/prop_scan.cu",
-            "grape_tpu/ops/pallas_prop.py:607"),
+            prop_cu, "grape_tpu/ops/pallas_prop.py:607", counts),
         "frechet_trace_shared": (
-            "grape_tpu_torch/csrc/frechet_trace.cu",
-            "grape_tpu/ops/pallas_frechet.py:257"),
+            frechet_cu, "grape_tpu/ops/pallas_frechet.py:257", counts),
+        "forward_scan_grouped": (
+            prop_cu, "grape_tpu/ops/pallas_prop.py:494", counts_ens),
+        "forward_scan_pertraj": (
+            prop_cu, "grape_tpu/ops/pallas_prop.py:144", counts_pertraj),
+        "frechet_trace_pertraj": (
+            frechet_cu, "grape_tpu/ops/pallas_frechet.py:350", counts_ens),
+        # the grouped co-state chains: scans of small products in the
+        # reference, the chi-scan kernel with a group axis here
+        "chi_scan_grouped": (
+            prop_cu, "grape_tpu/fg.py:1719", counts_ens),
+        "chi_scan_recompute": (
+            prop_cu, "grape_tpu/fg.py:1745", counts_pertraj),
     }
+    cz = {
+        name: {"err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
+               "flops": flops[name], "bytes": byts[name],
+               "library_ms": None}
+        for name in ("forward_scan_shared", "chi_scan_shared",
+                     "frechet_trace_shared")
+    }
+    cz["forward_scan_shared"].update(
+        library_ms=library_ms, propagators_only_ms=propagators_ms,
+        library_call="torch.linalg.matrix_exp on (N_T, d, d): the "
+                     "propagators only")
+    cz["frechet_trace_shared"].update(
+        algorithm_flops=frechet_algorithm_flops,
+        under_load=frechet_under_load, ms_by_steps=frechet_ms_by_steps)
+    measured = {**cz, **ens}
     kernels = []
-    for name, (source, replaces) in meta.items():
-        b_ms, b_by = bound(flops[name], byts[name])
+    for name, (source, replaces, run_counts) in meta.items():
+        m = dict(measured[name])
+        b_ms, b_by = bound(m["flops"], m["bytes"])
+        require(run_counts[name] >= 1,
+                f"{name} was launched no time on the path that uses it")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
-            "max_abs_err": err[name], "ms": ms[name],
-            "plain_ms": plain_ms[name], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": (library_ms if name == "forward_scan_shared"
-                           else None),
-            "flops": flops[name], "bytes": byts[name],
+            "replaces": replaces, "launches": run_counts[name],
+            "max_abs_err": m.pop("err"), "ms": m.pop("ms"),
+            "plain_ms": m.pop("plain_ms"), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": m.pop("library_ms"), **m,
         })
-    kernels[0]["propagators_only_ms"] = propagators_ms
-    kernels[2]["algorithm_flops"] = frechet_algorithm_flops
-    kernels[0]["library_call"] = (
-        "torch.linalg.matrix_exp on (N_T, d, d): the propagators only"
-    )
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": smi})
     emit({"kernels": kernels})

@@ -5,8 +5,10 @@ optimization over Schrödinger dynamics for final-time functionals plus a
 pulse running cost, exact per-time-step gradients (rank-1 Fréchet traces),
 semi-automatic differentiation of functionals via ``torch.autograd``, and a
 host-side C++ L-BFGS-B optimizer with box constraints.  The heavy phases of
-the gate-optimization path run in hand-written CUDA kernels for Hopper
-(``ops.hopper_prop``, ``ops.hopper_frechet``).
+the gate-optimization and the robust-ensemble paths (one generator shared
+by all trajectories, per group of them, or per trajectory) run in
+hand-written CUDA kernels for Hopper (``ops.hopper_prop``,
+``ops.hopper_frechet``).
 
 This package imports ``torch`` and ``numpy`` only — nothing of JAX and
 nothing of ``grape_tpu``, which stays in the repository as the reference.

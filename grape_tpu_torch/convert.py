@@ -36,42 +36,60 @@ def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
                                 device=None):
     """The port's ``CompiledProblem`` from the reference's arrays.
 
-    ``arrays`` holds ``psi0 (K, d)``, ``H0 (1, d, d)``, ``ops (1, T, d, d)``,
-    ``M (N_T, T, L)``, ``Mfix (N_T, T)``, ``tlist (N_T+1,)``,
-    ``guess_pulsevals (L, N_T)``, ``ctl_idx`` (one entry per term, ``None``
-    for a locked term), ``shared_generator`` (must be true), and optionally
-    ``norm_cache`` (``{"h0", "ops"}``), ``target_states (K, d)`` and
-    ``weights (K,)``.  ``J_T`` / ``chi`` / ``J_a`` are callables of this
-    package or their names (``"J_T_sm"``).  ``dtype=None`` keeps the dtype
-    of ``psi0``.
+    ``arrays`` holds ``psi0 (K, d)``, ``H0 (1 | G | K, d, d)``,
+    ``ops (1 | G | K, T, d, d)`` (one entry for a shared generator, one per
+    group when ``ops_grouped``, else one per trajectory), ``M (N_T, T, L)``
+    and ``Mfix (N_T, T)`` (with a leading ``K`` axis when
+    ``per_traj_coeffs``), ``tlist (N_T+1,)``, ``guess_pulsevals (L, N_T)``,
+    ``ctl_idx`` (one entry per term, ``None`` for a locked term),
+    ``shared_generator``, and optionally ``per_traj_coeffs``,
+    ``gen_group_size``, ``ops_grouped``, ``norm_cache``
+    (``{"h0", "ops"}``), ``target_states (K, d)`` and ``weights (K,)``.
+    ``J_T`` / ``chi`` / ``J_a`` are callables of this package or their
+    names (``"J_T_sm"``).  ``dtype=None`` keeps the dtype of ``psi0``.
     """
     device = resolve_device(device)
-    if not bool(arrays.get("shared_generator", False)):
-        raise NotImplementedError(
-            "per-trajectory generators are not ported to grape_tpu_torch "
-            "yet: shared_generator must be true"
-        )
+    shared = bool(arrays.get("shared_generator", False))
+    per_traj_coeffs = bool(arrays.get("per_traj_coeffs", False))
+    gen_group_size = int(arrays.get("gen_group_size", 1))
+    ops_grouped = bool(arrays.get("ops_grouped", False))
     psi0 = np.asarray(arrays["psi0"])
     cdtype = complex_dtype(numpy_dtype(dtype if dtype is not None
                                        else psi0.dtype))
     rdtype = real_dtype(cdtype)
     psi0 = psi0.astype(cdtype)
+    K, d = psi0.shape
     H0 = np.asarray(arrays["H0"]).astype(cdtype)
     ops = np.asarray(arrays["ops"]).astype(cdtype)
-    if H0.ndim != 3 or H0.shape[0] != 1 or ops.ndim != 4 or ops.shape[0] != 1:
+    if shared:
+        n_gen = 1
+    elif ops_grouped:
+        if gen_group_size < 1 or K % gen_group_size != 0:
+            raise ValueError(
+                f"gen_group_size {gen_group_size} does not divide K = {K}"
+            )
+        n_gen = K // gen_group_size
+    else:
+        n_gen = K
+    if (H0.ndim != 3 or ops.ndim != 4 or H0.shape != (n_gen, d, d)
+            or ops.shape[0] != n_gen or ops.shape[2:] != (d, d)):
         raise ValueError(
-            "H0 must be (1, d, d) and ops (1, T, d, d): one shared generator"
+            f"H0 must be ({n_gen}, {d}, {d}) and ops ({n_gen}, T, {d}, {d}) "
+            f"for shared_generator={shared}, ops_grouped={ops_grouped}, "
+            f"gen_group_size={gen_group_size}; got {H0.shape}, {ops.shape}"
         )
     M = np.asarray(arrays["M"], dtype=rdtype)
     Mfix = np.asarray(arrays["Mfix"], dtype=rdtype)
-    if M.ndim != 3:
-        raise NotImplementedError(
-            "per-trajectory coefficient tables are not ported yet"
+    if M.ndim != (4 if per_traj_coeffs else 3) or Mfix.ndim != M.ndim - 1:
+        raise ValueError(
+            "M must be (N_T, T, L) and Mfix (N_T, T), each with a leading "
+            f"K axis when per_traj_coeffs; got {M.shape}, {Mfix.shape}"
         )
+    if shared and per_traj_coeffs:
+        raise ValueError("a shared generator has one coefficient table")
     tlist = np.asarray(arrays["tlist"], dtype=rdtype)
     guess = np.asarray(arrays["guess_pulsevals"], dtype=np.float64)
-    K, d = psi0.shape
-    N_T, _, L = M.shape
+    N_T, _, L = M.shape[-3:]
 
     targets = arrays.get("target_states")
     weights = arrays.get("weights")
@@ -115,7 +133,10 @@ def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
         chi_takes_tau=accepts_tau(chi) and has_targets,
         has_targets=has_targets,
         ctl_idx=tuple(arrays.get("ctl_idx", ())),
-        shared_generator=True,
+        shared_generator=shared,
+        per_traj_coeffs=per_traj_coeffs,
+        gen_group_size=gen_group_size,
+        ops_grouped=ops_grouped,
         norm_cache=norm_cache,
         device=device,
     )

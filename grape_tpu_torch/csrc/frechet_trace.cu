@@ -1,31 +1,37 @@
-// Fused rank-1 Frechet-trace gradient kernel for a SHARED generator.
+// Fused rank-1 Frechet-trace gradient kernel, one generator per GROUP of
+// gs contiguous trajectories (K = G * gs).
 //
-// Replaces the TPU Pallas kernel frechet_trace_pallas_shared of
+// Replaces the TPU Pallas kernels frechet_trace_pallas_shared (G = 1) and
+// frechet_trace_pallas_pertraj (gs = 1, or gs > 1 in its grouped mode) of
 // grape_tpu/ops/pallas_frechet.py:
 //
-//   trj[n, k, t] = tr(Op_t * L(A_n, R_nk)),   A_n = -i dt_n H_n,
-//   R_nk[b, a] = psi_nk[b] * conj(chi_nk[a])
+//   trj[n, k, t] = tr(Op_gt * L(A_ng, R_nk)),   A_ng = -i dt_n H_ng,
+//   R_nk[b, a] = psi_nk[b] * conj(chi_nk[a]),   g = k / gs
 //
 // with L(A, R) the Frechet derivative of expm at A in direction R, by the
 // degree-16 Taylor polynomial (Paterson-Stockmeyer in A^4) at A / 2^s and s
-// pair doublings.  Per time step the kernel forms the powers of A and the E
-// history ONCE, then for each of the K directions the M-chain
+// pair doublings.  Per item (step n, group g) the kernel forms the powers of
+// A and the E history ONCE from group g's operators and group g's
+// coefficient row, then for each of the group's gs directions the M-chain
 // (M_{j+1} = A M_j + R A^j), the Horner recursion replaying the E history,
 // the doublings L <- E_j L + L E_j with the ladder E_j = E^(2^j), and the T
-// trace reductions; the (K, d, d) Frechet factors never leave the block's
-// scratch, only K * T complex scalars per step are written out.
+// trace reductions with Op_gt; the (gs, d, d) Frechet factors never leave
+// the block's scratch, only gs * T complex scalars per item are written out.
+// The TPU kernel's budget gates do not exist here: no 128-lane padded
+// output, no coefficient table in scalar memory, no lower or upper bound on
+// d (matrices live in the scratch, products are tiled).
 //
-// Bound on this card: float32 FMA operations, (5 + s) + K (12 + 2s)
-// complex d^3 products per step against a few KB of input per step, with
-// every step independent (no error compounds across steps, but full
+// Bound on this card: float32 FMA operations, (5 + s) + gs (12 + 2s)
+// complex d^3 products per item against a few KB of input per item, with
+// every item independent (no error compounds across steps, but full
 // float32 is kept anyway: the Pallas kernel's reduced-precision "high"
 // mode exists only because the TPU matrix unit has no float32 mode).
 // That is this algorithm's count, carried over from the Pallas kernel.  The
 // function needs far less: R has rank one, so L is a sum of outer products
 // (A^i psi)(chi^dagger A^j) and needs only matrix-vector products until the
 // doublings; a later version of kernel and plain version may use that.
-// Design: a persistent grid walks over the time steps, one step per block
-// at a time; the (14 + s) matrix working set (about 1.2 MB at d = 100)
+// Design: a persistent grid walks over the N_T * G items, one item per
+// block at a time; the (14 + s) matrix working set (about 1.2 MB at d = 100)
 // cannot live in the 227 KB of shared memory, so it sits in a per-block
 // global scratch sized by the grid (not by N_T) and each product is tiled
 // through shared memory (cmat.cuh).  At 33 FMA-flops per scratch byte the
@@ -64,7 +70,8 @@ frechet_trace_kernel(const float2* __restrict__ H0,
                      const float* __restrict__ dts,
                      const float2* __restrict__ psis,
                      const float2* __restrict__ chis, int T, int d, int N_T,
-                     int K, int s, float2* scratch, float2* trj) {
+                     int K, int G, int gs, size_t coeff_group_stride, int s,
+                     float2* scratch, float2* trj) {
     __shared__ GemmSmem sm;
     __shared__ float red[kThreads / 32];
     const size_t dd = (size_t)d * d;
@@ -85,10 +92,16 @@ frechet_trace_kernel(const float2* __restrict__ H0,
     const float scale = exp2f(-(float)s);
     const int tid = threadIdx.x;
 
-    for (int n = blockIdx.x; n < N_T; n += gridDim.x) {
-        // ---- base, shared by all K directions of this step --------------
-        build_generator(A, H0, ops, coeffs + (size_t)n * T, dts[n], scale, T,
-                        d);
+    const size_t n_items = (size_t)N_T * G;
+    for (size_t item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const int n = (int)(item / G);
+        const int g = (int)(item % G);
+        const float2* ops_g = ops + (size_t)g * T * dd;
+        // ---- base, shared by the gs directions of this item -------------
+        build_generator(A, H0 + (size_t)g * dd, ops_g,
+                        coeffs + (size_t)g * coeff_group_stride +
+                            (size_t)n * T,
+                        dts[n], scale, T, d);
         powers(A, A2, A3, A4, d, sm);
         // E history: the value of E BEFORE each Horner update.  Eh[0] is
         // the scalar block c16 * I and is never materialised.
@@ -106,7 +119,7 @@ frechet_trace_kernel(const float2* __restrict__ H0,
             }
         }
 
-        for (int k = 0; k < K; ++k) {
+        for (int k = g * gs; k < (g + 1) * gs; ++k) {
             // ---- R = 2^-s psi chi^dagger --------------------------------
             const float2* psi = psis + ((size_t)n * K + k) * d;
             const float2* chi = chis + ((size_t)n * K + k) * d;
@@ -164,7 +177,7 @@ frechet_trace_kernel(const float2* __restrict__ H0,
             // ---- traces: sum_ab Op_t[a, b] G[b, a] ----------------------
             const float2* G = Lb[cur];
             for (int t = 0; t < T; ++t) {
-                const float2* Op = ops + (size_t)t * dd;
+                const float2* Op = ops_g + (size_t)t * dd;
                 float sr = 0.f;
                 float si = 0.f;
                 for (int idx = tid; idx < d * d; idx += kThreads) {
@@ -194,18 +207,24 @@ int grape_frechet_scratch_matrices(int s) {
     return grape::frechet_scratch_matrices(s);
 }
 
-// trj (N_T, K, T) complex64.  `scratch` holds n_blocks *
-// grape_frechet_scratch_matrices(s) complex d x d matrices.
+// trj (N_T, K, T) complex64 with H0 (G, d, d), ops (G, T, d, d), K = G * gs
+// and the coefficient row of (n, g) at
+// coeffs[g * coeff_group_stride + n * T] (stride 0: one table for all
+// groups).  `scratch` holds n_blocks * grape_frechet_scratch_matrices(s)
+// complex d x d matrices.
 int grape_frechet_trace(const void* H0, const void* ops, const void* coeffs,
                         const void* dts, const void* psis, const void* chis,
-                        int T, int d, int N_T, int K, int s, void* scratch,
+                        int T, int d, int N_T, int K, int G, int gs,
+                        long long coeff_group_stride, int s, void* scratch,
                         int n_blocks, void* trj, void* stream) {
     cudaGetLastError();
+    if (G < 1 || gs < 1 || G * gs != K) return (int)cudaErrorInvalidValue;
     grape::frechet_trace_kernel<<<n_blocks, grape::kThreads, 0,
                                   (cudaStream_t)stream>>>(
         (const float2*)H0, (const float2*)ops, (const float*)coeffs,
         (const float*)dts, (const float2*)psis, (const float2*)chis, T, d,
-        N_T, K, s, (float2*)scratch, (float2*)trj);
+        N_T, K, G, gs, (size_t)coeff_group_stride, s, (float2*)scratch,
+        (float2*)trj);
     return (int)cudaGetLastError();
 }
 

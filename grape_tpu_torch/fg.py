@@ -1,19 +1,26 @@
 """The GRAPE function-and-gradient evaluation in PyTorch.
 
-Counterpart of ``grape_tpu/fg.py`` for the gate-optimization main path:
-K trajectories under ONE shared generator, linear amplitudes, dense
-ExpProp propagation, full storage, ``gradient_method="gradgen"``:
+Counterpart of ``grape_tpu/fg.py`` for the full-storage gradgen paths:
+linear amplitudes, dense ExpProp propagation, ``gradient_method="gradgen"``,
+with the K trajectories in G groups of gs contiguous ones that share a
+generator.  G = 1 is gate optimization (K basis states, one Hamiltonian);
+gs > 1 a gate ensemble (each Hamiltonian sample propagates its basis
+states); gs = 1 a robust ensemble of K distinct generators, which may also
+differ in their coefficient tables (``per_traj_coeffs``):
 
-- forward: per step ``U_n = exp(-i H_n dt_n)`` and ``Ψ ← Ψ U_nᵀ`` for the
-  whole ``(K, d)`` state block, storing every state and every ``U_n``;
+- forward: per step and group ``U_ng = exp(-i H_ng dt_n)`` and
+  ``Ψ ← Ψ U_ngᵀ`` for the group's ``(gs, d)`` state block, storing every
+  state and, while the stream fits the budget of ``_gg_u_bytes_ok``, every
+  ``U_ng``;
 - co-states: ``χ_k(T) = -∂J_T/∂⟨Ψ_k(T)|`` by analytic formula or
   ``torch.autograd`` semi-AD, normalised by ``ρ_k = ‖χ_k(T)‖``;
-- backward, phase A: the co-state chain ``χ ← χ conj(U_n)`` over the
-  stored propagators;
+- backward, phase A: the co-state chain ``χ ← χ conj(U_ng)`` over the
+  stored propagators, or over propagators formed again window by window
+  where the stream was not kept;
 - backward, phase B: per (step, trajectory) ONE Fréchet derivative in the
   rank-1 direction ``R = ψχ†`` serves all control directions through
   ``tr(L(A, B)·M) = tr(B·L(A, M))``, reduced to the traces
-  ``tr(Op_t·L(A_n, R_nk))`` and contracted with ``∂a_t/∂ε_l``;
+  ``tr(Op_gt·L(A_ng, R_nk))`` and contracted with ``∂a_t/∂ε_l``;
 - assembly: ``(∇J_T)_{nl} = -2 Re Σ_k ∇τ_{knl}`` plus ``λ_a ∇J_a``.
 
 In complex64 the three heavy phases run in the hand-written CUDA kernels of
@@ -26,8 +33,10 @@ contraction with ``dM``) is plain PyTorch in both.
 Not ported yet, and raising ``NotImplementedError`` when asked for:
 ``gradient_method="taylor"``, ``prop_method="cheby"|"newton"``,
 ``storage_mode="recompute"``, state running costs ``g_b``/``xi``,
-``CustomAmplitude``, per-trajectory generators or coefficient tables,
-``mesh=`` sharding and the forward-propagation observables callback.
+``CustomAmplitude``, ``mesh=`` sharding, the forward-propagation
+observables callback, and a complex128 problem whose propagator stream
+exceeds the budget of ``_gg_u_bytes_ok`` (the reference takes the per-step
+backward pass there).
 """
 
 from dataclasses import dataclass, field
@@ -41,10 +50,15 @@ from .config import (
 )
 from .controls import discretize_on_midpoints, get_controls
 from .functionals import accepts_tau, make_chi, make_grad_J_a, taus
+from .generators import align_generators
 from .ops.expm import _THETA13_F64, _THETA_TAYLOR_F32, expm
 from .ops.frechet import expm_frechet
-from .ops.hopper_frechet import frechet_trace_shared
-from .ops.hopper_prop import chi_scan_shared, forward_scan_shared
+from .ops.hopper_frechet import frechet_trace_pertraj, frechet_trace_shared
+from .ops.hopper_prop import (
+    chi_scan_grouped, chi_scan_grouped_plain, chi_scan_recompute,
+    chi_scan_shared, forward_scan_grouped, forward_scan_pertraj,
+    forward_scan_shared,
+)
 
 __all__ = ["CompiledProblem", "compile_problem", "build_fg", "build_f"]
 
@@ -59,10 +73,12 @@ class CompiledProblem:
     """
 
     psi0: Any          # (K, d) complex
-    H0: Any            # (1, d, d) complex: ONE shared drift
-    ops: Any           # (1, T, d, d) complex control-term operators
+    H0: Any            # (1 | G | K, d, d) complex drifts
+    ops: Any           # (1 | G | K, T, d, d) complex control-term operators
     M: Any             # (N_T, T, L) real: coeffs_n = M[n] @ eps_n
+                       # ((K, N_T, T, L) when per_traj_coeffs)
     Mfix: Any          # (N_T, T) real: fixed (locked-amplitude) coefficients
+                       # ((K, N_T, T) when per_traj_coeffs)
     tlist: Any         # (N_T+1,) real
     trajectories: list
     controls: tuple
@@ -85,8 +101,20 @@ class CompiledProblem:
     storage_mode: str = "full"
     ctl_idx: tuple = ()  # static control index per term (None = locked)
     # all trajectories evolve under the SAME generator (gate optimization:
-    # K basis states, one H) — U_n is computed once per step, not per k
-    shared_generator: bool = True
+    # K basis states, one H) — U_n is computed once per step, not per k;
+    # H0/ops then hold ONE entry
+    shared_generator: bool = False
+    # heterogeneous ensembles whose members share the control coupling
+    # structure but differ in amplitude SHAPES: M/Mfix carry a leading
+    # per-trajectory K axis
+    per_traj_coeffs: bool = False
+    # contiguous-run generator grouping (gate ensembles: each sample's
+    # n_basis trajectories share ONE generator object): the expm and the
+    # Fréchet base are derived once per (step, group).  1 = no grouping.
+    gen_group_size: int = 1
+    # operator STORAGE layout: True = H0/ops hold ONE entry per generator
+    # group (K/gen_group_size entries) instead of one per trajectory
+    ops_grouped: bool = False
     # host-side operator norms cached at compile time:
     # {"h0": ||H0||_1, "ops": (T,) per-term ||Op_j||_1}
     norm_cache: Any = None
@@ -235,41 +263,64 @@ def compile_problem(
         dtype = np.complex64 if device.type == "cuda" else np.complex128
     cdtype = complex_dtype(numpy_dtype(dtype))
 
+    # Heterogeneous ensembles: the batched design needs slot-aligned term
+    # lists (same count, same control coupling per slot).  Generators that
+    # differ structurally (a robustness ensemble where only some members
+    # carry a crosstalk drive) are aligned to the union of their amplitudes
+    # with zero-operator padding.
+    if not _slots_aligned(generators, controls):
+        generators = align_generators(generators)
     g0 = generators[0]
     n_terms = len(g0.terms)
     dim = g0.dim
     ctl_idx = g0.term_control_indices(controls)
-    M, Mfix = g0.coefficient_tables(tlist, controls)
+
+    # Coefficient tensor M (N_T, T, L): term j couples to control l_j with
+    # per-interval weight shape_j[n]; locked terms go to Mfix.  Where the
+    # trajectories differ in their amplitude SHAPES (same control, another
+    # static weight), M/Mfix grow a leading K axis.
+    coeff_tables = [g.coefficient_tables(tlist, controls)
+                    for g in generators]
+    M, Mfix = coeff_tables[0]
+    per_traj_coeffs = any(
+        not (np.array_equal(Mk, M) and np.array_equal(Mfk, Mfix))
+        for (Mk, Mfk) in coeff_tables[1:]
+    )
+    if per_traj_coeffs:
+        M = np.stack([Mk for (Mk, _) in coeff_tables])      # (K, N_T, T, L)
+        Mfix = np.stack([Mfk for (_, Mfk) in coeff_tables])  # (K, N_T, T)
 
     # gate-optimization detection: one generator, K basis states.  Shared
-    # operator arrays are stored with a LENGTH-1 leading axis.
+    # operator arrays are stored with a LENGTH-1 leading axis; contiguous
+    # runs of one generator OBJECT (gate ensembles: each sample's basis
+    # states share one generator) store ONE entry per group.
     same_gen = all(g is g0 for g in generators)
-    if not same_gen:
-        same_gen = all(
-            g.dim == dim and len(g.terms) == n_terms
-            and g.term_control_indices(controls) == ctl_idx
-            and np.array_equal(g.drift, g0.drift)
-            and all(np.array_equal(op, op0)
-                    for (op, _), (op0, _) in zip(g.terms, g0.terms))
-            and all(
-                np.array_equal(t, t0) for t, t0 in zip(
-                    g.coefficient_tables(tlist, controls), (M, Mfix))
-            )
-            for g in generators[1:]
-        )
-    if not same_gen:
-        raise NotImplementedError(
-            "per-trajectory generators (ensembles of different "
-            "Hamiltonians) are not ported to grape_tpu_torch yet: all "
-            "trajectories must share one generator"
-        )
-    H0 = np.stack([g0.drift]).astype(cdtype)
+    grun = 1
+    if not same_gen and not per_traj_coeffs:
+        grun = _gen_group_runs(generators)
+        if grun <= 1 or K % grun != 0:
+            grun = 1
+    if same_gen and not per_traj_coeffs:
+        stack_gens = generators[:1]
+    elif grun > 1:
+        stack_gens = generators[::grun]
+    else:
+        stack_gens = generators
+    H0 = np.stack([g.drift for g in stack_gens]).astype(cdtype)
     if n_terms > 0:
         ops = np.stack(
-            [np.stack([op for (op, _) in g0.terms])]
-        ).astype(cdtype)  # (1, T, d, d)
+            [np.stack([op for (op, _) in g.terms]) for g in stack_gens]
+        ).astype(cdtype)  # (K, groups, or 1, T, d, d)
     else:
-        ops = np.zeros((1, 0, dim, dim), dtype=cdtype)
+        ops = np.zeros((len(stack_gens), 0, dim, dim), dtype=cdtype)
+    shared_generator = not per_traj_coeffs and (
+        same_gen
+        or (bool(np.all(H0 == H0[:1])) and bool(np.all(ops == ops[:1])))
+    )
+    if shared_generator and H0.shape[0] > 1:
+        H0 = np.ascontiguousarray(H0[:1])
+        ops = np.ascontiguousarray(ops[:1])
+    ops_grouped = grun > 1 and not shared_generator
 
     psi0 = np.stack([t.initial_state for t in trajectories]).astype(cdtype)
     has_targets = all(t.target_state is not None for t in trajectories)
@@ -306,10 +357,72 @@ def compile_problem(
         has_targets=has_targets,
         storage_mode=storage_mode,
         ctl_idx=tuple(ctl_idx),
-        shared_generator=True,
+        shared_generator=shared_generator,
+        per_traj_coeffs=per_traj_coeffs,
+        # identity-run grouping stores group-level arrays; equal arrays
+        # under distinct objects keep per-trajectory storage
+        gen_group_size=(
+            grun if ops_grouped else _detect_gen_group_size(
+                trajectories, H0, ops, per_traj_coeffs, shared_generator,
+            )
+        ),
+        ops_grouped=ops_grouped,
         norm_cache=_make_norm_cache(H0, ops),
         device=device,
     )
+
+
+def _gen_group_runs(gens):
+    """Contiguous identical-object run length if uniform, else 1."""
+    runs = []
+    cur = 1
+    for a, b in zip(gens, gens[1:]):
+        if b is a:
+            cur += 1
+        else:
+            runs.append(cur)
+            cur = 1
+    runs.append(cur)
+    g = runs[0]
+    if g > 1 and all(r == g for r in runs):
+        return g
+    return 1
+
+
+def _detect_gen_group_size(trajectories, H0, ops, per_traj_coeffs,
+                           shared_generator):
+    """Group size where the operators are stored per trajectory:
+    contiguous runs of trajectories sharing one generator (verified against
+    the stacked operator arrays)."""
+    if shared_generator or per_traj_coeffs:
+        return 1
+    K = len(trajectories)
+    g = _gen_group_runs([t.generator for t in trajectories])
+    if g <= 1 or K % g != 0:
+        return 1
+    H0v = H0.reshape(K // g, g, *H0.shape[1:])
+    opsv = ops.reshape(K // g, g, *ops.shape[1:])
+    if not (
+        bool(np.all(H0v == H0v[:, :1]))
+        and bool(np.all(opsv == opsv[:, :1]))
+    ):
+        return 1
+    return g
+
+
+def _slots_aligned(generators, controls):
+    """True when all generators share a slot-aligned term structure: same
+    dimension, same term count, slot-wise the same control coupling.
+    Linear slots may differ in amplitude shape/operator across
+    trajectories (handled by per-trajectory coefficient tables)."""
+    g0 = generators[0]
+    idx0 = g0.term_control_indices(controls)
+    for g in generators[1:]:
+        if g.dim != g0.dim or len(g.terms) != len(g0.terms):
+            return False
+        if g.term_control_indices(controls) != idx0:
+            return False
+    return True
 
 
 def _make_norm_cache(H0, ops):
@@ -347,8 +460,14 @@ def _coeff_env(cp: CompiledProblem, amp_max):
         return cp.env_cache[key]
     absM = np.abs(np.asarray(cp.M))
     absMfix = np.abs(np.asarray(cp.Mfix))
-    cmax = (np.einsum("ntl,l->nt", absM, amp_max) + absMfix).max(axis=0)
-    dmax = absM.max(axis=0)
+    if cp.per_traj_coeffs:
+        cmax = (
+            np.einsum("kntl,l->knt", absM, amp_max) + absMfix
+        ).max(axis=(0, 1))
+        dmax = absM.max(axis=(0, 1))
+    else:
+        cmax = (np.einsum("ntl,l->nt", absM, amp_max) + absMfix).max(axis=0)
+        dmax = absM.max(axis=0)
     cp.env_cache[key] = (cmax, dmax)
     return cmax, dmax
 
@@ -394,12 +513,69 @@ def _kernels_enabled(cp: CompiledProblem):
     return np.dtype(cp.psi0.dtype) == np.complex64
 
 
+def _effective_group_size(cp: CompiledProblem):
+    """Group size the grouped compute paths use: the detected contiguous
+    generator groups, 1 where the tables differ per trajectory."""
+    gs = cp.gen_group_size or 1
+    if gs <= 1 or cp.per_traj_coeffs or cp.n_traj % gs != 0:
+        return 1
+    return gs
+
+
+def _group_ops(cp: CompiledProblem, H0, ops):
+    """Operator arrays with ONE entry per generator group."""
+    if cp.ops_grouped:
+        return H0, ops
+    gs = _effective_group_size(cp)
+    if gs > 1:
+        return H0[::gs], ops[::gs]
+    return H0, ops
+
+
+def _pertraj_ops(cp: CompiledProblem, H0, ops):
+    """Operator arrays with ONE entry per trajectory, expanding group-level
+    storage by repetition."""
+    if cp.ops_grouped:
+        gs = cp.gen_group_size
+        return np.repeat(H0, gs, axis=0), np.repeat(ops, gs, axis=0)
+    return H0, ops
+
+
+def _stored_u_entries(cp: CompiledProblem):
+    """Per-step stored-propagator count: 1 for a shared generator, one per
+    GROUP for grouped generators, K otherwise."""
+    if cp.shared_generator:
+        return 1
+    return cp.n_traj // _effective_group_size(cp)
+
+
+def _gg_u_bytes_ok(cp: CompiledProblem):
+    """U-storage bound for the stored-propagator phase A of the vectorized
+    gradgen pass (``N_T · k_u · d²`` complex entries)."""
+    nbytes = (
+        cp.n_timesteps * _stored_u_entries(cp) * cp.dim * cp.dim
+        * np.dtype(cp.psi0.dtype).itemsize
+    )
+    return nbytes <= 4 * 1024**3
+
+
+def _vec_gradgen_enabled(cp: CompiledProblem):
+    """The time-vectorized gradgen backward pass, the only one ported,
+    needs a feasible phase A: a propagator stream within its budget, or the
+    kernels, whose co-state chain can form the propagators again."""
+    return _gg_u_bytes_ok(cp) or _kernels_enabled(cp)
+
+
 # --------------------------------------------------------------------------
 # The evaluation phases
 # --------------------------------------------------------------------------
 
 def _device_constants(cp: CompiledProblem, device):
-    """The problem arrays as tensors on ``device`` (made once per build)."""
+    """The problem arrays as tensors on ``device`` (made once per build).
+
+    ``H0 (G, d, d)`` and ``ops (G, T, d, d)`` hold one entry per group as
+    the compute paths consume them: ``G = 1`` for a shared generator,
+    ``K / gs`` for groups of ``gs = _effective_group_size``, else ``K``."""
     cdt = torch_dtype(cp.psi0.dtype)
     rdt = real_dtype(cdt)
 
@@ -411,29 +587,54 @@ def _device_constants(cp: CompiledProblem, device):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=rdt,
                                device=device)
 
+    if cp.shared_generator:
+        H0, ops = cp.H0[:1], cp.ops[:1]
+    elif _effective_group_size(cp) > 1:
+        H0, ops = _group_ops(cp, cp.H0, cp.ops)
+    else:
+        H0, ops = _pertraj_ops(cp, cp.H0, cp.ops)
     tl = r(cp.tlist)
     return {
-        "psi0": c(cp.psi0), "H0": c(cp.H0[0]), "ops": c(cp.ops[0]),
+        "psi0": c(cp.psi0), "H0": c(H0), "ops": c(ops),
         "M": r(cp.M), "Mfix": r(cp.Mfix), "tlist": tl,
         "dt": torch.diff(tl).contiguous(), "cdtype": cdt, "rdtype": rdt,
     }
 
 
-def _coeff_tables(consts, eps):
+def _coeff_tables(cp: CompiledProblem, consts, eps):
     """Per-interval term coefficients and their control derivatives for
     the CURRENT pulse values ``eps (L, N_T)``: ``(coeffs (N_T, T),
-    dM (N_T, T, L))``.  Linear amplitudes: ``M @ ε + Mfix`` and ``M``."""
-    coeffs = torch.einsum("ntl,ln->nt", consts["M"], eps) + consts["Mfix"]
-    return coeffs, consts["M"]
+    dM (N_T, T, L))``, with a leading ``K`` axis when
+    ``cp.per_traj_coeffs``.  Linear amplitudes: ``M @ ε + Mfix`` and
+    ``M``."""
+    if cp.per_traj_coeffs:
+        coeffs = torch.einsum("kntl,ln->knt", consts["M"], eps)
+    else:
+        coeffs = torch.einsum("ntl,ln->nt", consts["M"], eps)
+    return coeffs + consts["Mfix"], consts["M"]
+
+
+def _generators(consts, coeffs, sl):
+    """``H (C, G, d, d)`` of the time steps ``sl`` from ``coeffs (N_T, T)``
+    or, one table per group, ``(G, N_T, T)``."""
+    cdt = consts["cdtype"]
+    if coeffs.ndim == 3:
+        term = torch.einsum("gct,gtij->cgij", coeffs[:, sl].to(cdt),
+                            consts["ops"])
+    else:
+        term = torch.einsum("ct,gtij->cgij", coeffs[sl].to(cdt),
+                            consts["ops"])
+    return consts["H0"][None] + term
 
 
 def _expm_steps(A):
-    """``expm`` of each matrix of the batch ``A (N, d, d)`` with its OWN
-    norm-derived squaring count (what a per-step scan computes), batched by
-    grouping the steps of equal count."""
+    """``expm`` of each time step of ``A (N, G, d, d)`` with the step's OWN
+    norm-derived squaring count, shared by its ``G`` matrices (what a
+    per-step scan computes), batched by grouping the steps of equal
+    count."""
     single = A.dtype == torch.complex64
     theta = _THETA_TAYLOR_F32 if single else _THETA13_F64
-    norms = torch.amax(torch.sum(torch.abs(A), dim=-2), dim=-1)
+    norms = torch.amax(torch.sum(torch.abs(A), dim=-2), dim=(-2, -1))
     s = torch.clamp(
         torch.ceil(torch.log2(torch.clamp(norms, min=1e-300) / theta)),
         min=0, max=32,
@@ -445,26 +646,54 @@ def _expm_steps(A):
     return out
 
 
-def _forward(cp: CompiledProblem, consts, coeffs, amp_max):
-    """Forward propagation with the propagator stream:
-    ``(storage (N_T+1, K, d), Us (N_T, d, d))``."""
+def _forward(cp: CompiledProblem, consts, coeffs, amp_max, want_U=True):
+    """Forward propagation: ``(storage (N_T+1, K, d), Us)`` with
+    ``Us (N_T, d, d)`` for a shared generator, ``(N_T, G, d, d)`` otherwise,
+    or None where ``want_U`` is false and the path can do without."""
     if _kernels_enabled(cp):
-        return forward_scan_shared(
-            consts["H0"], consts["ops"],
+        args = (
             coeffs.to(torch.float32).contiguous(),
-            consts["dt"].to(torch.float32),
-            consts["psi0"], _static_squarings(cp, amp_max),
+            consts["dt"].to(torch.float32), consts["psi0"],
+        )
+        n_sq = _static_squarings(cp, amp_max)
+        if cp.shared_generator:
+            return forward_scan_shared(
+                consts["H0"][0], consts["ops"][0], *args, n_sq
+            )
+        gs = _effective_group_size(cp)
+        if gs > 1:
+            # grouped generators: one expm per (step, group)
+            return forward_scan_grouped(
+                consts["H0"], consts["ops"], *args, gs, n_sq,
+                with_propagators=want_U,
+            )
+        return forward_scan_pertraj(
+            consts["H0"], consts["ops"], *args, n_sq,
+            with_propagators=want_U,
         )
     cdt = consts["cdtype"]
-    H = consts["H0"][None] + torch.einsum(
-        "nt,tij->nij", coeffs.to(cdt), consts["ops"]
-    )
-    Us = _expm_steps((-1j * consts["dt"].to(cdt))[:, None, None] * H)
-    psi = consts["psi0"]
-    states = [psi]
-    for n in range(cp.n_timesteps):
-        psi = psi @ Us[n].T
-        states.append(psi)
+    G = consts["H0"].shape[0]
+    N_T, K, d = cp.n_timesteps, cp.n_traj, cp.dim
+    a_all = (-1j * consts["dt"]).to(cdt)
+    Us = None
+    if want_U:
+        Us = torch.empty((N_T, G, d, d), dtype=cdt,
+                         device=consts["H0"].device)
+    psi = consts["psi0"].reshape(G, K // G, d)
+    states = [consts["psi0"]]
+    C = _gradgen_chunk(cp)
+    for c0 in range(0, N_T, C):
+        sl = slice(c0, c0 + C)
+        Uc = _expm_steps(
+            a_all[sl, None, None, None] * _generators(consts, coeffs, sl)
+        )
+        if want_U:
+            Us[sl] = Uc
+        for U_n in Uc:
+            psi = psi @ U_n.transpose(-1, -2)
+            states.append(psi.reshape(K, d))
+    if want_U and cp.shared_generator:
+        Us = Us[:, 0]
     return torch.stack(states), Us
 
 
@@ -493,18 +722,28 @@ def _chi_boundary(cp: CompiledProblem, psi_T, tau):
 
 def _chi_trajectory(cp: CompiledProblem, Us, chi_hat):
     """Phase A of the vectorized backward pass: the normalized co-state
-    trajectory via the stored shared propagators, ``χ ← χ conj(U_n)`` in
-    reverse time.  Returns ``chis (N_T, K, d)`` with
+    trajectory via the stored propagators, ``χ ← χ conj(U_ng)`` in reverse
+    time, with ``Us (N_T, d, d)`` shared or ``(N_T, G, d, d)`` one per group
+    of ``K / G`` trajectories.  Returns ``chis (N_T, K, d)`` with
     ``chis[n] = χ(t_{n+1})`` (what step ``n``'s gradient consumes)."""
     if _kernels_enabled(cp):
-        return chi_scan_shared(Us, chi_hat.contiguous())
-    chi = chi_hat
-    out = [None] * cp.n_timesteps
-    for n in range(cp.n_timesteps - 1, -1, -1):
-        out[n] = chi
-        if n > 0:
-            chi = chi @ Us[n].conj()
-    return torch.stack(out)
+        if Us.ndim == 3:
+            return chi_scan_shared(Us, chi_hat.contiguous())
+        return chi_scan_grouped(Us, chi_hat.contiguous())
+    return chi_scan_grouped_plain(Us[:, None] if Us.ndim == 3 else Us,
+                                  chi_hat)
+
+
+def _chi_prop_scan(cp: CompiledProblem, consts, coeffs, chi_hat, amp_max):
+    """Phase A without stored propagators (a stream beyond the budget of
+    ``_gg_u_bytes_ok``): the co-state chain over propagators formed again
+    per step, one ``exp(-i H_ng dt_n)`` per group.  Kernels only:
+    :func:`build_fg` refuses such a problem in complex128."""
+    return chi_scan_recompute(
+        consts["H0"], consts["ops"], coeffs.to(torch.float32).contiguous(),
+        consts["dt"].to(torch.float32), chi_hat.contiguous(),
+        _static_squarings(cp, amp_max),
+    )
 
 
 def _gradgen_chunk(cp: CompiledProblem, n_steps=None, n_intermediates=8,
@@ -532,47 +771,58 @@ def _backward_vectorized_gradgen(cp: CompiledProblem, consts, coeffs, dM,
     ``A_n = -i dt H_n`` and ``B_nl = -i dt μ_nl``.  By
     ``tr(L(A, B)·M) = tr(B·L(A, M))`` ONE Fréchet evaluation per (n, k) in
     the rank-1 direction ``R = ψχ†`` serves ALL ``L`` control directions,
-    each reduced to a trace-dot with ``μ_nl``.
+    each reduced to a trace-dot with ``μ_nl``; the expm base of that
+    evaluation is shared by the trajectories of one generator group.
 
     ``psis (N_T, K, d)`` holds the states at the step starts, ``chis`` the
     matching co-states.  Returns ``tau_grads (N_T, K, L)`` (ρ-scaled).
     """
     cdt = consts["cdtype"]
     dt = consts["dt"]
-    dMc = dM.to(cdt)
+    dMc = dM.to(cdt)  # (N_T, T, L) or (K, N_T, T, L)
     n_sq = _static_squarings(cp, amp_max)
     a_all = (-1j * dt).to(cdt)
+    contract = "kntl,nkt->nkl" if cp.per_traj_coeffs else "ntl,nkt->nkl"
+    N_T, K, d = psis.shape
 
     if _kernels_enabled(cp):
-        trj = frechet_trace_shared(
-            consts["H0"], consts["ops"],
+        args = (
             coeffs.to(torch.float32).contiguous(), dt.to(torch.float32),
             psis.contiguous(), chis.contiguous(), n_sq,
-        )  # (N_T, K, T)
-        grads = a_all[:, None, None] * torch.einsum(
-            "ntl,nkt->nkl", dMc, trj
         )
-        return rho[None, :, None].to(cdt) * grads
-
-    N_T = psis.shape[0]
-    C = _gradgen_chunk(cp, n_steps=N_T)
-    coeffs_c = coeffs.to(cdt)
-    out = []
-    for c0 in range(0, N_T, C):
-        cs = slice(c0, c0 + C)
-        a = a_all[cs]
-        # rank-1 direction R[b, a] = ψ_b(t_n) conj(χ_a(t_{n+1}))
-        R = torch.einsum("ckb,cka->ckba", psis[cs], chis[cs].conj())
-        Hc = consts["H0"][None] + torch.einsum(
-            "ct,tij->cij", coeffs_c[cs], consts["ops"]
-        )
-        Af = a[:, None, None] * Hc
-        _E, G = expm_frechet(Af, R, squarings=n_sq)  # (C, K, d, d)
-        trj = torch.einsum("tab,ckba->ckt", consts["ops"], G)
-        out.append(
-            a[:, None, None] * torch.einsum("ctl,ckt->ckl", dMc[cs], trj)
-        )
-    grads = torch.cat(out)
+        if cp.shared_generator:
+            trj = frechet_trace_shared(
+                consts["H0"][0], consts["ops"][0], *args
+            )
+        else:
+            # one operator entry per group: the kernel derives the base
+            # once per (step, group) and shares it across the group's
+            # directions
+            trj = frechet_trace_pertraj(
+                consts["H0"], consts["ops"], *args,
+                group_size=_effective_group_size(cp),
+            )  # (N_T, K, T)
+    else:
+        G = consts["H0"].shape[0]
+        C = _gradgen_chunk(cp, n_steps=N_T)
+        out = []
+        for c0 in range(0, N_T, C):
+            cs = slice(c0, c0 + C)
+            # rank-1 direction R[b, a] = ψ_b(t_n) conj(χ_a(t_{n+1}))
+            R = torch.einsum("ckb,cka->ckba", psis[cs], chis[cs].conj())
+            Af = a_all[cs, None, None, None] * _generators(
+                consts, coeffs, cs
+            )  # (C, G, d, d)
+            _E, Lf = expm_frechet(
+                Af, R.reshape(-1, G, K // G, d, d), squarings=n_sq
+            )  # (C, G, gs, d, d)
+            out.append(torch.einsum(
+                "gtab,cgjba->cgjt", consts["ops"], Lf
+            ).reshape(-1, K, consts["ops"].shape[1]))
+        trj = torch.cat(out)
+    # tr(Op_j G) contracted with the control-derivative table:
+    # ∇τ_{nl} = ρ (-i dt_n) Σ_j (∂a_j/∂ε_l)(ε_n) tr(Op_j G_n)
+    grads = a_all[:, None, None] * torch.einsum(contract, dMc, trj)
     return rho[None, :, None].to(cdt) * grads
 
 
@@ -599,8 +849,8 @@ def build_f(cp: CompiledProblem, amp_max=None, device=None):
     def f(pulsevals):
         pulsevals = _as_pulse(pulsevals, consts, device)
         eps = pulsevals.reshape(cp.n_controls, cp.n_timesteps)
-        coeffs, _ = _coeff_tables(consts, eps)
-        storage, _ = _forward(cp, consts, coeffs, amp_max)
+        coeffs, _ = _coeff_tables(cp, consts, eps)
+        storage, _ = _forward(cp, consts, coeffs, amp_max, want_U=False)
         J_T_val, J_a_val, J_b_val, tau = _J_parts(cp, pulsevals, storage)
         J = J_T_val + J_a_val + J_b_val
         aux = {
@@ -623,15 +873,23 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
     device the problem was compiled for.
     """
     device = cp.device if device is None else resolve_device(device)
+    if not _vec_gradgen_enabled(cp):
+        raise NotImplementedError(
+            "a complex128 problem whose propagator stream exceeds the "
+            "storage budget needs the per-step backward pass, which is not "
+            "ported to grape_tpu_torch yet"
+        )
     consts = _device_constants(cp, device)
     cdt = consts["cdtype"]
+    # keep the propagator stream for phase A while it fits its budget
+    reuse_U = _gg_u_bytes_ok(cp)
 
     @torch.no_grad()
     def fg(pulsevals):
         pulsevals = _as_pulse(pulsevals, consts, device)
         eps = pulsevals.reshape(cp.n_controls, cp.n_timesteps)
-        coeffs, dM = _coeff_tables(consts, eps)
-        storage, Us = _forward(cp, consts, coeffs, amp_max)
+        coeffs, dM = _coeff_tables(cp, consts, eps)
+        storage, Us = _forward(cp, consts, coeffs, amp_max, want_U=reuse_U)
         J_T_val, J_a_val, J_b_val, tau = _J_parts(cp, pulsevals, storage)
         J = J_T_val + J_a_val + J_b_val
         psi_T = storage[-1]
@@ -642,7 +900,10 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
         safe_rho = torch.where(rho > 0, rho, torch.ones_like(rho))
         chi_hat = chi_T / safe_rho[:, None].to(cdt)
 
-        chis = _chi_trajectory(cp, Us, chi_hat)
+        if reuse_U:
+            chis = _chi_trajectory(cp, Us, chi_hat)
+        else:
+            chis = _chi_prop_scan(cp, consts, coeffs, chi_hat, amp_max)
         tau_grads = _backward_vectorized_gradgen(
             cp, consts, coeffs, dM, storage[:-1], chis, rho, amp_max
         )

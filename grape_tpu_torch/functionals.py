@@ -3,8 +3,9 @@
 Counterpart of ``grape_tpu/functionals.py`` (itself the analog of
 ``QuantumControl.Functionals``): the standard final-time functionals
 ``J_T_sm`` / ``J_T_re`` / ``J_T_ss`` with their analytic ``chi``
-counterparts, the pulse running cost ``J_a_fluence``, and the semi-AD
-constructors ``make_chi`` / ``make_grad_J_a`` on ``torch.autograd``.
+counterparts, the pulse running cost ``J_a_fluence``, the gate and
+ensemble-gate functionals, and the semi-AD constructors ``make_chi`` /
+``make_grad_J_a`` / ``make_gate_chi`` on ``torch.autograd``.
 
 Conventions: the co-state is
 
@@ -33,6 +34,7 @@ __all__ = [
     "chi_sm", "chi_re", "chi_ss",
     "J_a_fluence", "grad_J_a_fluence",
     "make_chi", "make_grad_J_a", "make_analytic_chi",
+    "make_ensemble_gate_functional", "gate_functional", "make_gate_chi",
     "taus", "weights_of", "accepts_tau",
 ]
 
@@ -226,3 +228,83 @@ def make_grad_J_a(J_a, tlist):
         return g
 
     return grad_J_a
+
+
+# --------------------------------------------------------------------------
+# Gate functionals
+# --------------------------------------------------------------------------
+
+def make_ensemble_gate_functional(n_basis):
+    """Robust-gate ensemble functional: coherent within each sample's
+    ``n_basis`` gate trajectories, INCOHERENT across samples:
+
+        ``J_T = 1 − Σ_s w_s |(1/n_basis) Σ_{k∈s} τ_k|²``
+
+    A plain :func:`J_T_sm` over all ``S·n_basis`` trajectories sums τ
+    coherently ACROSS samples; with per-sample drift perturbations the
+    sample overlaps carry different dynamical phases and the coherent sum
+    interferes destructively (ensemble members are independent systems;
+    only the relative phases WITHIN one gate are physical).
+
+    Trajectory order must be sample-major (all ``n_basis`` basis states of
+    sample 0 first, ...).  Per-sample weights may be given through the
+    trajectories' ``weight`` attribute (constant within a sample;
+    normalized internally).  Returns ``J_T(Psi, trajectories, tau=None)``
+    (the batched tau protocol); the co-state comes from ``make_chi``
+    semi-AD."""
+
+    def J_T_sm_ensemble(Psi, trajectories, tau=None):
+        if tau is None:
+            tau = taus(Psi, trajectories)
+        K = len(trajectories)
+        if K % n_basis != 0:
+            raise ValueError(
+                f"trajectory count ({K}) is not a multiple of "
+                f"n_basis ({n_basis})"
+            )
+        S = K // n_basis
+        w_s = weights_of(trajectories, tau).reshape(S, n_basis)[:, 0]
+        w_s = w_s / torch.sum(w_s)
+        f = torch.abs(torch.mean(tau.reshape(S, n_basis), dim=1)) ** 2
+        return 1.0 - torch.sum(w_s * f)
+
+    return J_T_sm_ensemble
+
+
+def _basis_of(trajectories, like):
+    basis = np.stack([np.asarray(t.initial_state) for t in trajectories])
+    return torch.as_tensor(basis, dtype=like.dtype, device=like.device)
+
+
+def gate_functional(J_T_U, **kwargs):
+    """Lift a functional of the logical gate ``U_L`` (matrix ``(K, K)`` with
+    ``(U_L)_ij = ⟨φ_i|Ψ_j(T)⟩``) to a standard ``J_T(Psi, trajectories)``.
+
+    The basis states ``φ_i`` are the trajectories' initial states.
+    """
+
+    def J_T(Psi, trajectories, tau=None):
+        basis = _basis_of(trajectories, Psi)
+        U_L = torch.einsum("id,jd->ij", torch.conj(basis), Psi)
+        return J_T_U(U_L, **kwargs)
+
+    return J_T
+
+
+def make_gate_chi(J_T_U, trajectories, **kwargs):
+    """``chi`` for a gate functional via AD and the chain rule
+    ``χ_k = -½ Σ_i (∇_{U_L} J_T)_ik |φ_i⟩``, with
+    ``∇_U J = ∂J/∂Re U + i ∂J/∂Im U``: what ``torch.autograd`` returns for
+    a real function of a complex tensor, so, as in :func:`make_chi`, there
+    is no conjugation here (the JAX package conjugates ``jax.grad``'s
+    result to get the same quantity)."""
+
+    def chi(Psi, trajectories, tau=None):
+        basis = _basis_of(trajectories, Psi)
+        U_L = torch.einsum("id,jd->ij", torch.conj(basis), Psi.detach())
+        U_L = U_L.clone().requires_grad_(True)
+        with torch.enable_grad():
+            (nabla,) = torch.autograd.grad(J_T_U(U_L, **kwargs), U_L)
+        return -0.5 * torch.einsum("ik,id->kd", nabla, basis)
+
+    return chi

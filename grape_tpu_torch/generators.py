@@ -21,7 +21,7 @@ from .amplitudes import (
     ComplexAmplitude, CustomAmplitude, LockedAmplitude, ShapedAmplitude,
 )
 
-__all__ = ["Generator", "hamiltonian", "as_generator"]
+__all__ = ["Generator", "hamiltonian", "as_generator", "align_generators"]
 
 
 def as_generator(obj):
@@ -188,3 +188,56 @@ def hamiltonian(*parts):
             raise ValueError("hamiltonian() needs at least one operator")
         drift = np.zeros_like(terms[0][0])
     return Generator(drift, terms)
+
+
+def align_generators(generators):
+    """Align heterogeneous ensemble generators to a shared term structure.
+
+    The batched evaluation requires every trajectory's generator to have
+    the same term list (same count, same amplitude per slot).  This helper
+    takes generators whose term lists differ (e.g. a robustness ensemble
+    where only some members have a crosstalk drive) and returns new
+    :class:`Generator` s over the *union* of all amplitudes, padding missing
+    couplings with zero operators.  Coefficient tables, control ordering,
+    and gradients are then identical across the ensemble; zero-padded terms
+    contribute nothing to ``H_k`` or ``μ_k``.
+
+    Amplitudes are matched by object identity, as controls are
+    (``get_controls`` deduplication): ensemble members that share a control
+    must reference the *same* amplitude/control object.
+    """
+    generators = list(generators)
+    if not generators:
+        return []
+    dim = generators[0].dim
+    for g in generators:
+        if g.dim != dim:
+            raise ValueError(
+                "align_generators: all generators must have the same "
+                f"dimension (got {g.dim} != {dim})"
+            )
+    # ordered union of amplitude objects across all generators
+    union = []
+    for g in generators:
+        for _, amp in g.terms:
+            if not any(amp is u for u in union):
+                union.append(amp)
+    dtype = np.result_type(
+        *(g.drift.dtype for g in generators),
+        *(op.dtype for g in generators for (op, _) in g.terms),
+    )
+    zero = np.zeros((dim, dim), dtype=dtype)
+    out = []
+    for g in generators:
+        terms = []
+        for amp in union:
+            ops = [op for (op, a) in g.terms if a is amp]
+            if not ops:
+                terms.append((zero, amp))
+            else:
+                acc = ops[0].astype(dtype)
+                for op in ops[1:]:
+                    acc = acc + op
+                terms.append((acc, amp))
+        out.append(Generator(g.drift, terms))
+    return out

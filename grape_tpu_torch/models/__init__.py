@@ -1,6 +1,12 @@
 """Problem builders for the models that are ported so far."""
 
 from .tls import tls_problem
-from .transmon import two_transmon_cz_problem
+from .transmon import (
+    transmon_ensemble_trajectories, two_transmon_cz_ensemble_problem,
+    two_transmon_cz_problem,
+)
 
-__all__ = ["tls_problem", "two_transmon_cz_problem"]
+__all__ = [
+    "tls_problem", "two_transmon_cz_problem",
+    "two_transmon_cz_ensemble_problem", "transmon_ensemble_trajectories",
+]

@@ -1,14 +1,18 @@
 """Transmon model family: the two-transmon CZ gate with multi-control
-pulses (BASELINE config 4), the flagship of the gate-optimization path."""
+pulses (BASELINE config 4), the flagship of the gate-optimization path, and
+its robust ensembles over Hamiltonian samples (BASELINE config 5)."""
 
 import numpy as np
 
-from ..functionals import J_T_sm
+from ..functionals import J_T_sm, make_ensemble_gate_functional
 from ..generators import hamiltonian
 from ..shapes import flattop
 from ..trajectory import ControlProblem, Trajectory
 
-__all__ = ["two_transmon_cz_problem"]
+__all__ = [
+    "two_transmon_cz_problem", "two_transmon_cz_ensemble_problem",
+    "transmon_ensemble_trajectories",
+]
 
 
 def _ladder(d):
@@ -77,3 +81,83 @@ def two_transmon_cz_problem(
     ]
     kwargs.setdefault("J_T", J_T_sm)
     return ControlProblem(trajectories, tlist, **kwargs)
+
+
+def two_transmon_cz_ensemble_problem(
+    n_samples=8, d=10, delta_spread=0.02, delta1=0.0, delta2=0.5,
+    alpha1=-1.2, alpha2=-1.0, J=0.05, T=50.0, n_steps=2000, E0=0.05,
+    seed=0, **kwargs
+):
+    """Robust two-transmon CZ (BASELINE config 5): an ensemble of
+    ``n_samples`` perturbed Hamiltonians — per-sample detunings drawn from
+    ``±delta_spread`` — each propagating the 4 logical basis states, so
+    ``K = 4·n_samples`` trajectories in ``n_samples`` generator groups of 4
+    (each sample's trajectories hold the SAME generator object), sharing
+    one set of 4 drive controls."""
+    rng = np.random.default_rng(seed)
+    tlist = np.linspace(0, T, n_steps + 1)
+
+    def mk_guess(scale):
+        def g(t):
+            return scale * float(
+                flattop(t, T=T, t_rise=min(5.0, T / 10.0), func="blackman")
+            )
+        return g
+
+    guesses = [mk_guess(E0), mk_guess(0.0), mk_guess(E0), mk_guess(0.0)]
+
+    dim = d * d
+
+    def logical(i, j):
+        v = np.zeros(dim, dtype=complex)
+        v[i * d + j] = 1.0
+        return v
+
+    basis = [logical(0, 0), logical(0, 1), logical(1, 0), logical(1, 1)]
+    cz_phases = [1.0, 1.0, 1.0, -1.0]
+    trajectories = []
+    for _ in range(n_samples):
+        d1 = delta1 + rng.uniform(-delta_spread, delta_spread)
+        d2 = delta2 + rng.uniform(-delta_spread, delta_spread)
+        H0, drives = _two_transmon_hamiltonian(
+            d, d1, d2, alpha1, alpha2, J
+        )
+        # the SAME guess callables across samples: one shared control set
+        H = hamiltonian(H0, *zip(drives, guesses))
+        for b, ph in zip(basis, cz_phases):
+            trajectories.append(Trajectory(b, H, target_state=ph * b))
+    # per-sample-coherent, cross-sample-incoherent gate functional: a
+    # global J_T_sm would sum tau coherently across samples, where the
+    # sample-dependent drift phases interfere destructively
+    kwargs.setdefault("J_T", make_ensemble_gate_functional(4))
+    return ControlProblem(trajectories, tlist, **kwargs)
+
+
+def transmon_ensemble_trajectories(
+    n_samples, d=3, delta_spread=0.02, alpha=-0.3 * 2 * np.pi,
+    T=20.0, E0=0.05, seed=0,
+):
+    """Robust-ensemble trajectories: `n_samples` Hamiltonian samples with
+    detuning drawn from ``±delta_spread`` (BASELINE config 5 pattern), all
+    sharing one set of controls."""
+    rng = np.random.default_rng(seed)
+    a, n = _ladder(d)
+    Hx = 0.5 * (a + a.conj().T)
+    Hy = 0.5j * (a - a.conj().T)
+
+    def guess_x(t):
+        return E0 * float(flattop(t, T=T, t_rise=2.0, func="blackman"))
+
+    def guess_y(t):
+        return 0.0
+
+    e = np.eye(d, dtype=complex)
+    deltas = rng.uniform(-delta_spread, delta_spread, n_samples)
+    trajectories = []
+    for k in range(n_samples):
+        H0 = deltas[k] * n + 0.5 * alpha * (n @ n - n)
+        H = hamiltonian(H0, (Hx, guess_x), (Hy, guess_y))
+        trajectories.append(
+            Trajectory(e[0], H, target_state=e[1], weight=1.0)
+        )
+    return trajectories

@@ -103,16 +103,18 @@ def _build(so, verbose):
 
 
 def _declare(lib):
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.grape_propagators.restype = i
-    lib.grape_propagators.argtypes = [p, p, p, p, i, i, i, i, p, i, p, p]
+    lib.grape_propagators.argtypes = [
+        p, p, p, p, i, i, i, i, ll, i, p, i, p, p,
+    ]
     lib.grape_forward_apply.restype = i
-    lib.grape_forward_apply.argtypes = [p, p, p, i, i, i, p]
+    lib.grape_forward_apply.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.grape_chi_scan.restype = i
-    lib.grape_chi_scan.argtypes = [p, p, p, i, i, i, p]
+    lib.grape_chi_scan.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.grape_frechet_trace.restype = i
     lib.grape_frechet_trace.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, p, i, p, p,
+        p, p, p, p, p, p, i, i, i, i, i, i, ll, i, p, i, p, p,
     ]
     lib.grape_propagator_scratch_matrices.restype = i
     lib.grape_propagator_scratch_matrices.argtypes = []

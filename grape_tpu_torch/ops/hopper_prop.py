@@ -1,21 +1,32 @@
-"""Forward scan and co-state chain for a shared generator: CUDA kernels,
-their wrappers and their plain PyTorch versions.
+"""Forward scan and co-state chain: CUDA kernels, their wrappers and their
+plain PyTorch versions.
 
-Counterpart of ``grape_tpu/ops/pallas_prop.py`` for the two kernels of the
-gate-optimization main path:
+Counterpart of ``grape_tpu/ops/pallas_prop.py`` for the kernels of the
+gate-optimization and the robust-ensemble paths.  The trajectories come in
+``G`` groups of ``gs`` contiguous ones that share a generator
+(``K = G·gs``); one pair of device kernels (``csrc/prop_scan.cu``) serves
+every grouping:
 
-- :func:`forward_scan_shared` replaces ``forward_scan_pallas_shared``: per
-  step ``H_n = H0 + Σ_t c[n,t]·Op_t``, ``U_n = [Taylor-PS degree 16 of
-  (−i·dt_n·H_n·2^−s)]^(2^s)``, ``ψ ← ψ·U_nᵀ`` for the ``(K, d)`` state
-  block.  One wrapper, two device launches (``csrc/prop_scan.cu``): a
-  batched propagator kernel over the independent time steps, then a
-  sequential apply-scan.
-- :func:`chi_scan_shared` replaces ``chi_scan_pallas_shared``: in reverse
-  time emit ``chis[n] = χ(t_{n+1})``, then ``χ ← χ·conj(U_n)``.
+- :func:`forward_scan_shared` replaces ``forward_scan_pallas_shared``
+  (``G = 1``), :func:`forward_scan_grouped` replaces
+  ``forward_scan_pallas_grouped`` (``gs > 1``) and
+  :func:`forward_scan_pertraj` replaces ``forward_scan_pallas``
+  (``gs = 1``): per step and group ``H_ng = H0_g + Σ_t c[n,t]·Op_gt``,
+  ``U_ng = [Taylor-PS degree 16 of (−i·dt_n·H_ng·2^−s)]^(2^s)``,
+  ``ψ ← ψ·U_ngᵀ`` for the group's ``(gs, d)`` state block.  One wrapper,
+  two device launches: a batched propagator kernel over the independent
+  (step, group) items, then a sequential apply-scan.  The coefficient table
+  may be one ``(N_T, T)`` for all groups or ``(G, N_T, T)``, one per group.
+- :func:`chi_scan_shared` replaces ``chi_scan_pallas_shared``, and
+  :func:`chi_scan_grouped` is the same chain over grouped or per-trajectory
+  stored propagators (a scan of small products in the reference): in
+  reverse time emit ``chis[n] = χ(t_{n+1})``, then ``χ ← χ·conj(U_ng)``.
+- :func:`chi_scan_recompute` is the chain without stored propagators: the
+  propagator kernel recomputes them one window of steps at a time.
 
-Each wrapper launches its kernel for a CUDA tensor (or raises) and runs the
-plain version only for a CPU tensor; ``launches`` counts kernel launches per
-wrapper.  The kernels take complex64 only (full float32 FMAs).
+Each wrapper launches its kernels for a CUDA tensor (or raises) and runs the
+plain version only for a CPU tensor; ``launches`` counts, per wrapper, the
+calls that launched.  The kernels take complex64 only (full float32 FMAs).
 """
 
 import torch
@@ -26,19 +37,30 @@ from .expm import expm_taylor_ps
 
 __all__ = [
     "forward_scan_shared", "forward_scan_shared_plain",
+    "forward_scan_grouped", "forward_scan_grouped_plain",
+    "forward_scan_pertraj", "forward_scan_pertraj_plain",
     "chi_scan_shared", "chi_scan_shared_plain",
-    "propagators_shared", "launches",
+    "chi_scan_grouped", "chi_scan_grouped_plain",
+    "chi_scan_recompute", "chi_scan_recompute_plain",
+    "propagators", "propagators_shared", "launches",
 ]
 
-# kernel launches per wrapper (one count per wrapper call that launched)
-launches = {"forward_scan_shared": 0, "chi_scan_shared": 0}
+# wrapper calls that launched their kernels
+launches = {
+    "forward_scan_shared": 0, "chi_scan_shared": 0,
+    "forward_scan_grouped": 0, "forward_scan_pertraj": 0,
+    "chi_scan_grouped": 0, "chi_scan_recompute": 0,
+}
 
 # blocks of the persistent propagator grid per multiprocessor
 _BLOCKS_PER_SM = 2
 
-# time steps per batched product of the plain propagators, so the
-# (chunk, d, d) intermediates stay bounded
+# (step, group) items per batched product of the plain propagators, so the
+# (chunk, G, d, d) intermediates stay bounded
 _PLAIN_CHUNK = 250
+
+# bytes of propagators held at a time where the stream is not kept
+_WINDOW_BYTES = 1024**3
 
 
 def _require(cond, msg):
@@ -65,59 +87,107 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _check_generator_args(H0, ops, coeffs, dts):
-    """Validate the generator inputs shared by the propagator and the
-    Fréchet kernels; returns ``(T, d, N_T)``."""
+def _squarings(n_squarings):
+    s = int(n_squarings)
+    _require(0 <= s <= 32, f"n_squarings out of range: {s}")
+    return s
+
+
+def _check_group_args(H0, ops, coeffs, dts):
+    """Validate grouped generator inputs ``H0 (G, d, d)``,
+    ``ops (G, T, d, d)``, ``coeffs (N_T, T)`` or ``(G, N_T, T)``,
+    ``dts (N_T,)``; returns ``(G, T, d, N_T, coeff_group_stride)`` with the
+    stride in floats between two groups' tables (0 for a shared table)."""
     device = H0.device
-    d = H0.shape[-1]
-    T = ops.shape[0]
-    N_T = coeffs.shape[0]
-    _check_tensor("H0", H0, torch.complex64, (d, d), device)
-    _check_tensor("ops", ops, torch.complex64, (T, d, d), device)
-    _check_tensor("coeffs", coeffs, torch.float32, (N_T, T), device)
+    _require(H0.ndim == 3 and ops.ndim == 4,
+             "H0 must be (G, d, d) and ops (G, T, d, d)")
+    G, d = H0.shape[0], H0.shape[-1]
+    T = ops.shape[1]
+    N_T = dts.shape[0]
+    _check_tensor("H0", H0, torch.complex64, (G, d, d), device)
+    _check_tensor("ops", ops, torch.complex64, (G, T, d, d), device)
+    per_group = coeffs.ndim == 3
+    _check_tensor("coeffs", coeffs, torch.float32,
+                  (G, N_T, T) if per_group else (N_T, T), device)
     _check_tensor("dts", dts, torch.float32, (N_T,), device)
-    _require(N_T >= 1, "need at least one time step")
+    _require(N_T >= 1 and G >= 1, "need at least one time step and group")
+    return G, T, d, N_T, (N_T * T if per_group else 0)
+
+
+def _check_generator_args(H0, ops, coeffs, dts):
+    """Validate the inputs of a SHARED generator (``H0 (d, d)``,
+    ``ops (T, d, d)``, ``coeffs (N_T, T)``); returns ``(T, d, N_T)``."""
+    _require(H0.ndim == 2 and ops.ndim == 3 and coeffs.ndim == 2,
+             "H0 must be (d, d), ops (T, d, d) and coeffs (N_T, T)")
+    _, T, d, N_T, _ = _check_group_args(H0[None], ops[None], coeffs, dts)
     return T, d, N_T
 
 
-def propagators_shared(H0, ops, coeffs, dts, n_squarings):
-    """``U (N_T, d, d)`` by the batched propagator kernel (CUDA tensors
-    only; the first of the two launches of :func:`forward_scan_shared`)."""
-    T, d, N_T = _check_generator_args(H0, ops, coeffs, dts)
+def _group_size(K, G):
+    _require(G >= 1 and K % G == 0,
+             f"{K} trajectories do not split into {G} groups")
+    return K // G
+
+
+# --------------------------------------------------------------------------
+# Propagators
+# --------------------------------------------------------------------------
+
+def propagators(H0, ops, coeffs, dts, n_squarings):
+    """``U (N_T, G, d, d)`` by the batched propagator kernel (CUDA tensors
+    only; the first of the two launches of the forward scans).  Arguments
+    as :func:`_check_group_args`."""
+    G, T, d, N_T, stride = _check_group_args(H0, ops, coeffs, dts)
     device = H0.device
-    _require(device.type == "cuda", "propagators_shared needs CUDA tensors")
-    s = int(n_squarings)
-    _require(0 <= s <= 32, f"n_squarings out of range: {s}")
+    _require(device.type == "cuda", "propagators needs CUDA tensors")
+    s = _squarings(n_squarings)
     lib = load_kernels()
-    n_blocks = _grid_blocks(device, N_T)
+    n_blocks = _grid_blocks(device, N_T * G)
     n_mat = lib.grape_propagator_scratch_matrices()
-    U = torch.empty((N_T, d, d), dtype=torch.complex64, device=device)
+    U = torch.empty((N_T, G, d, d), dtype=torch.complex64, device=device)
     scratch = torch.empty(
         (n_blocks * n_mat, d, d), dtype=torch.complex64, device=device
     )
     with torch.cuda.device(device):
         check(lib, lib.grape_propagators(
             H0.data_ptr(), ops.data_ptr(), coeffs.data_ptr(), dts.data_ptr(),
-            T, d, N_T, s, scratch.data_ptr(), n_blocks, U.data_ptr(),
-            _stream(device),
+            T, d, N_T, G, stride, s, scratch.data_ptr(), n_blocks,
+            U.data_ptr(), _stream(device),
         ), "propagator kernel launch")
     return U
 
 
+def propagators_shared(H0, ops, coeffs, dts, n_squarings):
+    """``U (N_T, d, d)`` for a shared generator (see :func:`propagators`)."""
+    _check_generator_args(H0, ops, coeffs, dts)
+    U = propagators(H0[None], ops[None], coeffs, dts, n_squarings)
+    return U[:, 0]
+
+
+def _window(coeffs, dts, n0, n1):
+    """The coefficient rows and time steps of steps ``n0..n1-1``."""
+    co = coeffs[:, n0:n1] if coeffs.ndim == 3 else coeffs[n0:n1]
+    return co.contiguous(), dts[n0:n1].contiguous()
+
+
 def _propagators_plain(H0, ops, coeffs, dts, n_squarings):
+    """Plain ``U (N_T, G, d, d)`` for grouped inputs of any complex type."""
     cdtype = H0.dtype
-    N_T = coeffs.shape[0]
-    d = H0.shape[-1]
+    G, d = H0.shape[0], H0.shape[-1]
+    N_T = dts.shape[0]
     s = int(n_squarings)
     scale = 2.0 ** (-s)
-    U = torch.empty((N_T, d, d), dtype=cdtype, device=H0.device)
-    chunk = _PLAIN_CHUNK
+    U = torch.empty((N_T, G, d, d), dtype=cdtype, device=H0.device)
+    chunk = max(1, _PLAIN_CHUNK // G)
     for c0 in range(0, N_T, chunk):
-        c = coeffs[c0:c0 + chunk].to(cdtype)
-        dt = dts[c0:c0 + chunk].to(cdtype)
-        H = H0[None] + torch.einsum("nt,tij->nij", c, ops)
+        co, dt = _window(coeffs, dts, c0, c0 + chunk)
+        co = co.to(cdtype)
+        if co.ndim == 3:
+            H = H0[None] + torch.einsum("gnt,gtij->ngij", co, ops)
+        else:
+            H = H0[None] + torch.einsum("nt,gtij->ngij", co, ops)
         # A = -i dt H 2^-s  (Ar = dt Hi, Ai = -dt Hr)
-        A = (-1j * dt * scale)[:, None, None] * H
+        A = (-1j * dt.to(cdtype) * scale)[:, None, None, None] * H
         E = expm_taylor_ps(A)
         for _ in range(s):
             E = E @ E
@@ -125,20 +195,86 @@ def _propagators_plain(H0, ops, coeffs, dts, n_squarings):
     return U
 
 
+def _window_steps(G, d, N_T):
+    """Time steps per window of at most ``_WINDOW_BYTES`` of propagators."""
+    return max(1, min(N_T, _WINDOW_BYTES // (G * d * d * 8)))
+
+
+# --------------------------------------------------------------------------
+# Forward scans
+# --------------------------------------------------------------------------
+
+def _forward_scan_plain(H0, ops, coeffs, dts, psi0, n_squarings,
+                        with_propagators=True):
+    """Plain forward scan for grouped inputs: ``(storage (N_T+1, K, d),
+    U (N_T, G, d, d) or None)``."""
+    G = H0.shape[0]
+    K, d = psi0.shape
+    gs = _group_size(K, G)
+    N_T = dts.shape[0]
+    storage = torch.empty((N_T + 1, K, d), dtype=psi0.dtype,
+                          device=psi0.device)
+    U = None
+    if with_propagators:
+        U = torch.empty((N_T, G, d, d), dtype=psi0.dtype, device=psi0.device)
+    psi = psi0.reshape(G, gs, d)
+    storage[0] = psi0
+    C = _window_steps(G, d, N_T)
+    for n0 in range(0, N_T, C):
+        co, dt = _window(coeffs, dts, n0, n0 + C)
+        Uw = _propagators_plain(H0, ops, co, dt, n_squarings)
+        if U is not None:
+            U[n0:n0 + C] = Uw
+        for j in range(Uw.shape[0]):
+            # row vectors: ψ_new = ψ·Uᵀ, per group
+            psi = psi @ Uw[j].transpose(-1, -2)
+            storage[n0 + j + 1] = psi.reshape(K, d)
+    return storage, U
+
+
+def _forward_scan(name, H0, ops, coeffs, dts, psi0, n_squarings,
+                  with_propagators):
+    """The forward scan of wrapper ``name`` on grouped inputs: the plain
+    version for CPU tensors, else the propagator kernel and the apply-scan,
+    over the whole time grid when the propagators are kept and window by
+    window when they are not."""
+    if psi0.device.type == "cpu" or plain_forced():
+        return _forward_scan_plain(H0, ops, coeffs, dts, psi0, n_squarings,
+                                   with_propagators)
+    G, _, d, N_T, _ = _check_group_args(H0, ops, coeffs, dts)
+    device = H0.device
+    K = psi0.shape[0]
+    gs = _group_size(K, G)
+    _check_tensor("psi0", psi0, torch.complex64, (K, d), device)
+    lib = load_kernels()
+    storage = torch.empty((N_T + 1, K, d), dtype=torch.complex64,
+                          device=device)
+    C = N_T if with_propagators else _window_steps(G, d, N_T)
+    U = None
+    psi_in = psi0
+    for n0 in range(0, N_T, C):
+        co, dt = _window(coeffs, dts, n0, n0 + C)
+        U = propagators(H0, ops, co, dt, n_squarings)
+        with torch.cuda.device(device):
+            check(lib, lib.grape_forward_apply(
+                U.data_ptr(), psi_in.data_ptr(), storage[n0:].data_ptr(),
+                U.shape[0], K, d, G, gs, _stream(device),
+            ), "forward apply-scan kernel launch")
+        if n0 + C < N_T:
+            # the next window starts from a copy of this one's last state
+            # (the kernel writes its start state back to that row)
+            psi_in = storage[n0 + C].clone()
+    launches[name] += 1
+    return storage, (U if with_propagators else None)
+
+
 def forward_scan_shared_plain(H0, ops, coeffs, dts, psi0, n_squarings):
     """Plain PyTorch version of :func:`forward_scan_shared` (same Taylor
     degree, same static ``s``, same squarings)."""
-    U = _propagators_plain(H0, ops, coeffs, dts, n_squarings)
-    N_T = U.shape[0]
-    K, d = psi0.shape
-    storage = torch.empty((N_T + 1, K, d), dtype=psi0.dtype,
-                          device=psi0.device)
-    psi = psi0
-    storage[0] = psi
-    for n in range(N_T):
-        psi = psi @ U[n].T  # row vectors: ψ_new = ψ·Uᵀ
-        storage[n + 1] = psi
-    return storage, U
+    storage, U = _forward_scan_plain(
+        H0[None], ops[None], coeffs, dts, psi0, n_squarings
+    )
+    return storage, U[:, 0]
 
 
 def forward_scan_shared(H0, ops, coeffs, dts, psi0, n_squarings):
@@ -157,39 +293,129 @@ def forward_scan_shared(H0, ops, coeffs, dts, psi0, n_squarings):
     Returns ``(storage (N_T+1, K, d), U (N_T, d, d))`` complex64, with
     ``storage[0] = psi0``.
     """
-    if psi0.device.type == "cpu" or plain_forced():
-        return forward_scan_shared_plain(
-            H0, ops, coeffs, dts, psi0, n_squarings
-        )
-    K, d = psi0.shape
-    _check_tensor("psi0", psi0, torch.complex64, (K, H0.shape[-1]), H0.device)
-    U = propagators_shared(H0, ops, coeffs, dts, n_squarings)
-    N_T = U.shape[0]
-    device = psi0.device
-    lib = load_kernels()
-    storage = torch.empty((N_T + 1, K, d), dtype=torch.complex64,
-                          device=device)
+    _require(H0.ndim == 2 and ops.ndim == 3 and coeffs.ndim == 2,
+             "H0 must be (d, d), ops (T, d, d) and coeffs (N_T, T)")
+    storage, U = _forward_scan(
+        "forward_scan_shared", H0[None], ops[None], coeffs, dts, psi0,
+        n_squarings, True,
+    )
+    return storage, U[:, 0]
+
+
+def forward_scan_grouped_plain(H0, ops, coeffs, dts, psi0, group_size,
+                               n_squarings, with_propagators=True):
+    """Plain PyTorch version of :func:`forward_scan_grouped`."""
+    _require(H0.shape[0] * int(group_size) == psi0.shape[0],
+             "psi0 must hold group_size trajectories per group")
+    return _forward_scan_plain(H0, ops, coeffs, dts, psi0, n_squarings,
+                               with_propagators)
+
+
+def forward_scan_grouped(H0, ops, coeffs, dts, psi0, group_size,
+                         n_squarings, with_propagators=True):
+    """Forward propagation for GROUPED generators (gate ensembles: each
+    contiguous run of ``group_size`` trajectories shares one generator):
+    one exponential per (step, group).
+
+    Args:
+      H0:   (G, d, d) complex64, one drift per group
+      ops:  (G, T, d, d) complex64
+      coeffs: (N_T, T) float32, or (G, N_T, T) with one table per group
+      dts:  (N_T,) float32
+      psi0: (K, d) complex64, ``K = G·group_size``, group-contiguous
+      with_propagators: keep the propagator stream; without it the
+        propagators are formed one window of steps at a time
+
+    Returns ``(storage (N_T+1, K, d), U (N_T, G, d, d) or None)``.
+    """
+    _require(H0.shape[0] * int(group_size) == psi0.shape[0],
+             "psi0 must hold group_size trajectories per group")
+    return _forward_scan("forward_scan_grouped", H0, ops, coeffs, dts, psi0,
+                         n_squarings, with_propagators)
+
+
+def forward_scan_pertraj_plain(H0, ops, coeffs, dts, psi0, n_squarings,
+                               with_propagators=True):
+    """Plain PyTorch version of :func:`forward_scan_pertraj`."""
+    _require(H0.shape[0] == psi0.shape[0], "one generator per trajectory")
+    return _forward_scan_plain(H0, ops, coeffs, dts, psi0, n_squarings,
+                               with_propagators)
+
+
+def forward_scan_pertraj(H0, ops, coeffs, dts, psi0, n_squarings,
+                         with_propagators=True):
+    """Forward propagation with one generator PER TRAJECTORY (robust
+    ensembles): ``H0 (K, d, d)``, ``ops (K, T, d, d)``, ``coeffs (N_T, T)``
+    or ``(K, N_T, T)``; otherwise as :func:`forward_scan_grouped` with
+    ``group_size = 1``.  Returns ``(storage (N_T+1, K, d),
+    U (N_T, K, d, d) or None)``."""
+    _require(H0.shape[0] == psi0.shape[0], "one generator per trajectory")
+    return _forward_scan("forward_scan_pertraj", H0, ops, coeffs, dts, psi0,
+                         n_squarings, with_propagators)
+
+
+# --------------------------------------------------------------------------
+# Co-state chains
+# --------------------------------------------------------------------------
+
+def _chi_window_plain(Us, chi, chis):
+    """Run the chain over the window ``Us (C, G, d, d)`` into
+    ``chis (C, K, d)``; returns χ carried out of the window."""
+    G = Us.shape[1]
+    K, d = chi.shape
+    chi = chi.reshape(G, K // G, d)
+    for n in range(Us.shape[0] - 1, -1, -1):
+        chis[n] = chi.reshape(K, d)  # χ BEFORE the step-n update
+        chi = chi @ Us[n].conj()
+    return chi.reshape(K, d)
+
+
+def _chi_window(lib, Us, chi, chis, carry):
+    """Launch the χ-scan kernel over the window ``Us (C, G, d, d)``, writing
+    ``chis (C, K, d)``; with ``carry`` returns χ carried out of the window."""
+    device = chi.device
+    C, G = Us.shape[0], Us.shape[1]
+    K, d = chi.shape
+    out = torch.empty_like(chi) if carry else None
     with torch.cuda.device(device):
-        check(lib, lib.grape_forward_apply(
-            U.data_ptr(), psi0.data_ptr(), storage.data_ptr(), N_T, K, d,
+        check(lib, lib.grape_chi_scan(
+            Us.data_ptr(), chi.data_ptr(), chis.data_ptr(),
+            out.data_ptr() if carry else None, C, K, d, G, K // G,
             _stream(device),
-        ), "forward apply-scan kernel launch")
-    launches["forward_scan_shared"] += 1
-    return storage, U
+        ), "chi scan kernel launch")
+    return out
+
+
+def chi_scan_grouped_plain(Us, chi_hat):
+    """Plain PyTorch version of :func:`chi_scan_grouped`."""
+    N_T = Us.shape[0]
+    K, d = chi_hat.shape
+    _group_size(K, Us.shape[1])
+    chis = torch.empty((N_T, K, d), dtype=chi_hat.dtype,
+                       device=chi_hat.device)
+    _chi_window_plain(Us, chi_hat, chis)
+    return chis
+
+
+def _chi_scan(name, Us, chi_hat):
+    if chi_hat.device.type == "cpu" or plain_forced():
+        return chi_scan_grouped_plain(Us, chi_hat)
+    device = chi_hat.device
+    K, d = chi_hat.shape
+    N_T, G = Us.shape[0], Us.shape[1]
+    _group_size(K, G)
+    _check_tensor("Us", Us, torch.complex64, (N_T, G, d, d), device)
+    _check_tensor("chi_hat", chi_hat, torch.complex64, (K, d), device)
+    _require(N_T >= 1, "need at least one time step")
+    chis = torch.empty((N_T, K, d), dtype=torch.complex64, device=device)
+    _chi_window(load_kernels(), Us, chi_hat, chis, carry=False)
+    launches[name] += 1
+    return chis
 
 
 def chi_scan_shared_plain(Us, chi_hat):
     """Plain PyTorch version of :func:`chi_scan_shared`."""
-    N_T = Us.shape[0]
-    K, d = chi_hat.shape
-    chis = torch.empty((N_T, K, d), dtype=chi_hat.dtype,
-                       device=chi_hat.device)
-    chi = chi_hat
-    for n in range(N_T - 1, -1, -1):
-        chis[n] = chi  # χ BEFORE the step-n update
-        if n > 0:
-            chi = chi @ Us[n].conj()
-    return chis
+    return chi_scan_grouped_plain(Us[:, None], chi_hat)
 
 
 def chi_scan_shared(Us, chi_hat):
@@ -199,20 +425,61 @@ def chi_scan_shared(Us, chi_hat):
     ``chis (N_T, K, d)`` with ``chis[n] = χ(t_{n+1})``: χ is emitted, then
     updated by ``χ ← χ·conj(U_n)`` (row-vector form of ``U_n†χ``).
     """
-    if chi_hat.device.type == "cpu" or plain_forced():
-        return chi_scan_shared_plain(Us, chi_hat)
-    device = chi_hat.device
+    _require(Us.ndim == 3, "Us must be (N_T, d, d)")
+    return _chi_scan("chi_scan_shared", Us[:, None], chi_hat)
+
+
+def chi_scan_grouped(Us, chi_hat):
+    """Backward co-state chain over stored GROUPED or per-trajectory
+    propagators: ``Us (N_T, G, d, d)`` complex64, ``chi_hat (K, d)`` with
+    ``K = G·gs`` group-contiguous.  Returns ``chis (N_T, K, d)`` with
+    ``chis[n] = χ(t_{n+1})``; group ``g``'s block is updated by
+    ``χ ← χ·conj(U_ng)``."""
+    _require(Us.ndim == 4, "Us must be (N_T, G, d, d)")
+    return _chi_scan("chi_scan_grouped", Us, chi_hat)
+
+
+def chi_scan_recompute_plain(H0, ops, coeffs, dts, chi_hat, n_squarings):
+    """Plain PyTorch version of :func:`chi_scan_recompute`."""
+    G = H0.shape[0]
     K, d = chi_hat.shape
-    N_T = Us.shape[0]
-    _check_tensor("Us", Us, torch.complex64, (N_T, d, d), device)
+    _group_size(K, G)
+    N_T = dts.shape[0]
+    chis = torch.empty((N_T, K, d), dtype=chi_hat.dtype,
+                       device=chi_hat.device)
+    C = _window_steps(G, d, N_T)
+    chi = chi_hat
+    for n1 in range(N_T, 0, -C):
+        n0 = max(0, n1 - C)
+        co, dt = _window(coeffs, dts, n0, n1)
+        Uw = _propagators_plain(H0, ops, co, dt, n_squarings)
+        chi = _chi_window_plain(Uw, chi, chis[n0:n1])
+    return chis
+
+
+def chi_scan_recompute(H0, ops, coeffs, dts, chi_hat, n_squarings):
+    """Backward co-state chain WITHOUT stored propagators, for a U stream
+    too large to keep: in reverse time, one window of steps at a time, the
+    propagator kernel forms ``U_ng`` again and the χ-scan kernel runs the
+    window and hands χ on to the next.  Generator arguments as
+    :func:`forward_scan_grouped` (``K = G·gs``); returns
+    ``chis (N_T, K, d)`` with ``chis[n] = χ(t_{n+1})``."""
+    if chi_hat.device.type == "cpu" or plain_forced():
+        return chi_scan_recompute_plain(H0, ops, coeffs, dts, chi_hat,
+                                        n_squarings)
+    G, _, d, N_T, _ = _check_group_args(H0, ops, coeffs, dts)
+    device = H0.device
+    K = chi_hat.shape[0]
+    _group_size(K, G)
     _check_tensor("chi_hat", chi_hat, torch.complex64, (K, d), device)
-    _require(N_T >= 1, "need at least one time step")
     lib = load_kernels()
     chis = torch.empty((N_T, K, d), dtype=torch.complex64, device=device)
-    with torch.cuda.device(device):
-        check(lib, lib.grape_chi_scan(
-            Us.data_ptr(), chi_hat.data_ptr(), chis.data_ptr(), N_T, K, d,
-            _stream(device),
-        ), "chi scan kernel launch")
-    launches["chi_scan_shared"] += 1
+    C = _window_steps(G, d, N_T)
+    chi = chi_hat
+    for n1 in range(N_T, 0, -C):
+        n0 = max(0, n1 - C)
+        co, dt = _window(coeffs, dts, n0, n1)
+        Uw = propagators(H0, ops, co, dt, n_squarings)
+        chi = _chi_window(lib, Uw, chi, chis[n0:n1], carry=n0 > 0)
+    launches["chi_scan_recompute"] += 1
     return chis

@@ -1,0 +1,288 @@
+"""The plain PyTorch versions of the ensemble kernels (grouped and
+per-trajectory forward scan, per-trajectory Fréchet trace, grouped χ chain)
+against the Pallas kernels they replace, run in interpret mode on the CPU,
+on the same seeded inputs.
+
+The trajectories come in G groups of gs contiguous ones that share a
+generator.  Tolerances (float32 arithmetic on both sides): storage, U and
+chis to 2e-5 absolute on unit-norm states; trj to 2e-5 of its scale."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from grape_tpu.ops.pallas_frechet import frechet_trace_pallas_pertraj
+from grape_tpu.ops.pallas_prop import (
+    chi_scan_pallas_shared, forward_scan_pallas, forward_scan_pallas_grouped,
+    forward_scan_pallas_shared,
+)
+from grape_tpu_torch.ops import hopper_frechet, hopper_prop
+from grape_tpu_torch.ops.hopper_frechet import (
+    frechet_trace_pertraj, frechet_trace_pertraj_plain,
+    frechet_trace_shared_plain,
+)
+from grape_tpu_torch.ops.hopper_prop import (
+    chi_scan_grouped, chi_scan_grouped_plain, chi_scan_recompute,
+    chi_scan_recompute_plain, forward_scan_grouped,
+    forward_scan_grouped_plain, forward_scan_pertraj,
+    forward_scan_pertraj_plain, forward_scan_shared_plain,
+)
+
+torch.set_num_threads(1)
+
+D, N_T, T = 8, 6, 2
+C64 = np.complex64
+
+
+def _inputs(G, gs, seed, s, per_group_coeffs=False, d=D):
+    """Seeded grouped inputs; the drift scale keeps |dt| ||H|| 2^-s <= 2."""
+    rng = np.random.default_rng(seed)
+    K = G * gs
+    hscale = 4.0 if s else 1.0
+    H0 = rng.normal(size=(G, d, d)) + 1j * rng.normal(size=(G, d, d))
+    H0 = hscale * (H0 + np.conj(np.swapaxes(H0, -1, -2))) / np.sqrt(d)
+    ops = rng.normal(size=(G, T, d, d)) + 1j * rng.normal(size=(G, T, d, d))
+    ops = (ops + np.conj(np.swapaxes(ops, -1, -2))) / np.sqrt(d)
+    shape = (G, N_T, T) if per_group_coeffs else (N_T, T)
+    coeffs = (0.3 * rng.normal(size=shape)).astype(np.float32)
+    dts = (0.1 * (1 + 0.2 * rng.uniform(size=N_T))).astype(np.float32)
+
+    def unit():
+        v = rng.normal(size=(K, d)) + 1j * rng.normal(size=(K, d))
+        return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(C64)
+
+    return H0.astype(C64), ops.astype(C64), coeffs, dts, unit(), unit()
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _err(a, b):
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+
+
+@pytest.mark.parametrize("s", [0, 2])
+@pytest.mark.parametrize("G,gs", [(2, 3), (2, 4), (1, 5)])
+def test_forward_scan_grouped_plain_matches_pallas(G, gs, s):
+    H0, ops, coeffs, dts, psi0, _ = _inputs(G, gs, 100 + 7 * gs + s, s)
+    st_ref, U_ref = forward_scan_pallas_grouped(
+        jnp.asarray(H0), jnp.asarray(ops), coeffs, dts, jnp.asarray(psi0),
+        group_size=gs, n_squarings=s, with_propagators=True, interpret=True,
+    )
+    st, U = forward_scan_grouped_plain(
+        *_t(H0, ops, coeffs, dts, psi0), gs, s
+    )
+    assert tuple(st.shape) == (N_T + 1, G * gs, D)
+    assert tuple(U.shape) == (N_T, G, D, D)
+    assert st.dtype == torch.complex64 and U.dtype == torch.complex64
+    assert _err(U.numpy(), U_ref) < 2e-5
+    assert _err(st.numpy(), st_ref) < 2e-5
+
+
+@pytest.mark.parametrize("s", [0, 2])
+def test_forward_scan_pertraj_plain_matches_pallas(s):
+    K = 3
+    H0, ops, coeffs, dts, psi0, _ = _inputs(K, 1, 200 + s, s)
+    st_ref, U_ref = forward_scan_pallas(
+        jnp.asarray(H0), jnp.asarray(ops), coeffs, dts, jnp.asarray(psi0),
+        n_squarings=s, with_propagators=True, interpret=True,
+    )
+    st, U = forward_scan_pertraj_plain(*_t(H0, ops, coeffs, dts, psi0), s)
+    assert tuple(U.shape) == (N_T, K, D, D)
+    assert _err(U.numpy(), U_ref) < 2e-5
+    assert _err(st.numpy(), st_ref) < 2e-5
+    # without the stream: the same states, no propagators
+    st2, U2 = forward_scan_pertraj_plain(
+        *_t(H0, ops, coeffs, dts, psi0), s, with_propagators=False
+    )
+    assert U2 is None and torch.equal(st2, st)
+
+
+@pytest.mark.parametrize("G,gs", [(3, 1), (2, 3)])
+def test_forward_scan_per_group_coefficients(G, gs):
+    """One coefficient table per group, which the TPU forward kernels do not
+    take: each group must equal the shared-generator Pallas kernel run on
+    that group's operators, table and states."""
+    s = 2
+    H0, ops, coeffs, dts, psi0, _ = _inputs(G, gs, 300 + G, s, True)
+    st, U = forward_scan_grouped_plain(
+        *_t(H0, ops, coeffs, dts, psi0), gs, s
+    )
+    for g in range(G):
+        ks = slice(g * gs, (g + 1) * gs)
+        st_ref, U_ref = forward_scan_pallas_shared(
+            jnp.asarray(H0[g]), jnp.asarray(ops[g]), coeffs[g], dts,
+            jnp.asarray(psi0[ks]), n_squarings=s, with_propagators=True,
+            interpret=True,
+        )
+        assert _err(U[:, g].numpy(), U_ref) < 2e-5, g
+        assert _err(st[:, ks].numpy(), st_ref) < 2e-5, g
+
+
+@pytest.mark.parametrize("G,gs", [(3, 1), (2, 3), (2, 4)])
+def test_chi_scan_grouped_plain_matches_pallas(G, gs):
+    """The reference runs the grouped chain as a scan of small products;
+    per group it is the shared chain, which has a Pallas kernel."""
+    H0, ops, coeffs, dts, psi0, chi0 = _inputs(G, gs, 400 + gs, 0)
+    _, U = forward_scan_grouped_plain(*_t(H0, ops, coeffs, dts, psi0), gs, 0)
+    chis = chi_scan_grouped_plain(U, torch.from_numpy(chi0))
+    assert tuple(chis.shape) == (N_T, G * gs, D)
+    for g in range(G):
+        ks = slice(g * gs, (g + 1) * gs)
+        ref = chi_scan_pallas_shared(
+            jnp.asarray(U[:, g].numpy()), jnp.asarray(chi0[ks]),
+            interpret=True,
+        )
+        assert _err(chis[:, ks].numpy(), ref) < 2e-5, g
+    # chis[n] is chi BEFORE the step-n update: the last entry is chi_hat
+    assert np.array_equal(chis[-1].numpy(), chi0)
+
+
+@pytest.mark.parametrize("per_group_coeffs", [False, True],
+                         ids=["shared_table", "table_per_group"])
+@pytest.mark.parametrize("s", [0, 2])
+@pytest.mark.parametrize("G,gs", [(3, 1), (2, 3), (2, 4)])
+def test_frechet_trace_pertraj_plain_matches_pallas(G, gs, s,
+                                                    per_group_coeffs,
+                                                    monkeypatch):
+    # several chunks, the last one ragged, at this small N_T
+    monkeypatch.setattr(hopper_frechet, "_PLAIN_CHUNK", 4 * G * gs)
+    H0, ops, coeffs, dts, _, _ = _inputs(
+        G, gs, 500 + 11 * gs + s, s, per_group_coeffs
+    )
+    K = G * gs
+    rng = np.random.default_rng(gs + s)
+    psis = (rng.normal(size=(N_T, K, D))
+            + 1j * rng.normal(size=(N_T, K, D))).astype(C64)
+    chis = (rng.normal(size=(N_T, K, D))
+            + 1j * rng.normal(size=(N_T, K, D))).astype(C64)
+    ref = np.asarray(frechet_trace_pallas_pertraj(
+        jnp.asarray(H0), jnp.asarray(ops), coeffs, dts, jnp.asarray(psis),
+        jnp.asarray(chis), n_squarings=s, interpret=True,
+        precision="highest", group_size=gs,
+    ))
+    trj = frechet_trace_pertraj_plain(
+        *_t(H0, ops, coeffs, dts, psis, chis), s, group_size=gs
+    ).numpy()
+    assert trj.shape == (N_T, K, T)
+    assert _err(trj, ref) < 2e-5 * max(np.max(np.abs(ref)), 1.0)
+
+
+@pytest.mark.parametrize("steps_per_window", [1, 4])
+def test_windows_without_stored_propagators(steps_per_window, monkeypatch):
+    """Where the propagator stream is not kept, the forward scan and the χ
+    chain form the propagators one window of steps at a time: the same
+    states and co-states as with the stream."""
+    G, gs, s = 2, 3, 1
+    H0, ops, coeffs, dts, psi0, chi0 = _t(*_inputs(G, gs, 600, s))
+    st, U = forward_scan_grouped_plain(H0, ops, coeffs, dts, psi0, gs, s)
+    chis = chi_scan_grouped_plain(U, chi0)
+    monkeypatch.setattr(hopper_prop, "_WINDOW_BYTES",
+                        steps_per_window * G * D * D * 8)
+    assert hopper_prop._window_steps(G, D, N_T) == steps_per_window
+    st_w, U_w = forward_scan_grouped_plain(
+        H0, ops, coeffs, dts, psi0, gs, s, with_propagators=False
+    )
+    assert U_w is None
+    assert _err(st_w, st) < 1e-6
+    chis_w = chi_scan_recompute_plain(H0, ops, coeffs, dts, chi0, s)
+    assert _err(chis_w, chis) < 1e-6
+    # and the wrapper on CPU tensors is that plain version
+    assert torch.equal(chi_scan_recompute(H0, ops, coeffs, dts, chi0, s),
+                       chis_w)
+
+
+def test_identical_operators_reduce_to_the_shared_kernels():
+    """With every group given the same operators the grouped versions equal
+    the shared-generator ones, and the per-trajectory version on operators
+    repeated gs times equals the grouped one."""
+    G, gs, s = 2, 3, 1
+    H0, ops, coeffs, dts, psi0, chi0 = _inputs(1, G * gs, 700, s)
+    H0g, opsg = np.repeat(H0, G, axis=0), np.repeat(ops, G, axis=0)
+    H0k, opsk = np.repeat(H0, G * gs, axis=0), np.repeat(ops, G * gs, axis=0)
+    st_s, U_s = forward_scan_shared_plain(
+        *_t(H0[0], ops[0], coeffs, dts, psi0), s
+    )
+    st_g, U_g = forward_scan_grouped_plain(
+        *_t(H0g, opsg, coeffs, dts, psi0), gs, s
+    )
+    st_k, U_k = forward_scan_pertraj_plain(
+        *_t(H0k, opsk, coeffs, dts, psi0), s
+    )
+    assert _err(st_g, st_s) < 1e-6 and _err(st_k, st_g) < 1e-6
+    assert _err(U_g, U_s[:, None].expand_as(U_g)) < 1e-6
+    assert _err(U_k.reshape(N_T, G, gs, D, D)[:, :, 0], U_g) < 1e-6
+    chis = chi_scan_grouped_plain(U_g, torch.from_numpy(chi0))
+    psis = st_g[:-1].contiguous()
+    trj_s = frechet_trace_shared_plain(
+        *_t(H0[0], ops[0], coeffs, dts), psis, chis, s
+    )
+    trj_g = frechet_trace_pertraj_plain(
+        *_t(H0g, opsg, coeffs, dts), psis, chis, s, group_size=gs
+    )
+    trj_k = frechet_trace_pertraj_plain(
+        *_t(H0k, opsk, coeffs, dts), psis, chis, s
+    )
+    scale = max(float(trj_s.abs().max()), 1.0)
+    assert _err(trj_g, trj_s) < 1e-6 * scale
+    assert _err(trj_k, trj_g) < 1e-6 * scale
+
+
+def test_wrappers_take_the_plain_version_for_cpu_tensors():
+    """On CPU tensors the wrappers run the plain versions (and count no
+    kernel launch); the result is the plain version's, bit for bit."""
+    G, gs, s = 2, 3, 1
+    H0, ops, coeffs, dts, psi0, chi0 = _t(*_inputs(G, gs, 800, s))
+    before = (dict(hopper_prop.launches), dict(hopper_frechet.launches))
+    st, U = forward_scan_grouped(H0, ops, coeffs, dts, psi0, gs, s)
+    st_p, U_p = forward_scan_grouped_plain(H0, ops, coeffs, dts, psi0, gs, s)
+    assert torch.equal(st, st_p) and torch.equal(U, U_p)
+    chis = chi_scan_grouped(U, chi0)
+    assert torch.equal(chis, chi_scan_grouped_plain(U, chi0))
+    psis = st[:-1].contiguous()
+    trj = frechet_trace_pertraj(H0, ops, coeffs, dts, psis, chis, s,
+                                group_size=gs)
+    assert torch.equal(trj, frechet_trace_pertraj_plain(
+        H0, ops, coeffs, dts, psis, chis, s, group_size=gs))
+    H0k = H0.repeat_interleave(gs, dim=0)
+    opsk = ops.repeat_interleave(gs, dim=0)
+    st_k, U_k = forward_scan_pertraj(H0k, opsk, coeffs, dts, psi0, s)
+    assert torch.equal(
+        st_k, forward_scan_pertraj_plain(H0k, opsk, coeffs, dts, psi0, s)[0]
+    )
+    assert before == (hopper_prop.launches, hopper_frechet.launches)
+    assert set(hopper_prop.launches) == {
+        "forward_scan_shared", "chi_scan_shared", "forward_scan_grouped",
+        "forward_scan_pertraj", "chi_scan_grouped", "chi_scan_recompute",
+    }
+    assert set(hopper_frechet.launches) == {
+        "frechet_trace_shared", "frechet_trace_pertraj",
+    }
+
+
+def test_group_arguments_are_checked():
+    """The shape checks of the grouped wrappers are plain Python."""
+    G, gs, s = 2, 3, 0
+    H0, ops, coeffs, dts, psi0, chi0 = _t(*_inputs(G, gs, 900, s))
+    assert hopper_prop._check_group_args(H0, ops, coeffs, dts) == (
+        G, T, D, N_T, 0
+    )
+    per_group = coeffs[None].repeat(G, 1, 1)
+    assert hopper_prop._check_group_args(H0, ops, per_group, dts)[-1] == (
+        N_T * T
+    )
+    with pytest.raises(ValueError, match="shape"):
+        hopper_prop._check_group_args(H0, ops, per_group[:1], dts)
+    with pytest.raises(ValueError, match="group_size"):
+        forward_scan_grouped(H0, ops, coeffs, dts, psi0, gs + 1, s)
+    with pytest.raises(ValueError, match="one generator per trajectory"):
+        forward_scan_pertraj(H0, ops, coeffs, dts, psi0, s)
+    with pytest.raises(ValueError, match="groups"):
+        chi_scan_grouped_plain(torch.zeros(N_T, 4, D, D, dtype=chi0.dtype),
+                               chi0)
+    with pytest.raises(ValueError, match="group_size"):
+        frechet_trace_pertraj(H0, ops, coeffs, dts, psi0[None], chi0[None],
+                              s, group_size=1)

@@ -11,7 +11,9 @@ import torch
 
 import grape_tpu_torch as gt
 from grape_tpu_torch.functionals import J_T_sm
-from grape_tpu_torch.models import tls_problem
+from grape_tpu_torch.models import (
+    tls_problem, two_transmon_cz_ensemble_problem,
+)
 
 torch.set_num_threads(1)
 
@@ -40,6 +42,11 @@ def _imported_modules(path):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 20  # the package and chip_smoke.py were found
+    rel = {os.path.relpath(f, ROOT) for f in files}
+    assert {"chip_smoke.py", "grape_tpu_torch/models/transmon.py",
+            "grape_tpu_torch/ops/hopper_prop.py",
+            "grape_tpu_torch/ops/hopper_frechet.py",
+            "grape_tpu_torch/generators.py"} <= rel
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -68,7 +75,8 @@ def test_importing_the_port_does_not_load_jax():
 
 
 ENTRY_POINTS = ["optimize", "optimize_problem", "compile_problem",
-                "build_fg", "build_f", "compiled_problem_from_numpy"]
+                "build_fg", "build_f", "compiled_problem_from_numpy",
+                "ensemble"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -86,6 +94,12 @@ def test_device_none_raises_without_cuda(entry):
             gt.compile_problem(trajs, tlist, J_T=J_T_sm)
         elif entry == "compiled_problem_from_numpy":
             gt.compiled_problem_from_numpy({}, J_T="J_T_sm")
+        elif entry == "ensemble":
+            gt.optimize_problem(
+                two_transmon_cz_ensemble_problem(n_samples=1, d=2,
+                                                 n_steps=4),
+                rethrow_exceptions=True,
+            )
         else:
             cp = gt.compile_problem(trajs, tlist, J_T=J_T_sm, device="cpu")
             # a problem compiled for the CPU, explicitly asked onto CUDA

@@ -1,7 +1,8 @@
 """End to end through ``grape_tpu_torch.optimize(..., device="cpu")`` in
 complex128: the reference anchors of the TLS state transfer, the golden
-J_T series recorded from the JAX package, exception capture, and the
-options that are not ported yet."""
+J_T series recorded from the JAX package, a small robust ensemble against
+the JAX package run here, exception capture, and the options that are not
+ported yet."""
 
 import json
 import os
@@ -13,7 +14,9 @@ import torch
 import grape_tpu_torch as gt
 from grape_tpu_torch import optimize, optimize_problem
 from grape_tpu_torch.functionals import J_T_sm
-from grape_tpu_torch.models import tls_problem, two_transmon_cz_problem
+from grape_tpu_torch.models import (
+    tls_problem, two_transmon_cz_ensemble_problem, two_transmon_cz_problem,
+)
 
 torch.set_num_threads(1)
 
@@ -96,6 +99,87 @@ def test_cz_small_optimizes_in_both_precisions():
     )
 
 
+ENSEMBLE_KW = dict(n_samples=2, d=4, T=4.0, n_steps=12)
+
+
+def test_ensemble_optimization_matches_reference_series():
+    """Five L-BFGS-B iterations on a small robust-CZ ensemble (2 samples x
+    4 basis states, dim 16) in complex128: the JAX package's J_T series to
+    1e-8 (the same host optimizer fed gradients that agree to 1e-10)."""
+    import grape_tpu
+    from grape_tpu.models import (
+        two_transmon_cz_ensemble_problem as ref_ensemble_problem,
+    )
+
+    ref_trace, trace = [], []
+    ref_res = grape_tpu.optimize_problem(
+        ref_ensemble_problem(**ENSEMBLE_KW), iter_stop=5,
+        dtype=np.complex128, use_pallas=False, print_iters=False,
+        rethrow_exceptions=True,
+        callback=lambda wrk, it: ref_trace.append(float(wrk.result.J_T)),
+    )
+    res = optimize_problem(
+        two_transmon_cz_ensemble_problem(**ENSEMBLE_KW), iter_stop=5,
+        device="cpu", print_iters=False, rethrow_exceptions=True,
+        callback=lambda wrk, it: trace.append(float(wrk.result.J_T)),
+    )
+    assert res.iter == ref_res.iter == 5 and len(trace) == 6
+    assert res.fg_calls == ref_res.fg_calls
+    np.testing.assert_allclose(trace, ref_trace, rtol=0, atol=1e-8)
+    assert all(b < a for a, b in zip(trace, trace[1:])), trace
+
+
+def test_ensemble_optimizes_in_complex64():
+    """The same ensemble through the kernels' plain versions (complex64):
+    it descends, and follows the complex128 series."""
+    traces = {}
+    for dtype in (np.complex128, np.complex64):
+        trace = traces.setdefault(dtype, [])
+        res = optimize_problem(
+            two_transmon_cz_ensemble_problem(**ENSEMBLE_KW), iter_stop=3,
+            device="cpu", dtype=dtype, print_iters=False,
+            rethrow_exceptions=True,
+            callback=lambda wrk, it: trace.append(float(wrk.result.J_T)),
+        )
+        assert res.iter == 3
+        assert all(b < a for a, b in zip(trace, trace[1:])), trace
+        assert not res.message.startswith("Exception")
+    np.testing.assert_allclose(
+        traces[np.complex64], traces[np.complex128], rtol=1e-3
+    )
+
+
+def test_envelope_bucket_sees_per_trajectory_tables():
+    """The squaring count comes from the coefficient envelope over ALL
+    trajectories' tables: a member with a 64x larger amplitude shape raises
+    it for the whole problem."""
+    from grape_tpu_torch.fg import _static_squarings
+
+    def eps(t):
+        return 0.5
+
+    rng = np.random.default_rng(2)
+    A = rng.normal(size=(4, 4))
+    Hc = A + A.T + 0j
+    counts = []
+    for big in (1.0, 64.0):
+        trajs = [
+            gt.Trajectory(
+                [1, 0, 0, 0],
+                gt.hamiltonian(np.diag([0.0, 1, 2, 3]).astype(complex),
+                               (Hc, gt.ShapedAmplitude(
+                                   eps, lambda t, w=w: w))),
+                target_state=[0, 1, 0, 0],
+            )
+            for w in (1.0, big)
+        ]
+        cp = gt.compile_problem(trajs, np.linspace(0, 2.0, 5), J_T=J_T_sm,
+                                device="cpu", dtype=np.complex64)
+        assert cp.per_traj_coeffs == (big != 1.0)
+        counts.append(_static_squarings(cp))
+    assert counts[1] >= counts[0] + 5
+
+
 def test_exception_is_captured_in_the_message():
     trajs, tlist = _tls_quickstart()
 
@@ -153,14 +237,20 @@ def test_unported_constructs_raise():
     with pytest.raises(NotImplementedError, match="krotov"):
         optimize_problem(tls_problem(J_T=J_T_sm), method="krotov",
                          device="cpu")
-    # two different Hamiltonians: per-trajectory generators
+    # two different Hamiltonians (per-trajectory generators, aligned to the
+    # union of their controls) compile; what still raises for them is a
+    # complex128 propagator stream beyond its storage budget
     H2 = gt.hamiltonian(
         np.diag([0.3, -0.3]).astype(complex),
         (np.array([[0, 1], [1, 0]], dtype=complex), lambda t: 0.1),
     )
     other = gt.Trajectory([0, 1], H2, target_state=[1, 0])
-    with pytest.raises(NotImplementedError, match="per-trajectory"):
-        gt.compile_problem(trajs + [other], tlist, J_T=J_T_sm, device="cpu")
+    cp = gt.compile_problem(trajs + [other], tlist, J_T=J_T_sm, device="cpu")
+    assert not cp.shared_generator and cp.H0.shape[0] == 2
+    assert cp.n_controls == 2 and cp.ops.shape[1] == 2
+    cp.n_timesteps = 10**9  # only the budget check reads it at build time
+    with pytest.raises(NotImplementedError, match="propagator stream"):
+        gt.build_fg(cp)
     with pytest.raises(TypeError, match="no_such_option"):
         optimize(trajs, tlist, J_T=J_T_sm, device="cpu", print_iters=False,
                  rethrow_exceptions=True, no_such_option=1)
