@@ -5,17 +5,23 @@
 
 Builds the CUDA kernels from ``grape_tpu_torch/csrc`` and holds each wrapper
 against its plain PyTorch version on the card at the shapes of the paths
-that use it and at a few other shapes, then drives two paths through
+that use it and at a few other shapes, then drives three paths through
 ``compile_problem`` / ``build_fg`` and through five L-BFGS-B iterations of
-``optimize_problem`` each, and checks that every evaluation went through
-the kernels:
+``optimize_problem`` / ``optimize`` each, and checks that every evaluation
+went through the kernels:
 
 - the two-transmon CZ gate (dim = 100, K = 4 trajectories under one shared
   generator, T = 4 control terms, N_T = 2000 steps);
 - its robust ensemble (8 Hamiltonian samples x 4 basis states: K = 32
   trajectories in G = 8 generator groups of 4), and the same ensemble with
   one generator per trajectory (group size 1), whose propagator stream is
-  past its storage budget and is formed again for the co-state chain.
+  past its storage budget and is formed again for the co-state chain;
+- a robust ensemble of 1024 qutrits (d = 3, one generator per trajectory,
+  T = 2 control terms, N_T = 400 steps) with ``gradient_method="taylor"``:
+  the small-dimension forward kernel, the co-state chain over its
+  propagators and the time-vectorized Taylor backward pass; beside it the
+  CZ gate with the taylor gradient and the per-step backward pass at a
+  small size.
 
 Each phase prints one JSON line and raises on failure; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -41,6 +47,8 @@ sys.path.insert(0, HERE)
 # main-path configurations (BASELINE configs 4 and 5)
 D_TRANSMON, N_STEPS, ITER_STOP = 10, 2000, 5
 N_SAMPLES, N_BASIS = 8, 4
+# the small-dimension path: 1024 Hamiltonian samples of a qutrit transmon
+QUTRIT_SAMPLES, QUTRIT_T, QUTRIT_STEPS = 1024, 20.0, 400
 SEED = 0
 
 # published peaks of one H100 SXM (dense, no sparsity)
@@ -99,6 +107,37 @@ def under_load(fn, n):
     sm, power = (float(v) for v in out.split(","))
     return {"launches_in_flight": n, "clocks_sm_mhz": sm,
             "power_draw_w": power}
+
+
+def ptxas_summary(log):
+    """Registers and spill bytes per kernel from the ``-Xptxas -v`` lines
+    of a build log: ``{kernel: {"registers", "spill_stores",
+    "spill_loads"}}`` (template arguments kept, namespaces dropped)."""
+    import re
+
+    out = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            # _ZN5grape24smalld_propagator_kernelILi4EEE... -> name<4>
+            mangled = m.group(1)
+            k = re.search(r"\d+([a-z_]+kernel)(?:ILi(\d+)E)?", mangled)
+            name = mangled if k is None else (
+                k.group(1) + (f"<{k.group(2)}>" if k.group(2) else ""))
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def max_abs(a, b):
@@ -471,6 +510,451 @@ def timed_ms(fn, reps):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def fg_breakdown(fg, x, reps=3):
+    """Where one evaluation's time on the card goes: CUDA events around the
+    whole evaluation and around every kernel wrapper and the vectorized
+    Taylor pass inside it (the names ``grape_tpu_torch.fg`` calls them by
+    are wrapped for the duration).  Medians over ``reps`` evaluations, ms;
+    ``glue`` is the rest of the span: coefficient tables, J_T, χ(T) by
+    autograd, the contraction with dM, and every gap in which the card
+    waits for the host."""
+    import grape_tpu_torch.fg as F
+
+    names = [
+        "forward_scan_shared", "forward_scan_grouped", "forward_scan_pertraj",
+        "forward_scan_smalld", "chi_scan_shared", "chi_scan_grouped",
+        "chi_scan_recompute", "frechet_trace_shared", "frechet_trace_pertraj",
+        "_backward_vectorized",
+    ]
+    spans = []
+
+    def shim(name, fn):
+        def wrapped(*args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            spans.append((name, a, b))
+            return out
+        return wrapped
+
+    originals = {name: getattr(F, name) for name in names}
+    for name, fn in originals.items():
+        setattr(F, name, shim(name, fn))
+    runs = []
+    try:
+        fg(x)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            spans.clear()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fg(x)
+            b.record()
+            torch.cuda.synchronize()
+            parts = {}
+            for name, e0, e1 in spans:
+                parts[name] = parts.get(name, 0.0) + e0.elapsed_time(e1)
+            total = a.elapsed_time(b)
+            parts["glue"] = total - sum(parts.values())
+            parts["total"] = total
+            runs.append(parts)
+    finally:
+        for name, fn in originals.items():
+            setattr(F, name, fn)
+    return {key: float(np.median([r[key] for r in runs])) for key in runs[0]}
+
+
+def smalld_kernel_phase(cp, s_main, rng, dev):
+    """Phase ``kernel_check_smalld`` and the times of
+    ``forward_scan_smalld`` at the qutrit ensemble's shapes.  Returns its
+    entry for the ``kernels`` line (without the launch count)."""
+    from grape_tpu_torch.ops import hopper_prop as hp
+    from grape_tpu_torch.ops import plain_versions
+
+    def c64(x):
+        return torch.tensor(np.ascontiguousarray(x), dtype=torch.complex64,
+                            device=dev)
+
+    def f32(x):
+        return torch.tensor(np.ascontiguousarray(x), dtype=torch.float32,
+                            device=dev)
+
+    d, K, N_T = cp.dim, cp.n_traj, cp.n_timesteps
+    T, L = cp.ops.shape[1], cp.n_controls
+    H0, ops, psi0 = c64(cp.H0), c64(cp.ops), c64(cp.psi0)
+    eps = cp.guess_pulsevals + 0.02 * rng.normal(size=(L, N_T))
+    coeffs = f32(np.einsum("ntl,ln->nt", cp.M, eps) + cp.Mfix)
+    dts = f32(np.diff(cp.tlist))
+    err = 0.0
+    checks = []
+    for s in sorted({s_main, 2}):
+        st, U = hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s,
+                                       with_propagators=True)
+        st_only = hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s)
+        torch.cuda.synchronize()
+        with plain_versions():
+            st_p, U_p = hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s,
+                                               with_propagators=True)
+        require(finite(st, U, st_only), f"smalld output not finite at s={s}")
+        require(st.shape == (N_T + 1, K, d) and U.shape == (N_T, K, d, d)
+                and st_only.shape == st.shape,
+                "smalld output has the wrong shape")
+        e = {"states": max_abs(st, st_p), "U": max_abs(U, U_p),
+             "states_without_U": max_abs(st_only, st_p)}
+        checks.append({"s": s, **e})
+        require(max(e.values()) < TOL_STATE, "forward_scan_smalld disagrees "
+                f"with its plain version at s={s}: {e}")
+        err = max(err, *e.values())
+
+    def herm(*shape):
+        A = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+        return 0.5 * (A + A.conj().swapaxes(-1, -2))
+
+    # ragged shapes: every template instance, K at, just past and far from
+    # a multiple of the block sizes, one step, one term, squarings; the
+    # last with windows of 3 steps where no stream is kept
+    shape_checks = []
+    for (d_, K_, T_, N_, s_, h_) in [(2, 128, 1, 1, 0, 1.0),
+                                     (3, 129, 2, 7, 1, 2.0),
+                                     (4, 1000, 1, 33, 2, 4.0),
+                                     (4, 4096, 3, 20, 0, 1.0),
+                                     (2, 4096, 2, 1, 3, 8.0),
+                                     (3, 1000, 1, 1, 0, 1.0),
+                                     (4, 129, 2, 50, 1, 2.0)]:
+        Hs, Os = c64(h_ * herm(K_, d_, d_)), c64(herm(K_, T_, d_, d_))
+        cs = f32(0.3 * rng.normal(size=(N_, T_)))
+        ts = f32(0.05 * (1 + 0.2 * rng.uniform(size=N_)))
+        p0 = rng.normal(size=(K_, d_)) + 1j * rng.normal(size=(K_, d_))
+        p0 = c64(p0 / np.linalg.norm(p0, axis=1, keepdims=True))
+        window_bytes = hp._WINDOW_BYTES
+
+        def run():
+            st, U = hp.forward_scan_smalld(Hs, Os, cs, ts, p0, s_,
+                                           with_propagators=True)
+            hp._WINDOW_BYTES = 3 * K_ * d_ * d_ * 8
+            try:
+                st_w = hp.forward_scan_smalld(Hs, Os, cs, ts, p0, s_)
+            finally:
+                hp._WINDOW_BYTES = window_bytes
+            return st, U, st_w
+
+        got = run()
+        torch.cuda.synchronize()
+        with plain_versions():
+            want = run()
+        worst = max(max_abs(a, b) for a, b in zip(got, want))
+        shape_checks.append({"d": d_, "K": K_, "T": T_, "N_T": N_, "s": s_,
+                             "max_abs_err": worst})
+        require(worst < TOL_TRJ, "forward_scan_smalld disagrees with its "
+                f"plain version at shape {shape_checks[-1]}")
+    emit({"phase": "kernel_check_smalld",
+          "shape": {"d": d, "K": K, "T": T, "N_T": N_T},
+          "s_main_path": s_main, "tol_state": TOL_STATE, "checks": checks,
+          "tol_shapes": TOL_TRJ, "shape_checks": shape_checks})
+
+    s = s_main
+    st, U = hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s,
+                                   with_propagators=True)
+    out = {"err": err, "ms_runs": []}
+    out["ms"] = median_ms(
+        lambda: hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s,
+                                       with_propagators=True),
+        reps=20, runs=out["ms_runs"])
+    out["without_propagators_ms"] = median_ms(
+        lambda: hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s),
+        reps=20)
+    with plain_versions():
+        out["plain_ms"] = median_ms(
+            lambda: hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s,
+                                           with_propagators=True), reps=3)
+    # the large-d per-trajectory kernels on the same inputs: the route for
+    # K < 128, and the honest comparison
+    out["forward_scan_pertraj_ms"] = median_ms(
+        lambda: hp.forward_scan_pertraj(H0, ops, coeffs, dts, psi0, s),
+        reps=3)
+    # yardstick for the propagator half: the library call that computes the
+    # same N_T * K exponentials (never used by the port)
+    A_lib = ((-1j * dts.to(torch.complex64))[:, None, None, None] * (
+        H0[None] + torch.einsum("nt,ktij->nkij", coeffs.to(torch.complex64),
+                                ops))).reshape(-1, d, d)
+    out["library_ms"] = median_ms(lambda: torch.linalg.matrix_exp(A_lib),
+                                  reps=3)
+    out["library_call"] = (f"torch.linalg.matrix_exp on {tuple(A_lib.shape)}"
+                           ": the propagators only")
+    del A_lib
+    # per item: the generator (T real-by-complex axpys and a scaling), the
+    # 6 + s complex products and the matrix-vector product
+    out["flops"] = N_T * K * ((6 + s) * 8.0 * d ** 3
+                              + (4.0 * T + 2.0) * d * d + 8.0 * d * d)
+    out["bytes"] = nbytes(H0, ops, coeffs, dts, psi0, st, U)
+    return out
+
+
+def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
+    """The third path and its companions: phases ``kernel_check_smalld``,
+    ``fg_smalld``, ``optimize_smalld`` (1024 qutrits, taylor), then
+    ``fg_taylor_cz`` (the CZ gate with the taylor gradient) and
+    ``per_step_fallback``; each counted run with the launch counts set to 0
+    just before and read just after.  Returns ``(K7's entry for the kernels
+    line, the qutrit path's counts, the CZ-taylor counts)``."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.fg import (
+        _reuse_U_enabled, _smalld_enabled, _static_squarings,
+        _vec_gradgen_enabled, _vectorized_taylor_orders,
+    )
+    from grape_tpu_torch.functionals import J_T_sm
+    from grape_tpu_torch.models import transmon_ensemble_trajectories
+    from grape_tpu_torch.ops import hopper_frechet, hopper_prop
+
+    trajs = transmon_ensemble_trajectories(QUTRIT_SAMPLES, d=3,
+                                           T=QUTRIT_T, seed=SEED)
+    tlist = np.linspace(0, QUTRIT_T, QUTRIT_STEPS + 1)
+    kw = dict(J_T=J_T_sm, dtype=np.complex64)
+    cp = gt.compile_problem(trajs, tlist, gradient_method="taylor", **kw)
+    d, K, N_T, L = cp.dim, cp.n_traj, cp.n_timesteps, cp.n_controls
+    require((d, K, cp.ops.shape[1], L, N_T) == (3, 1024, 2, 2, 400)
+            and cp.device.type == "cuda" and cp.psi0.dtype == np.complex64
+            and not cp.shared_generator and cp.H0.shape[0] == K,
+            "unexpected shape of the qutrit ensemble")
+    require(_smalld_enabled(cp) and _reuse_U_enabled(cp)
+            and cp.gradient_method == "taylor",
+            "the qutrit ensemble must take the small-dimension route with "
+            "stored propagators")
+    s_q = _static_squarings(cp)
+    n_orders = _vectorized_taylor_orders(cp)
+    require(n_orders is not None, "no static Taylor order for the qutrits")
+    k7 = smalld_kernel_phase(cp, s_q, rng, dev)
+    x0 = cp.guess_pulsevals.reshape(-1)
+
+    # ---- side checks, before the counted run ------------------------------
+    # (a) the gradgen gradient of the same problem: K7 forward, the
+    # per-trajectory Frechet kernel backward
+    cp_gg = gt.compile_problem(trajs, tlist, gradient_method="gradgen", **kw)
+    require(_smalld_enabled(cp_gg) and _vec_gradgen_enabled(cp_gg),
+            "the gradgen cross-check must take the small-dimension route")
+    fg_gg = gt.build_fg(cp_gg)
+    zero_counts(hopper_prop, hopper_frechet)
+    J_gg, g_gg, _ = fg_gg(x0)
+    torch.cuda.synchronize()
+    counts_gg = {k: v for k, v in
+                 read_counts(hopper_prop, hopper_frechet).items() if v}
+    require(counts_gg == {"forward_scan_smalld": 1, "chi_scan_grouped": 1,
+                          "frechet_trace_pertraj": 1},
+            f"gradgen on the qutrits launched {counts_gg}")
+    gg_ms = timed_ms(lambda: fg_gg(x0), 3)
+    # (b) complex64 through the kernels against complex128 (Pade-13), both
+    # on the card, on the first 128 samples: the smallest cut that still
+    # takes the small-dimension route
+    cut = 128
+    cp64, cp128 = (
+        gt.compile_problem(trajs[:cut], tlist, gradient_method="taylor",
+                           J_T=J_T_sm, dtype=dt)
+        for dt in (np.complex64, np.complex128)
+    )
+    require(_smalld_enabled(cp64) and not _smalld_enabled(cp128),
+            "the cut must take the small-dimension route in complex64 only")
+    Js, gs_, aux_s = gt.build_fg(cp64)(x0)
+    Jr, gr, aux_r = gt.build_fg(cp128)(x0)
+    dJs = abs(float(Js) - float(Jr))
+    dgs = float((gs_.double() - gr).abs().max() / gr.abs().max())
+    require(dJs < 1e-5 and dgs < 2e-3 and bool(aux_s["taylor_ok"])
+            and bool(aux_r["taylor_ok"]),
+            f"qutrit cut: dJ {dJs}, dgrad {dgs} against complex128")
+
+    # ---- the counted run: fg, then five iterations ------------------------
+    zero_counts(hopper_prop, hopper_frechet)
+    fg = gt.build_fg(cp)
+    J, g, aux, dJ, dg = fg_against_plain(fg, x0, "fg_smalld")
+    n_fg = 1
+    require(g.shape == (L * N_T,) and g.device.type == "cuda"
+            and aux["psi_T"].shape == (K, d) and bool(aux["taylor_ok"]),
+            "fg_smalld output has the wrong shape or device, or the Taylor "
+            "series did not converge")
+    d_gg = max_abs(g, g_gg) / float(g_gg.abs().max())
+    require(abs(float(J) - float(J_gg)) < 1e-5 and d_gg < 1e-3,
+            f"taylor and gradgen disagree on the qutrits: gradient {d_gg} "
+            "of its max")
+    reps = 5
+    fg_ms = timed_ms(lambda: fg(x0), reps)
+    n_fg += reps
+    parts = fg_breakdown(fg, x0)
+    n_fg += 4
+    # the same pass with its small products as batched matrix products (the
+    # form it takes above d = 4), in turns: batched, elementwise, ...
+    import grape_tpu_torch.fg as F
+    threshold = F._ELEMENTWISE_MAX_DIM
+    taylor_pass_ms = {"batched_matmul": [], "elementwise": []}
+    try:
+        for _ in range(2):
+            for name, limit in (("batched_matmul", 0),
+                                ("elementwise", threshold)):
+                F._ELEMENTWISE_MAX_DIM = limit
+                taylor_pass_ms[name].append(
+                    fg_breakdown(fg, x0, reps=2)["_backward_vectorized"])
+                n_fg += 3
+    finally:
+        F._ELEMENTWISE_MAX_DIM = threshold
+    Jf, _ = gt.build_f(cp)(x0)
+    n_f = 1
+    require(abs(float(Jf) - float(J)) < 1e-6,
+            "build_f disagrees with build_fg on the qutrits")
+    emit({"phase": "fg_smalld", "J": float(J), "grad_norm": float(g.norm()),
+          "ms_per_eval": fg_ms, "device_ms_by_part": parts,
+          "taylor_pass_ms_by_product_form": taylor_pass_ms,
+          "J_abs_diff_vs_plain": dJ, "grad_diff_of_max_vs_plain": dg,
+          "squarings": s_q, "taylor_orders": n_orders,
+          "taylor_ok": bool(aux["taylor_ok"]), "dtype": "complex64",
+          "gradgen": {"J": float(J_gg), "ms_per_eval": gg_ms,
+                      "grad_diff_of_max_vs_taylor": d_gg,
+                      "launches_one_eval": counts_gg},
+          "cut_vs_complex128": {"samples": cut, "J_complex64": float(Js),
+                                "J_complex128": float(Jr), "J_abs_diff": dJs,
+                                "grad_diff_of_max": dgs}})
+
+    series, iter_secs, iter_fg = [], [], []
+
+    def record(wrk, iteration):
+        series.append(float(wrk.result.J_T))
+        iter_secs.append(float(wrk.result.secs))
+        iter_fg.append(int(wrk.fg_count[0]))
+
+    t0 = time.perf_counter()
+    res = gt.optimize(
+        trajs, tlist, gradient_method="taylor", iter_stop=ITER_STOP,
+        print_iters=False, rethrow_exceptions=True, callback=record, **kw,
+    )
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    counts = read_counts(hopper_prop, hopper_frechet)
+    n_fg += res.fg_calls
+    n_f += res.f_calls
+    require(len(series) == ITER_STOP + 1 and res.iter == ITER_STOP,
+            f"optimize_smalld: {res.message}, series {series}")
+    require(all(math.isfinite(v) for v in series)
+            and all(b < a for a, b in zip(series, series[1:])),
+            f"qutrit J_T does not fall monotonically: {series}")
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"forward_scan_smalld": n_fg + n_f,
+                   "chi_scan_grouped": n_fg})
+    require(counts == expect, f"qutrit launch counts {counts} do not match "
+            f"the evaluations {expect}")
+    steady_s = sum(iter_secs[1:])
+    emit({"phase": "optimize_smalld", "J_T_series": series,
+          "iterations": res.iter, "seconds": opt_s,
+          "iters_per_second": res.iter / opt_s,
+          "iteration_seconds": iter_secs, "iteration_fg_calls": iter_fg,
+          "steady_ms_per_fg": steady_s / max(sum(iter_fg[1:]), 1) * 1e3,
+          "steady_iters_per_second": ITER_STOP / steady_s,
+          "fg_calls": res.fg_calls, "f_calls": res.f_calls,
+          "message": res.message, "launches": counts})
+
+    # ---- the CZ gate with the taylor gradient -----------------------------
+    cp_t = gt.compile_problem(
+        cz_problem.trajectories, cz_problem.tlist, dtype=np.complex64,
+        gradient_method="taylor", **cz_problem.kwargs,
+    )
+    orders_cz = _vectorized_taylor_orders(cp_t)
+    require(orders_cz is not None and _reuse_U_enabled(cp_t),
+            "the CZ gate must take the vectorized Taylor pass over stored "
+            "propagators")
+    x_cz = cp_t.guess_pulsevals.reshape(-1)
+    zero_counts(hopper_prop, hopper_frechet)
+    fg_t = gt.build_fg(cp_t)
+    J_t, g_t, aux_t, dJ_t, dg_t = fg_against_plain(fg_t, x_cz, "fg_taylor_cz")
+    require(bool(aux_t["taylor_ok"]), "CZ: the Taylor series did not converge")
+    d_tg = max_abs(g_t, g_cz_gradgen) / float(g_cz_gradgen.abs().max())
+    require(d_tg < 2e-3, "CZ: taylor and gradgen gradients differ by "
+            f"{d_tg} of the max")
+    taylor_ms = timed_ms(lambda: fg_t(x_cz), 3)
+    parts_cz = fg_breakdown(fg_t, x_cz)
+    counts_cz = read_counts(hopper_prop, hopper_frechet)
+    expect = dict.fromkeys(counts_cz, 0)
+    expect.update({"forward_scan_shared": 8, "chi_scan_shared": 8})
+    require(counts_cz == expect, f"CZ-taylor launch counts {counts_cz} do "
+            f"not match the evaluations {expect}")
+    emit({"phase": "fg_taylor_cz", "J": float(J_t),
+          "taylor_ms_per_eval": taylor_ms, "gradgen_ms_per_eval": cz_fg_ms,
+          "device_ms_by_part": parts_cz, "taylor_orders": orders_cz,
+          "taylor_ok": bool(aux_t["taylor_ok"]),
+          "J_abs_diff_vs_plain": dJ_t, "grad_diff_of_max_vs_plain": dg_t,
+          "grad_diff_of_max_vs_gradgen": d_tg, "launches": counts_cz})
+
+    # ---- the per-step backward pass, at a small size ----------------------
+    # eight qutrits, 50 steps: the vectorized Taylor pass in complex128 is
+    # the yardstick; the per-step passes (taylor with and without stored
+    # propagators, gradgen) in both precisions are held against it
+    small = transmon_ensemble_trajectories(8, d=3, T=2.5, seed=SEED)
+    tl_s = np.linspace(0, 2.5, 51)
+
+    step_calls = {"taylor_grad_step": 0, "gradgen_step": 0}
+
+    def counting(name, fn):
+        def wrapped(*args, **kwargs):
+            step_calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    def grad(dtype, **options):
+        """J and gradient of the small problem; the per-step functions are
+        counted, so that a pass that did not go step by step shows."""
+        cp_s = gt.compile_problem(small, tl_s, J_T=J_T_sm, dtype=dtype,
+                                  **options)
+        originals = {name: getattr(F, name) for name in step_calls}
+        for name, fn in originals.items():
+            step_calls[name] = 0
+            setattr(F, name, counting(name, fn))
+        try:
+            J_s, g_s, aux_s = gt.build_fg(cp_s)(
+                cp_s.guess_pulsevals.reshape(-1))
+        finally:
+            for name, fn in originals.items():
+                setattr(F, name, fn)
+        per_step = not options.get("vectorize_backward", True)
+        method = options["gradient_method"]
+        expect = dict.fromkeys(step_calls, 0)
+        if per_step:
+            expect[f"{method}_step" if method == "gradgen"
+                   else "taylor_grad_step"] = cp_s.n_timesteps
+        require(step_calls == expect, f"per-step fallback {options}: step "
+                f"functions called {step_calls}, expected {expect}")
+        require(bool(aux_s["taylor_ok"]) and bool(torch.isfinite(g_s).all()),
+                f"per-step fallback {options}: not converged or not finite")
+        return float(J_s), g_s.double()
+
+    J_ref, g_ref = grad(np.complex128, gradient_method="taylor")
+    variants = {
+        "taylor": dict(gradient_method="taylor", vectorize_backward=False),
+        "taylor_no_reuse": dict(gradient_method="taylor",
+                                vectorize_backward=False,
+                                reuse_propagators=False),
+        "gradgen": dict(gradient_method="gradgen", vectorize_backward=False),
+    }
+    worst = {}
+    t0 = time.perf_counter()
+    for dtype, tol_J, tol_g in ((np.complex128, 1e-12, 1e-9),
+                                (np.complex64, 1e-5, 2e-3)):
+        for name, options in variants.items():
+            J_s, g_s = grad(dtype, **options)
+            dJ_s = abs(J_s - J_ref)
+            dg_s = float((g_s - g_ref).abs().max() / g_ref.abs().max())
+            worst[f"{name}_{np.dtype(dtype).name}"] = {
+                "J_abs_diff": dJ_s, "grad_diff_of_max": dg_s}
+            require(dJ_s < tol_J and dg_s < tol_g, "per-step fallback "
+                    f"{name} in {np.dtype(dtype).name}: dJ {dJ_s}, dgrad "
+                    f"{dg_s} against the vectorized pass")
+    emit({"phase": "per_step_fallback",
+          "shape": {"d": 3, "K": 8, "N_T": 50},
+          "tolerances": {"complex128": [1e-12, 1e-9],
+                         "complex64": [1e-5, 2e-3]},
+          "against_vectorized_taylor_complex128": worst,
+          "step_function_calls_per_evaluation": 50,
+          "seconds": time.perf_counter() - t0})
+    return k7, counts, counts_cz
+
+
 def ensemble_paths(problem, cp, s_ens):
     """Phases ``fg_ensemble`` and ``optimize_ensemble``: the grouped path
     (8 groups of 4) and the per-trajectory path (group size 1), each with
@@ -540,6 +1024,8 @@ def ensemble_paths(problem, cp, s_ens):
     reps = 3
     fg_ms = timed_ms(lambda: fg(x0), reps)
     n_fg += reps
+    parts = fg_breakdown(fg, x0)
+    n_fg += 4
 
     series, iter_secs, iter_fg = [], [], []
 
@@ -586,18 +1072,20 @@ def ensemble_paths(problem, cp, s_ens):
     J_d, g_d, _, dJ_d, dg_d = fg_against_plain(fg_diff, x_diff,
                                                "fg_ensemble distinct")
     fg_diff_ms = timed_ms(lambda: fg_diff(x_diff), 2)
+    parts_diff = fg_breakdown(fg_diff, x_diff, reps=2)
     Jf, _ = gt.build_f(cp_diff)(x_diff)
     require(abs(float(Jf) - float(J_d)) < 1e-5,
             "build_f disagrees with build_fg on the distinct ensemble")
     counts_k = read_counts(hopper_prop, hopper_frechet)
     expect = dict.fromkeys(counts_k, 0)
-    expect.update({"forward_scan_pertraj": 5, "chi_scan_recompute": 4,
-                   "frechet_trace_pertraj": 4})
+    expect.update({"forward_scan_pertraj": 8, "chi_scan_recompute": 7,
+                   "frechet_trace_pertraj": 7})
     require(counts_k == expect, f"per-trajectory launch counts {counts_k} "
             f"do not match the evaluations {expect}")
 
     emit({"phase": "fg_ensemble", "J": float(J),
           "grad_norm": float(g.norm()), "ms_per_eval": fg_ms,
+          "device_ms_by_part": parts,
           "J_abs_diff_vs_plain": dJ, "grad_diff_of_max_vs_plain": dg,
           "squarings": s_ens, "dtype": "complex64",
           "small_d3": {"J_complex64_kernels": float(Js),
@@ -607,6 +1095,7 @@ def ensemble_paths(problem, cp, s_ens):
               "same_operators_J_abs_diff_vs_grouped": dJ_same,
               "same_operators_grad_diff_of_max_vs_grouped": dg_same,
               "distinct_J": float(J_d), "distinct_ms_per_eval": fg_diff_ms,
+              "distinct_device_ms_by_part": parts_diff,
               "distinct_J_abs_diff_vs_plain": dJ_d,
               "distinct_grad_diff_of_max_vs_plain": dg_d,
               "squarings": _static_squarings(cp_diff),
@@ -664,12 +1153,13 @@ def main():
 
     # ---- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
-    _build.load_kernels()
+    _build.load_kernels(verbose=True)  # -Xptxas -v: registers and spills
     kernels_s = time.perf_counter() - t0
     lbfgsb._load()  # the host optimizer (g++), so phase 5 times no build
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels_seconds": kernels_s,
           "rebuilt": _build.last_build["rebuilt"],
+          "ptxas": ptxas_summary(_build.last_build["log"]),
           "sources": [os.path.relpath(p, HERE)
                       for p in sum(_build.kernel_sources(), [])]})
 
@@ -930,6 +1420,8 @@ def main():
     torch.cuda.synchronize()
     fg_ms = (time.perf_counter() - t0) / reps * 1e3
     n_fg += reps
+    parts = fg_breakdown(fg, x0)
+    n_fg += 4
     with plain_versions():
         t0 = time.perf_counter()
         fg(x0)
@@ -937,6 +1429,7 @@ def main():
         fg_plain_ms = (time.perf_counter() - t0) * 1e3
     emit({"phase": "fg", "J": float(J), "grad_norm": float(g.norm()),
           "ms_per_eval": fg_ms, "plain_ms_per_eval": fg_plain_ms,
+          "device_ms_by_part": parts,
           "J_abs_diff_vs_plain": dJ, "grad_diff_of_max_vs_plain": dg,
           "squarings": s_cz, "dtype": "complex64",
           "launches_after_one_eval": counts_after_one})
@@ -986,6 +1479,10 @@ def main():
     # ---- the ensemble paths, each with its own counted run ----------------
     counts_ens, counts_pertraj = ensemble_paths(ens_problem, cp_ens, s_ens)
 
+    # ---- the qutrit ensemble, the taylor gradient, the per-step pass ------
+    k7, counts_smalld, counts_cz_taylor = smalld_and_taylor_paths(
+        problem, fg_ms, g, rng, dev)
+
     prop_cu = "grape_tpu_torch/csrc/prop_scan.cu"
     frechet_cu = "grape_tpu_torch/csrc/frechet_trace.cu"
     # name -> (source, what it replaces, the counted run that drives it)
@@ -1008,6 +1505,9 @@ def main():
             prop_cu, "grape_tpu/fg.py:1719", counts_ens),
         "chi_scan_recompute": (
             prop_cu, "grape_tpu/fg.py:1745", counts_pertraj),
+        "forward_scan_smalld": (
+            "grape_tpu_torch/csrc/smalld_scan.cu",
+            "grape_tpu/ops/pallas_prop.py:766", counts_smalld),
     }
     cz = {
         name: {"err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
@@ -1023,7 +1523,14 @@ def main():
     cz["frechet_trace_shared"].update(
         algorithm_flops=frechet_algorithm_flops,
         under_load=frechet_under_load, ms_by_steps=frechet_ms_by_steps)
-    measured = {**cz, **ens}
+    measured = {**cz, **ens, "forward_scan_smalld": k7}
+    # launches on the taylor paths, beside the counted run of each kernel
+    cz["forward_scan_shared"]["launches_cz_taylor"] = (
+        counts_cz_taylor["forward_scan_shared"])
+    cz["chi_scan_shared"]["launches_cz_taylor"] = (
+        counts_cz_taylor["chi_scan_shared"])
+    ens["chi_scan_grouped"]["launches_qutrit_taylor"] = (
+        counts_smalld["chi_scan_grouped"])
     kernels = []
     for name, (source, replaces, run_counts) in meta.items():
         m = dict(measured[name])

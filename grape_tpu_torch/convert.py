@@ -33,7 +33,12 @@ def _functional(fn):
 def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
                                 grad_J_a=None, lambda_a=1.0,
                                 chi_min_norm=1e-100, dtype=None,
-                                device=None):
+                                device=None, gradient_method="gradgen",
+                                vectorize_backward=True,
+                                reuse_propagators="auto",
+                                taylor_grad_max_order=100,
+                                taylor_grad_tolerance=1e-16,
+                                taylor_grad_check_convergence=True):
     """The port's ``CompiledProblem`` from the reference's arrays.
 
     ``arrays`` holds ``psi0 (K, d)``, ``H0 (1 | G | K, d, d)``,
@@ -47,7 +52,16 @@ def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
     (``{"h0", "ops"}``), ``target_states (K, d)`` and ``weights (K,)``.
     ``J_T`` / ``chi`` / ``J_a`` are callables of this package or their
     names (``"J_T_sm"``).  ``dtype=None`` keeps the dtype of ``psi0``.
+    ``gradient_method`` (``"gradgen"`` or ``"taylor"``, as the reference's
+    ``CompiledProblem`` holds it after resolving ``"auto"``),
+    ``vectorize_backward``, ``reuse_propagators`` and the ``taylor_grad_*``
+    settings are carried over as given.
     """
+    if gradient_method not in ("gradgen", "taylor"):
+        raise ValueError(
+            f"gradient_method must be 'gradgen' or 'taylor' here, got "
+            f"{gradient_method!r}"
+        )
     device = resolve_device(device)
     shared = bool(arrays.get("shared_generator", False))
     per_traj_coeffs = bool(arrays.get("per_traj_coeffs", False))
@@ -128,6 +142,12 @@ def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
         n_controls=L, n_timesteps=N_T, dim=d, n_traj=K,
         J_T=J_T, chi=chi, J_a=J_a, grad_J_a=grad_J_a,
         lambda_a=float(lambda_a),
+        gradient_method=gradient_method,
+        taylor_grad_max_order=int(taylor_grad_max_order),
+        taylor_grad_tolerance=float(taylor_grad_tolerance),
+        taylor_grad_check_convergence=bool(taylor_grad_check_convergence),
+        vectorize_backward=bool(vectorize_backward),
+        reuse_propagators=reuse_propagators,
         chi_min_norm=float(chi_min_norm),
         J_T_takes_tau=accepts_tau(J_T) and has_targets,
         chi_takes_tau=accepts_tau(chi) and has_targets,

@@ -1,12 +1,13 @@
 """The GRAPE function-and-gradient evaluation in PyTorch.
 
-Counterpart of ``grape_tpu/fg.py`` for the full-storage gradgen paths:
-linear amplitudes, dense ExpProp propagation, ``gradient_method="gradgen"``,
-with the K trajectories in G groups of gs contiguous ones that share a
-generator.  G = 1 is gate optimization (K basis states, one Hamiltonian);
-gs > 1 a gate ensemble (each Hamiltonian sample propagates its basis
-states); gs = 1 a robust ensemble of K distinct generators, which may also
-differ in their coefficient tables (``per_traj_coeffs``):
+Counterpart of ``grape_tpu/fg.py`` for the full-storage paths: linear
+amplitudes, dense ExpProp propagation, ``gradient_method="gradgen"`` or
+``"taylor"`` (``"auto"`` picks one), with the K trajectories in G groups of
+gs contiguous ones that share a generator.  G = 1 is gate optimization (K
+basis states, one Hamiltonian); gs > 1 a gate ensemble (each Hamiltonian
+sample propagates its basis states); gs = 1 a robust ensemble of K distinct
+generators, which may also differ in their coefficient tables
+(``per_traj_coeffs``):
 
 - forward: per step and group ``U_ng = exp(-i H_ng dt_n)`` and
   ``Ψ ← Ψ U_ngᵀ`` for the group's ``(gs, d)`` state block, storing every
@@ -21,22 +22,30 @@ differ in their coefficient tables (``per_traj_coeffs``):
   rank-1 direction ``R = ψχ†`` serves all control directions through
   ``tr(L(A, B)·M) = tr(B·L(A, M))``, reduced to the traces
   ``tr(Op_gt·L(A_ng, R_nk))`` and contracted with ``∂a_t/∂ε_l``;
+- backward, phase B with ``gradient_method="taylor"``: the Taylor
+  recursion ``χ' = Σ_m (i dt)^m/m! Φ_m``, ``Φ_m = μ†(H†)^{m-1}χ + H†Φ_{m-1}``
+  for all steps at once on ``(N_T, K, L, d)`` tensors, with a static order
+  count from the amplitude envelope and an honest check of the last term
+  (``aux["taylor_ok"]``);
+- the per-step backward pass, one step at a time in reverse (the
+  fallback): ``vectorize_backward=False``, a Taylor series that no static
+  order within ``taylor_grad_max_order`` covers, or a gradgen problem
+  whose propagator stream is past its budget with no kernel to form it
+  again (complex128);
 - assembly: ``(∇J_T)_{nl} = -2 Re Σ_k ∇τ_{knl}`` plus ``λ_a ∇J_a``.
 
-In complex64 the three heavy phases run in the hand-written CUDA kernels of
-``ops.hopper_prop`` and ``ops.hopper_frechet`` (their plain PyTorch
-versions for CPU tensors); in complex128 they run in plain PyTorch with
-Padé-13 and ``torch.linalg.solve``, the arithmetic the reference uses in
-double precision.  Everything else (coefficient tables, ``J_T``, χ(T), the
-contraction with ``dM``) is plain PyTorch in both.
+In complex64 the forward scan, the co-state chain and the Fréchet traces
+run in the hand-written CUDA kernels of ``ops.hopper_prop`` and
+``ops.hopper_frechet`` (their plain PyTorch versions for CPU tensors); in
+complex128 they run in plain PyTorch with Padé-13 and
+``torch.linalg.solve``, the arithmetic the reference uses in double
+precision.  Everything else (coefficient tables, ``J_T``, χ(T), the
+contraction with ``dM``, the Taylor recursion) is plain PyTorch in both.
 
 Not ported yet, and raising ``NotImplementedError`` when asked for:
-``gradient_method="taylor"``, ``prop_method="cheby"|"newton"``,
-``storage_mode="recompute"``, state running costs ``g_b``/``xi``,
-``CustomAmplitude``, ``mesh=`` sharding, the forward-propagation
-observables callback, and a complex128 problem whose propagator stream
-exceeds the budget of ``_gg_u_bytes_ok`` (the reference takes the per-step
-backward pass there).
+``prop_method="cheby"|"newton"``, ``storage_mode="recompute"``, state
+running costs ``g_b``/``xi``, ``CustomAmplitude``, ``mesh=`` sharding and
+the forward-propagation observables callback.
 """
 
 from dataclasses import dataclass, field
@@ -52,15 +61,33 @@ from .controls import discretize_on_midpoints, get_controls
 from .functionals import accepts_tau, make_chi, make_grad_J_a, taus
 from .generators import align_generators
 from .ops.expm import _THETA13_F64, _THETA_TAYLOR_F32, expm
-from .ops.frechet import expm_frechet
+from .ops.frechet import expm_frechet, gradgen_step, taylor_grad_step
 from .ops.hopper_frechet import frechet_trace_pertraj, frechet_trace_shared
 from .ops.hopper_prop import (
-    chi_scan_grouped, chi_scan_grouped_plain, chi_scan_recompute,
-    chi_scan_shared, forward_scan_grouped, forward_scan_pertraj,
-    forward_scan_shared,
+    SMALLD_MAX_DIM, _chi_window_plain, chi_scan_grouped,
+    chi_scan_grouped_plain, chi_scan_recompute, chi_scan_shared,
+    forward_scan_grouped, forward_scan_pertraj, forward_scan_shared,
+    forward_scan_smalld, taylor_order_for_bound,
 )
 
-__all__ = ["CompiledProblem", "compile_problem", "build_fg", "build_f"]
+__all__ = [
+    "CompiledProblem", "compile_problem", "build_fg", "build_f",
+    "uses_static_envelope",
+]
+
+# from this dimension on (and for few enough columns) the vectorized Taylor
+# pass applies the T+1 static operators instead of materializing the
+# (N_T, d, d) generators
+_STATIC_H_MIN_DIM = 128
+
+# the small-dimension forward kernel: trajectories from which it is taken
+_SMALLD_MIN_TRAJ = 128
+
+# up to this dimension the vectorized Taylor pass forms its (d, d)·(d,)
+# products as a broadcast multiply and a sum over d: a batched matrix
+# product of a few hundred thousand 3 x 3 matrices goes through one library
+# call per product that costs far more than the bytes it moves
+_ELEMENTWISE_MAX_DIM = 4
 
 
 @dataclass
@@ -93,12 +120,20 @@ class CompiledProblem:
     grad_J_a: Callable = None
     lambda_a: float = 1.0
     gradient_method: str = "gradgen"
+    taylor_grad_max_order: int = 100
+    taylor_grad_tolerance: float = 1e-16
+    taylor_grad_check_convergence: bool = True
     chi_min_norm: float = 1e-100
     J_T_takes_tau: bool = False
     chi_takes_tau: bool = False
     has_targets: bool = False
     prop_method: str = "expprop"
     storage_mode: str = "full"
+    # keep the forward propagators for the co-state chain of the taylor
+    # pass: "auto" (while the stream fits 4 GiB), True or False
+    reuse_propagators: Any = "auto"
+    # time-vectorized backward passes; False takes the per-step pass
+    vectorize_backward: bool = True
     ctl_idx: tuple = ()  # static control index per term (None = locked)
     # all trajectories evolve under the SAME generator (gate optimization:
     # K basis states, one H) — U_n is computed once per step, not per k;
@@ -132,15 +167,10 @@ class CompiledProblem:
 _UNPORTED_DEFAULTS = {
     "g_b": None,
     "xi": None,
-    "taylor_grad_max_order": 100,
-    "taylor_grad_tolerance": 1e-16,
-    "taylor_grad_check_convergence": True,
     "cheby_tol": 1e-14,
     "storage_segments": None,
     "newton_m": 30,
     "newton_substeps": 1,
-    "reuse_propagators": "auto",
-    "vectorize_backward": True,
     "fw_prop_callback": None,
     "fw_prop_observables": None,
     "mesh": None,
@@ -163,10 +193,10 @@ def _normalize_prop_method(prop_method):
 
 def _check_ported(gradient_method, storage_mode, prop_methods, options):
     """Raise ``NotImplementedError`` naming the first unported option."""
-    if gradient_method not in ("gradgen", "auto"):
-        raise NotImplementedError(
-            f"gradient_method={gradient_method!r} is not ported to "
-            "grape_tpu_torch yet (only 'gradgen')"
+    if gradient_method not in ("gradgen", "taylor", "auto"):
+        raise ValueError(
+            f"Unknown gradient_method: {gradient_method!r} "
+            "(supported: 'gradgen', 'taylor', 'auto')"
         )
     if storage_mode != "full":
         raise NotImplementedError(
@@ -202,6 +232,9 @@ def compile_problem(
     lambda_a=1.0,
     lambda_b=1.0,
     gradient_method="gradgen",
+    taylor_grad_max_order=100,
+    taylor_grad_tolerance=1e-16,
+    taylor_grad_check_convergence=True,
     chi_min_norm=1e-100,
     dtype=None,
     prop_method=None,
@@ -209,6 +242,8 @@ def compile_problem(
     bw_prop_method=None,
     grad_prop_method=None,
     storage_mode="full",
+    reuse_propagators="auto",
+    vectorize_backward=True,
     device=None,
     **options,
 ):
@@ -220,9 +255,12 @@ def compile_problem(
     ``M`` — the same arrays the reference's ``compile_problem`` builds.
 
     ``device=None`` means the CUDA device (and raises without one);
-    ``dtype=None`` means complex64 there and complex128 on the CPU.  A
-    keyword for a feature that is not ported yet raises
-    ``NotImplementedError``; an unknown keyword raises ``TypeError``.
+    ``dtype=None`` means complex64 there and complex128 on the CPU.
+    ``gradient_method="auto"`` resolves as in the reference: gradgen
+    wherever its time-vectorized pass serves (``dim ≤ 128`` and a feasible
+    co-state chain), else taylor.  A keyword for a feature that is not
+    ported yet raises ``NotImplementedError``; an unknown keyword raises
+    ``TypeError``.
     """
     device = resolve_device(device)
     _check_ported(
@@ -331,7 +369,7 @@ def compile_problem(
         grad_J_a = make_grad_J_a(J_a, tlist)
 
     rdtype = real_dtype(cdtype)
-    return CompiledProblem(
+    cp = CompiledProblem(
         psi0=np.asarray(psi0),
         H0=np.asarray(H0),
         ops=np.asarray(ops),
@@ -350,12 +388,19 @@ def compile_problem(
         J_a=J_a,
         grad_J_a=grad_J_a,
         lambda_a=float(lambda_a),
-        gradient_method="gradgen",
+        gradient_method=(
+            "gradgen" if gradient_method == "auto" else gradient_method
+        ),
+        taylor_grad_max_order=int(taylor_grad_max_order),
+        taylor_grad_tolerance=float(taylor_grad_tolerance),
+        taylor_grad_check_convergence=bool(taylor_grad_check_convergence),
         chi_min_norm=float(chi_min_norm),
         J_T_takes_tau=accepts_tau(J_T) and has_targets,
         chi_takes_tau=accepts_tau(chi) and has_targets,
         has_targets=has_targets,
         storage_mode=storage_mode,
+        reuse_propagators=reuse_propagators,
+        vectorize_backward=bool(vectorize_backward),
         ctl_idx=tuple(ctl_idx),
         shared_generator=shared_generator,
         per_traj_coeffs=per_traj_coeffs,
@@ -370,6 +415,19 @@ def compile_problem(
         norm_cache=_make_norm_cache(H0, ops),
         device=device,
     )
+    if gradient_method == "auto":
+        _resolve_auto_gradient_method(cp)
+    return cp
+
+
+def _resolve_auto_gradient_method(cp):
+    """``gradient_method="auto"`` (the reference's rule, kept whatever this
+    card's own timings say so that both packages route a problem alike):
+    gradgen wherever the time-vectorized rank-1 Fréchet pass serves
+    (ExpProp, full storage, ``dim ≤ 128``, a feasible co-state chain), else
+    taylor.  ``cp.gradient_method`` holds ``"gradgen"`` on entry."""
+    if cp.dim > 128 or not _vec_gradgen_enabled(cp):
+        cp.gradient_method = "taylor"
 
 
 def _gen_group_runs(gens):
@@ -506,6 +564,89 @@ def _static_squarings(cp: CompiledProblem, amp_max=None):
     return max(0, int(np.ceil(np.log2(max(bound, 1e-30) / theta))))
 
 
+def _mu_norm_bound(cp: CompiledProblem, amp_max=None):
+    """Host-side bound on ``max_{n,l,k} ‖μ_knl‖_1`` with
+    ``μ_nl = Σ_j (∂a_j/∂ε_l)·Op_j`` over the pulse envelope (for linear
+    amplitudes ``∂a_j/∂ε_l = M[n,j,l]``, amplitude-independent)."""
+    if np.asarray(cp.M).shape[-2] == 0 or cp.n_controls == 0:
+        return 0.0
+    if amp_max is None:
+        amp_max = 2.0 * _default_amp_max(cp)
+    _, dmax = _coeff_env(cp, amp_max)  # (T, L)
+    _, opn = _op_norms(cp)
+    return float(np.einsum("tl,t->l", dmax, opn).max())
+
+
+def _taylor_prefactor(cp: CompiledProblem, amp_max=None):
+    """``‖μ‖/‖H‖`` prefactor for the static Taylor-order bound (see
+    ``taylor_order_for_bound``)."""
+    return (
+        _mu_norm_bound(cp, amp_max)
+        / max(_h_norm_bound(cp, amp_max), 1e-30)
+    )
+
+
+def _taylor_tol_effective(cp: CompiledProblem):
+    """Effective tolerance for the static-order Taylor pass: the user's
+    tolerance, floored at 1e-9 for complex64 (float32 terms below about
+    1e-9·‖H·dt‖ are numeric noise; demanding them would fail the honest
+    last-term check for no reason)."""
+    tol = cp.taylor_grad_tolerance
+    if np.dtype(cp.psi0.dtype) == np.complex64:
+        tol = max(tol, 1e-9)
+    return tol
+
+
+def _reuse_U_enabled(cp: CompiledProblem):
+    """Keep the forward step propagators ``U_n`` for the backward co-state
+    propagation of the taylor gradient (``χ ← U_n†χ``, an exact identity).
+    ``"auto"`` gates on the storage cost ``N_T·K·d²`` (one entry for a
+    shared generator) staying within 4 GiB.  The reference has one more
+    clause, for its TPU platform only, where collecting per-trajectory
+    propagators from a scan that is not a kernel was slower than forming
+    them again; it is dropped here: on the card every forward path emits U
+    as it goes."""
+    if cp.reuse_propagators is False:
+        return False
+    if cp.gradient_method != "taylor":
+        return False
+    if cp.reuse_propagators == "auto":
+        k_u = 1 if cp.shared_generator else cp.n_traj
+        nbytes = (
+            cp.n_timesteps * k_u * cp.dim * cp.dim
+            * np.dtype(cp.psi0.dtype).itemsize
+        )
+        return nbytes <= 4 * 1024**3
+    return bool(cp.reuse_propagators)
+
+
+def _vectorized_taylor_orders(cp: CompiledProblem, amp_max=None):
+    """Static Taylor order count for the time-vectorized backward pass,
+    from the host amplitude envelope (plus the ‖μ‖/‖H‖ prefactor and a +2
+    margin).  None when no order within ``taylor_grad_max_order`` reaches
+    the tolerance: the caller then takes the per-step pass with its own
+    convergence check."""
+    return taylor_order_for_bound(
+        _step_norm_bound(cp, amp_max),
+        tolerance=_taylor_tol_effective(cp),
+        max_order=cp.taylor_grad_max_order,
+        prefactor=_taylor_prefactor(cp, amp_max),
+    )
+
+
+def uses_static_envelope(cp: CompiledProblem):
+    """True when the evaluations derive STATIC data from the
+    pulse-amplitude envelope: the kernels' squaring count, the squaring
+    count of the vectorized gradgen pass, or the order count of the
+    vectorized Taylor pass.  The workspace then grows its envelope bucket
+    when the optimizer pushes a pulse past it."""
+    if _kernels_enabled(cp):
+        return True
+    if cp.gradient_method == "taylor" and cp.vectorize_backward:
+        return True
+    return _vec_gradgen_enabled(cp)
+
+
 def _kernels_enabled(cp: CompiledProblem):
     """The kernel wrappers (and, for CPU tensors, their plain versions)
     serve complex64, as the TPU kernels are gated on it; complex128 takes
@@ -560,10 +701,35 @@ def _gg_u_bytes_ok(cp: CompiledProblem):
 
 
 def _vec_gradgen_enabled(cp: CompiledProblem):
-    """The time-vectorized gradgen backward pass, the only one ported,
-    needs a feasible phase A: a propagator stream within its budget, or the
+    """The time-vectorized gradgen backward pass: asked for (gradgen,
+    ``vectorize_backward``, propagator reuse not refused) and with a
+    feasible phase A: a propagator stream within its budget, or the
     kernels, whose co-state chain can form the propagators again."""
+    if not cp.vectorize_backward or cp.gradient_method != "gradgen":
+        return False
+    if cp.reuse_propagators is False:
+        return False
     return _gg_u_bytes_ok(cp) or _kernels_enabled(cp)
+
+
+def _smalld_enabled(cp: CompiledProblem):
+    """The small-dimension forward kernel (``forward_scan_smalld``), under
+    the reference's gates so that both packages route a problem alike: the
+    kernels' precision, one generator per trajectory at ``d ≤ 4``, at least
+    128 trajectories, one coefficient table.  It does not look at the
+    gradient method."""
+    return (
+        _kernels_enabled(cp) and not cp.shared_generator
+        and not cp.per_traj_coeffs and cp.dim <= SMALLD_MAX_DIM
+        and cp.n_traj >= _SMALLD_MIN_TRAJ
+    )
+
+
+def _compute_group_size(cp: CompiledProblem):
+    """Trajectories per operator entry as the compute paths see them: the
+    effective group size, but 1 on the small-dimension route, whose kernel
+    takes one generator per trajectory."""
+    return 1 if _smalld_enabled(cp) else _effective_group_size(cp)
 
 
 # --------------------------------------------------------------------------
@@ -575,7 +741,7 @@ def _device_constants(cp: CompiledProblem, device):
 
     ``H0 (G, d, d)`` and ``ops (G, T, d, d)`` hold one entry per group as
     the compute paths consume them: ``G = 1`` for a shared generator,
-    ``K / gs`` for groups of ``gs = _effective_group_size``, else ``K``."""
+    ``K / gs`` for groups of ``gs = _compute_group_size``, else ``K``."""
     cdt = torch_dtype(cp.psi0.dtype)
     rdt = real_dtype(cdt)
 
@@ -589,12 +755,13 @@ def _device_constants(cp: CompiledProblem, device):
 
     if cp.shared_generator:
         H0, ops = cp.H0[:1], cp.ops[:1]
-    elif _effective_group_size(cp) > 1:
+    elif _compute_group_size(cp) > 1:
         H0, ops = _group_ops(cp, cp.H0, cp.ops)
     else:
         H0, ops = _pertraj_ops(cp, cp.H0, cp.ops)
     tl = r(cp.tlist)
     return {
+        "gs": cp.n_traj // H0.shape[0], "smalld": _smalld_enabled(cp),
         "psi0": c(cp.psi0), "H0": c(H0), "ops": c(ops),
         "M": r(cp.M), "Mfix": r(cp.Mfix), "tlist": tl,
         "dt": torch.diff(tl).contiguous(), "cdtype": cdt, "rdtype": rdt,
@@ -656,11 +823,18 @@ def _forward(cp: CompiledProblem, consts, coeffs, amp_max, want_U=True):
             consts["dt"].to(torch.float32), consts["psi0"],
         )
         n_sq = _static_squarings(cp, amp_max)
+        if consts["smalld"]:
+            # a large ensemble of tiny systems: matrices in registers
+            out = forward_scan_smalld(
+                consts["H0"], consts["ops"], *args, n_sq,
+                with_propagators=want_U,
+            )
+            return out if want_U else (out, None)
         if cp.shared_generator:
             return forward_scan_shared(
                 consts["H0"][0], consts["ops"][0], *args, n_sq
             )
-        gs = _effective_group_size(cp)
+        gs = consts["gs"]
         if gs > 1:
             # grouped generators: one expm per (step, group)
             return forward_scan_grouped(
@@ -735,15 +909,33 @@ def _chi_trajectory(cp: CompiledProblem, Us, chi_hat):
 
 
 def _chi_prop_scan(cp: CompiledProblem, consts, coeffs, chi_hat, amp_max):
-    """Phase A without stored propagators (a stream beyond the budget of
-    ``_gg_u_bytes_ok``): the co-state chain over propagators formed again
-    per step, one ``exp(-i H_ng dt_n)`` per group.  Kernels only:
-    :func:`build_fg` refuses such a problem in complex128."""
-    return chi_scan_recompute(
-        consts["H0"], consts["ops"], coeffs.to(torch.float32).contiguous(),
-        consts["dt"].to(torch.float32), chi_hat.contiguous(),
-        _static_squarings(cp, amp_max),
-    )
+    """Phase A without stored propagators (a stream beyond its budget, or
+    ``reuse_propagators=False``): the co-state chain over propagators
+    formed again, one ``exp(-i H_ng dt_n)`` per step and group, applied as
+    ``χ ← χ·conj(U_ng)`` (``exp(+i dt H†) ≡ U†``).  In the kernels'
+    precision the propagator and χ-scan kernels do it window by window;
+    otherwise (complex128) the plain branch below does, a chunk of steps at
+    a time with each step's own norm-derived squaring count."""
+    if _kernels_enabled(cp):
+        return chi_scan_recompute(
+            consts["H0"], consts["ops"],
+            coeffs.to(torch.float32).contiguous(),
+            consts["dt"].to(torch.float32), chi_hat.contiguous(),
+            _static_squarings(cp, amp_max),
+        )
+    N_T, K, d = cp.n_timesteps, cp.n_traj, cp.dim
+    a_all = (-1j * consts["dt"]).to(consts["cdtype"])
+    chis = torch.empty((N_T, K, d), dtype=chi_hat.dtype,
+                       device=chi_hat.device)
+    C = _gradgen_chunk(cp)
+    chi = chi_hat
+    for n1 in range(N_T, 0, -C):
+        sl = slice(max(0, n1 - C), n1)
+        Uc = _expm_steps(
+            a_all[sl, None, None, None] * _generators(consts, coeffs, sl)
+        )
+        chi = _chi_window_plain(Uc, chi, chis[sl])
+    return chis
 
 
 def _gradgen_chunk(cp: CompiledProblem, n_steps=None, n_intermediates=8,
@@ -800,7 +992,7 @@ def _backward_vectorized_gradgen(cp: CompiledProblem, consts, coeffs, dM,
             # directions
             trj = frechet_trace_pertraj(
                 consts["H0"], consts["ops"], *args,
-                group_size=_effective_group_size(cp),
+                group_size=consts["gs"],
             )  # (N_T, K, T)
     else:
         G = consts["H0"].shape[0]
@@ -824,6 +1016,201 @@ def _backward_vectorized_gradgen(cp: CompiledProblem, consts, coeffs, dM,
     # ∇τ_{nl} = ρ (-i dt_n) Σ_j (∂a_j/∂ε_l)(ε_n) tr(Op_j G_n)
     grads = a_all[:, None, None] * torch.einsum(contract, dMc, trj)
     return rho[None, :, None].to(cdt) * grads
+
+
+def _backward_vectorized(cp: CompiledProblem, consts, coeffs, dM, psis,
+                         chis, rho, amp_max, n_orders):
+    """Time-vectorized Taylor backward pass, phase B.
+
+    The backward loop is sequential in time only because the co-state χ
+    carries across steps, and that chain is ONE cheap propagation per step
+    (``chis``, from phase A).  Everything expensive, the Taylor
+    χ'-recursion and the gradient dots, depends on per-step data alone and
+    runs here over the WHOLE time axis: one recursion on ``(N_T, K, L, d)``
+    tensors, ``n_orders`` rounds of a few large products.  The order count
+    is static (from the host envelope), so nothing is read from the device
+    inside the loop; the last term is checked honestly afterwards.
+
+    One code path serves every generator layout: ``H0 (G, d, d)``,
+    ``ops (G, T, d, d)`` with the K trajectories in G groups of gs (shared:
+    G = 1; one generator each: gs = 1; ``per_traj_coeffs``: G = K with one
+    coefficient table per trajectory).
+
+    Returns ``(tau_grads (N_T, K, L) [ρ-scaled], taylor_ok)``.
+    """
+    cdt = consts["cdtype"]
+    H0, ops = consts["H0"], consts["ops"]
+    G, T = ops.shape[0], ops.shape[1]
+    N, K, d = psis.shape
+    gs, L = K // G, cp.n_controls
+    per = cp.per_traj_coeffs
+    co = coeffs.to(cdt)  # (N_T, T) or (K, N_T, T)
+    dMc = dM.to(cdt)     # (N_T, T, L) or (K, N_T, T, L)
+    # Scaled recursion (see taylor_grad_step): iterate with H†/h so the
+    # iterates stay O(1); unscaled, Φ_m ~ ‖H‖^m heads for float32 overflow
+    # while the coefficient underflows.
+    h = max(_h_norm_bound(cp, amp_max), 1e-30)
+    inv_h = 1.0 / h
+    opsd = ops.conj().transpose(-1, -2)  # (G, T, d, d)
+
+    def mu_apply(v):
+        """μ† @ v for all (n, k, l) without materializing μ:
+        μ_nl† = Σ_j (∂a_j/∂ε_l)·Op_j†."""
+        vg = v.reshape(N, G, gs, d)
+        if d <= _ELEMENTWISE_MAX_DIM:
+            u = (opsd[None, :, None] * vg[:, :, :, None, None, :]).sum(-1)
+        else:
+            u = torch.einsum("gtij,ngsj->ngsti", opsd, vg)
+        eq = "gntl,ngsti->ngsli" if per else "ntl,ngsti->ngsli"
+        return torch.einsum(eq, dMc, u).reshape(N, K, L, d)
+
+    # Static-operator decomposition of H†@Z at large dim: instead of
+    # materializing H_n (N_T·d² memory) and running N_T separate
+    # (d, d)@(d, K(L+1)) products, apply the T+1 STATIC operators to the
+    # whole (N_T·K·(L+1), d) block and combine with the per-(n, t)
+    # coefficients.  The same numbers; chosen where the (T+1)-fold work is
+    # the cheaper side: few columns and a large d.
+    static_h = (
+        cp.dim >= _STATIC_H_MIN_DIM and (T + 1) * K * (L + 1) <= 256
+    )
+    if static_h:
+        H0d = H0.conj().transpose(-1, -2) * inv_h
+        opsd_h = opsd * inv_h
+        cc = co.conj()
+        eq_c = "gnt,ntgmi->ngmi" if per else "nt,ntgmi->ngmi"
+
+        def h_apply(Z):  # H†/h @ Z without materializing H_n
+            Zg = Z.reshape(N, G, -1, d)
+            out = torch.einsum("gij,ngmj->ngmi", H0d, Zg)
+            parts = torch.einsum("gtij,ngmj->ntgmi", opsd_h, Zg)
+            return (out + torch.einsum(eq_c, cc, parts)).reshape(Z.shape)
+    else:
+        Hds = _generators(consts, coeffs, slice(None)).conj().transpose(
+            -1, -2
+        ) * inv_h  # (N_T, G, d, d)
+
+        def h_apply(Z):  # H†/h @ Z over the stacked (k, m) axes
+            Zg = Z.reshape(N, G, -1, d)
+            if d <= _ELEMENTWISE_MAX_DIM:
+                out = (Hds[:, :, None] * Zg[:, :, :, None, :]).sum(-1)
+            else:
+                out = torch.einsum("ngij,ngmj->ngmi", Hds, Zg)
+            return out.reshape(Z.shape)
+
+    cdt_n = (1j * consts["dt"] * h).to(cdt)  # = -i·(-dt_n)·h per step
+    Hm = chis  # (H†/h)^{m-1} χ, m = 1
+    phi = mu_apply(chis)  # (N_T, K, L, d), scaled by h^{-(m-1)}
+    coeff = cdt_n  # (i dt_n h)^m / m!
+    acc = coeff[:, None, None, None] * phi  # h · χ'
+    for m in range(2, n_orders + 1):
+        # one fused H†@[φ | H̃m] product per order: the big operand is read
+        # once instead of twice
+        Z = h_apply(torch.cat([phi, Hm[:, :, None, :]], dim=2))
+        Hm = Z[:, :, -1, :]
+        phi = mu_apply(Hm) + Z[:, :, :-1, :]
+        coeff = coeff * cdt_n / m
+        acc = acc + coeff[:, None, None, None] * phi
+    acc = acc * inv_h
+    # converged iff the LAST term was already below tolerance (the static
+    # bound is chosen so that this holds).  The comparison uses the SAME
+    # effective tolerance that sized the order count, float32 floor
+    # included: a stricter check than the selection rule would fail by
+    # construction.
+    last_term = coeff[:, None, None, None] * phi
+    term_norm = torch.sqrt(
+        torch.amax(torch.sum(torch.abs(last_term) ** 2, dim=-1))
+    )
+    taylor_ok = term_norm < _taylor_tol_effective(cp) * h
+    if not cp.taylor_grad_check_convergence:
+        taylor_ok = torch.ones_like(taylor_ok)
+
+    # ∇τ_{nkl} = ρ_k ⟨χ'_{nkl} | ψ(t_n)⟩
+    grads = torch.einsum("nkli,nki->nkl", acc.conj(), psis)
+    return rho[None, :, None].to(cdt) * grads, taylor_ok
+
+
+def _step_ops(cp: CompiledProblem, consts, coeffs, dM, n):
+    """``(H_n (G, d, d), μ_n (G, L, d, d))`` of time step ``n``, one entry
+    per operator group (linear amplitudes)."""
+    cdt = consts["cdtype"]
+    H0, ops = consts["H0"], consts["ops"]
+    if cp.per_traj_coeffs:
+        H = H0 + torch.einsum("kt,ktij->kij", coeffs[:, n].to(cdt), ops)
+        mu = torch.einsum("ktl,ktij->klij", dM[:, n].to(cdt), ops)
+    else:
+        H = H0 + torch.einsum("t,gtij->gij", coeffs[n].to(cdt), ops)
+        mu = torch.einsum("tl,gtij->glij", dM[n].to(cdt), ops)
+    return H, mu
+
+
+def _apply_bw_prop(cp: CompiledProblem, Hd, chi, dt_n, U_n=None):
+    """One backward co-state step ``χ ← exp(+i dt_n H†) χ`` for the
+    ``(G, gs, d)`` block ``chi``: with the stored forward propagator
+    ``U_n (G, d, d)`` its exact adjoint (one product), else the
+    exponential of the adjoint generator ``Hd (G, d, d)`` (ExpProp; the
+    Chebyshev and Krylov propagators are not ported)."""
+    if cp.prop_method != "expprop":
+        raise NotImplementedError(
+            f"prop_method={cp.prop_method!r} is not ported to "
+            "grape_tpu_torch yet (only ExpProp)"
+        )
+    if U_n is not None:
+        return torch.einsum("gji,gkj->gki", U_n.conj(), chi)
+    U = expm((1j * dt_n) * Hd)
+    return torch.einsum("gij,gkj->gki", U, chi)
+
+
+def _backward_per_step(cp: CompiledProblem, consts, coeffs, dM, storage, Us,
+                       chi_hat, rho, amp_max):
+    """The per-step backward pass (the fallback of the vectorized ones):
+    in reverse time, one step at a time, the co-state and its control
+    derivatives ``χ'_l = (∂/∂ε_l exp(+i dt H†)) χ`` by the Taylor recursion
+    with its own convergence check (taylor) or by the augmented exponential
+    (gradgen), and ``∇τ_{knl} = ρ_k ⟨χ'_{kl}|Ψ_k(t_n)⟩``.  ``Us`` holds the
+    stored forward propagators or is None.  Returns
+    ``(tau_grads (N_T, K, L), taylor_ok)``, ``taylor_ok`` the ``all`` over
+    the steps."""
+    cdt = consts["cdtype"]
+    use_taylor = cp.gradient_method == "taylor"
+    G = consts["H0"].shape[0]
+    N_T, K, d = cp.n_timesteps, cp.n_traj, cp.dim
+    L = cp.n_controls
+    dts = np.diff(np.asarray(cp.tlist, dtype=np.float64))
+    h_scale = max(_h_norm_bound(cp, amp_max), 1e-30) if use_taylor else None
+    rho_c = rho[:, None].to(cdt)
+    chi = chi_hat.reshape(G, K // G, d)
+    grads = torch.empty((N_T, K, L), dtype=cdt, device=chi_hat.device)
+    oks = []
+    for n in range(N_T - 1, -1, -1):
+        H, mu = _step_ops(cp, consts, coeffs, dM, n)
+        Hd = H.conj().transpose(-1, -2)
+        mud = mu.conj().transpose(-1, -2)
+        dt_n = float(dts[n])
+        # one generator per group, broadcast over the group's co-states
+        if use_taylor:
+            chi_prime, ok = taylor_grad_step(
+                Hd[:, None], mud[:, None], chi, -dt_n,
+                max_order=cp.taylor_grad_max_order,
+                tolerance=cp.taylor_grad_tolerance,
+                check_convergence=cp.taylor_grad_check_convergence,
+                with_status=True, scale=h_scale,
+            )
+            oks.append(ok)
+            U_n = None
+            if Us is not None:
+                U_n = Us[n] if Us.ndim == 4 else Us[n][None]
+            chi = _apply_bw_prop(cp, Hd, chi, dt_n, U_n)
+        else:
+            chi_prime, chi = gradgen_step(Hd[:, None], mud[:, None], chi,
+                                          -dt_n)
+        grads[n] = rho_c * torch.einsum(
+            "kli,ki->kl", chi_prime.reshape(K, L, d).conj(), storage[n]
+        )
+    if oks:
+        taylor_ok = torch.all(torch.stack(oks))
+    else:
+        taylor_ok = torch.ones((), dtype=torch.bool, device=chi_hat.device)
+    return grads, taylor_ok
 
 
 def _as_pulse(pulsevals, consts, device):
@@ -873,16 +1260,18 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
     device the problem was compiled for.
     """
     device = cp.device if device is None else resolve_device(device)
-    if not _vec_gradgen_enabled(cp):
-        raise NotImplementedError(
-            "a complex128 problem whose propagator stream exceeds the "
-            "storage budget needs the per-step backward pass, which is not "
-            "ported to grape_tpu_torch yet"
-        )
     consts = _device_constants(cp, device)
     cdt = consts["cdtype"]
-    # keep the propagator stream for phase A while it fits its budget
-    reuse_U = _gg_u_bytes_ok(cp)
+    # the three backward passes: vectorized gradgen; vectorized taylor
+    # where a static order count within taylor_grad_max_order exists; else
+    # the per-step pass
+    vec_gg = _vec_gradgen_enabled(cp)
+    n_orders = None
+    if cp.gradient_method == "taylor" and cp.vectorize_backward:
+        n_orders = _vectorized_taylor_orders(cp, amp_max)
+    # keep the propagator stream for the co-state chain while it fits its
+    # budget (taylor: unless reuse_propagators says otherwise)
+    reuse_U = _reuse_U_enabled(cp) or (vec_gg and _gg_u_bytes_ok(cp))
 
     @torch.no_grad()
     def fg(pulsevals):
@@ -900,13 +1289,28 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
         safe_rho = torch.where(rho > 0, rho, torch.ones_like(rho))
         chi_hat = chi_T / safe_rho[:, None].to(cdt)
 
-        if reuse_U:
-            chis = _chi_trajectory(cp, Us, chi_hat)
+        if not reuse_U:
+            Us = None  # a forward scan may emit them unasked
+        taylor_ok = torch.ones((), dtype=torch.bool, device=device)
+        if vec_gg or n_orders is not None:
+            # phase A: over the stored propagators, or forming them again
+            if Us is not None:
+                chis = _chi_trajectory(cp, Us, chi_hat)
+            else:
+                chis = _chi_prop_scan(cp, consts, coeffs, chi_hat, amp_max)
+            if vec_gg:
+                tau_grads = _backward_vectorized_gradgen(
+                    cp, consts, coeffs, dM, storage[:-1], chis, rho, amp_max
+                )
+            else:
+                tau_grads, taylor_ok = _backward_vectorized(
+                    cp, consts, coeffs, dM, storage[:-1], chis, rho,
+                    amp_max, n_orders,
+                )
         else:
-            chis = _chi_prop_scan(cp, consts, coeffs, chi_hat, amp_max)
-        tau_grads = _backward_vectorized_gradgen(
-            cp, consts, coeffs, dM, storage[:-1], chis, rho, amp_max
-        )
+            tau_grads, taylor_ok = _backward_per_step(
+                cp, consts, coeffs, dM, storage, Us, chi_hat, rho, amp_max
+            )
 
         grad_Tb = -2.0 * torch.real(torch.sum(tau_grads, dim=1))  # (N_T, L)
         grad_Tb_flat = grad_Tb.T.reshape(-1)  # l-major flat layout
@@ -926,7 +1330,7 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
             "tau": tau if tau is not None else _zero_tau(cp, consts, device),
             "psi_T": psi_T,
             "chi_ok": chi_ok,
-            "taylor_ok": torch.ones((), dtype=torch.bool, device=device),
+            "taylor_ok": taylor_ok,
             "chi_norms": rho,
         }
         return J, grad, aux

@@ -116,6 +116,10 @@ def _declare(lib):
     lib.grape_frechet_trace.argtypes = [
         p, p, p, p, p, p, i, i, i, i, i, i, ll, i, p, i, p, p,
     ]
+    lib.grape_smalld_propagators.restype = i
+    lib.grape_smalld_propagators.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
+    lib.grape_smalld_apply.restype = i
+    lib.grape_smalld_apply.argtypes = [p, p, p, i, i, i, p]
     lib.grape_propagator_scratch_matrices.restype = i
     lib.grape_propagator_scratch_matrices.argtypes = []
     lib.grape_frechet_scratch_matrices.restype = i

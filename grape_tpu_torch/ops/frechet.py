@@ -1,9 +1,10 @@
 """Matrix exponential with its Fréchet derivative, in plain PyTorch.
 
-Counterpart of ``grape_tpu/ops/frechet.py`` as far as the gate-optimization
-main path needs it: ``expm_frechet`` with the shared base and the pair
-doublings.  (``gradgen_step`` and ``taylor_grad_step`` belong to the
-per-step backward passes and are not ported yet.)
+Counterpart of ``grape_tpu/ops/frechet.py``: ``expm_frechet`` with the
+shared base and the pair doublings (the vectorized gradgen pass), and the two
+per-step gradient functions of the per-step backward pass,
+``gradgen_step`` (augmented exponential) and ``taylor_grad_step`` (Taylor
+recursion with a convergence check).
 """
 
 import torch
@@ -13,7 +14,7 @@ from .expm import (
     _norm_squarings, _theta13,
 )
 
-__all__ = ["expm_frechet"]
+__all__ = ["expm_frechet", "gradgen_step", "taylor_grad_step"]
 
 
 def _frechet_taylor_ps(A, B, degree=_TAYLOR_DEGREE):
@@ -150,3 +151,91 @@ def expm_frechet(A, B, max_squarings=32, squarings=None):
     if squeeze:
         Lf = Lf[..., 0, :, :]
     return E, Lf
+
+
+def gradgen_step(H, mu, chi, dt):
+    """One backward gradient-generator step.
+
+    Given the (already adjoint) generator ``H (..., d, d)``, control
+    derivatives ``mu (..., L, d, d)``, co-state ``chi (..., d)`` and the
+    *backward* step ``dt`` (the propagator applied is ``exp(-1j * H * dt)``,
+    with ``dt < 0`` for backward propagation of the adjoint generator),
+    returns ``(chi_prime, chi_new)`` where
+
+    - ``chi_new (..., d)``      = ``exp(-1j H dt) @ chi``
+    - ``chi_prime (..., L, d)`` = ``(∂/∂ε_l exp(-1j H dt)) @ chi``
+    """
+    H = torch.as_tensor(H)
+    mu = torch.as_tensor(mu)
+    chi = torch.as_tensor(chi)
+    E, Lf = expm_frechet(-1j * dt * H, -1j * dt * mu)
+    chi_new = torch.einsum("...ij,...j->...i", E, chi)
+    chi_prime = torch.einsum("...lij,...j->...li", Lf, chi)
+    return chi_prime, chi_new
+
+
+def taylor_grad_step(H, mu, chi, dt, max_order=100, tolerance=1e-16,
+                     check_convergence=True, with_status=False, scale=None):
+    """Taylor-series evaluation of ``(∂/∂ε exp(-1j H dt)) @ chi``.
+
+    Recursion (Kuprov & Rodgers):
+
+        chi' = Σ_{m≥1} (-1j dt)^m / m! · Φ_m
+        Φ_1 = mu @ chi
+        Φ_m = mu @ H^{m-1} @ chi + H @ Φ_{m-1}
+
+    ``H (..., d, d)``, ``mu (..., L, d, d)``, ``chi (..., d)``.  Returns
+    ``chi_prime (..., L, d)``.  With ``check_convergence``, the series stops
+    once the norm of the added term (max over the batch) falls below
+    ``tolerance``; otherwise exactly ``max_order`` terms are used.  The norm
+    is taken on the device and read once per order: this is the per-step
+    fallback, the time-vectorized pass uses a static order count instead.
+
+    ``scale`` (a static host-side bound on the norm of ``H``) rescales the
+    recursion to iterate with ``H/scale``: the iterates stay O(1) and the
+    series weight ``(-i dt scale)^m/m!`` stays in the float32 normal range,
+    where the unscaled recursion drives ``Φ_m ~ ‖H‖^m`` toward overflow
+    while the coefficient underflows.  Mathematically identical.
+
+    ``with_status`` also returns a 0-d bool tensor: converged iff the
+    tolerance stop fired (not the ``max_order`` cap), or no check was asked.
+    """
+    A = torch.as_tensor(H)
+    mu = torch.as_tensor(mu).to(A.dtype)
+    chi = torch.as_tensor(chi).to(A.dtype)
+    dt = float(dt)
+    h = float(scale) if scale is not None and float(scale) > 0 else 1.0
+    if h != 1.0:
+        A = A / h
+    cdt = complex(0.0, -dt * h)
+    tolerance = tolerance * h  # the terms below are scaled by h
+
+    Hm_chi = chi  # (H/h)^{m-1} chi, m = 1
+    phi = torch.einsum("...lij,...j->...li", mu, chi)
+    coeff = cdt
+    acc = coeff * phi  # m = 1 term (scaled by h)
+    done = False
+    m = 2
+    while m <= max_order and not done:
+        Hm_chi = torch.einsum("...ij,...j->...i", A, Hm_chi)
+        phi = (
+            torch.einsum("...lij,...j->...li", mu, Hm_chi)
+            + torch.einsum("...ij,...lj->...li", A, phi)
+        )
+        coeff = coeff * cdt / m
+        term = coeff * phi
+        acc = acc + term
+        if check_convergence:
+            term_norm = torch.sqrt(
+                torch.amax(torch.sum(torch.abs(term) ** 2, dim=-1))
+            )
+            done = bool(term_norm < tolerance)
+        m += 1
+    acc = acc / h
+    if with_status:
+        converged = torch.tensor(
+            (not check_convergence) or done, dtype=torch.bool,
+            device=acc.device,
+        )
+        return acc, converged
+    return acc

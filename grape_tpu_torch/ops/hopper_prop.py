@@ -2,7 +2,8 @@
 plain PyTorch versions.
 
 Counterpart of ``grape_tpu/ops/pallas_prop.py`` for the kernels of the
-gate-optimization and the robust-ensemble paths.  The trajectories come in
+gate-optimization, the robust-ensemble and the small-dimension ensemble
+paths.  The trajectories come in
 ``G`` groups of ``gs`` contiguous ones that share a generator
 (``K = G·gs``); one pair of device kernels (``csrc/prop_scan.cu``) serves
 every grouping:
@@ -23,6 +24,12 @@ every grouping:
   reverse time emit ``chis[n] = χ(t_{n+1})``, then ``χ ← χ·conj(U_ng)``.
 - :func:`chi_scan_recompute` is the chain without stored propagators: the
   propagator kernel recomputes them one window of steps at a time.
+- :func:`forward_scan_smalld` replaces ``forward_scan_pallas_smalld``: the
+  forward scan of a large ensemble (one generator per trajectory) of tiny
+  systems, ``d ≤ 4``, with the matrices in registers, one thread per
+  (step, trajectory) exponential (``csrc/smalld_scan.cu``).
+- :func:`taylor_order_for_bound` is the host helper that sizes the static
+  order count of the time-vectorized Taylor backward pass.
 
 Each wrapper launches its kernels for a CUDA tensor (or raises) and runs the
 plain version only for a CPU tensor; ``launches`` counts, per wrapper, the
@@ -42,6 +49,8 @@ __all__ = [
     "chi_scan_shared", "chi_scan_shared_plain",
     "chi_scan_grouped", "chi_scan_grouped_plain",
     "chi_scan_recompute", "chi_scan_recompute_plain",
+    "forward_scan_smalld", "forward_scan_smalld_plain",
+    "taylor_order_for_bound",
     "propagators", "propagators_shared", "launches",
 ]
 
@@ -50,7 +59,11 @@ launches = {
     "forward_scan_shared": 0, "chi_scan_shared": 0,
     "forward_scan_grouped": 0, "forward_scan_pertraj": 0,
     "chi_scan_grouped": 0, "chi_scan_recompute": 0,
+    "forward_scan_smalld": 0,
 }
+
+# largest dimension the small-dimension kernel holds in registers
+SMALLD_MAX_DIM = 4
 
 # blocks of the persistent propagator grid per multiprocessor
 _BLOCKS_PER_SM = 2
@@ -483,3 +496,93 @@ def chi_scan_recompute(H0, ops, coeffs, dts, chi_hat, n_squarings):
         chi = _chi_window(lib, Uw, chi, chis[n0:n1], carry=n0 > 0)
     launches["chi_scan_recompute"] += 1
     return chis
+
+
+# --------------------------------------------------------------------------
+# Small-dimension ensembles
+# --------------------------------------------------------------------------
+
+def forward_scan_smalld_plain(H0, ops, coeffs, dts, psi0, n_squarings,
+                              with_propagators=False):
+    """Plain PyTorch version of :func:`forward_scan_smalld`: the same
+    degree-16 Taylor polynomial at the same squaring count, batched over the
+    trajectories, a Python loop over the steps."""
+    _require(H0.shape[0] == psi0.shape[0], "one generator per trajectory")
+    _require(coeffs.ndim == 2, "coeffs must be (N_T, T)")
+    storage, U = _forward_scan_plain(H0, ops, coeffs, dts, psi0, n_squarings,
+                                     with_propagators)
+    return (storage, U) if with_propagators else storage
+
+
+def forward_scan_smalld(H0, ops, coeffs, dts, psi0, n_squarings,
+                        with_propagators=False):
+    """Forward propagation of a large ensemble of SMALL systems, one
+    generator per trajectory.
+
+    Args:
+      H0:   (K, d, d) complex64 drifts, ``d ≤ 4``
+      ops:  (K, T, d, d) complex64 control-term operators
+      coeffs: (N_T, T) float32 per-step term coefficients (one table)
+      dts:  (N_T,) float32 time steps
+      psi0: (K, d) complex64 initial states
+      n_squarings: squaring count ``s`` (a runtime integer)
+      with_propagators: also return the propagator stream; without it the
+        propagators are formed one window of steps at a time
+
+    Returns ``storage (N_T+1, K, d)`` complex64 with ``storage[0] = psi0``,
+    and with ``with_propagators`` the pair ``(storage, U (N_T, K, d, d))``.
+    """
+    if psi0.device.type == "cpu" or plain_forced():
+        return forward_scan_smalld_plain(H0, ops, coeffs, dts, psi0,
+                                         n_squarings, with_propagators)
+    _require(coeffs.ndim == 2, "coeffs must be (N_T, T)")
+    K, T, d, N_T, _ = _check_group_args(H0, ops, coeffs, dts)
+    _require(1 <= d <= SMALLD_MAX_DIM,
+             f"forward_scan_smalld takes d <= {SMALLD_MAX_DIM}, got {d}")
+    device = H0.device
+    _check_tensor("psi0", psi0, torch.complex64, (K, d), device)
+    s = _squarings(n_squarings)
+    lib = load_kernels()
+    storage = torch.empty((N_T + 1, K, d), dtype=torch.complex64,
+                          device=device)
+    C = N_T if with_propagators else _window_steps(K, d, N_T)
+    U = None
+    psi_in = psi0
+    for n0 in range(0, N_T, C):
+        co, dt = _window(coeffs, dts, n0, n0 + C)
+        n_steps = dt.shape[0]
+        U = torch.empty((n_steps, K, d, d), dtype=torch.complex64,
+                        device=device)
+        with torch.cuda.device(device):
+            check(lib, lib.grape_smalld_propagators(
+                H0.data_ptr(), ops.data_ptr(), co.data_ptr(), dt.data_ptr(),
+                T, d, n_steps, K, s, U.data_ptr(), _stream(device),
+            ), "small-dimension propagator kernel launch")
+            check(lib, lib.grape_smalld_apply(
+                U.data_ptr(), psi_in.data_ptr(), storage[n0:].data_ptr(),
+                n_steps, K, d, _stream(device),
+            ), "small-dimension apply-scan kernel launch")
+        if n0 + C < N_T:
+            # the next window starts from a copy of this one's last state
+            # (the kernel writes its start state back to that row)
+            psi_in = storage[n0 + C].clone()
+    launches["forward_scan_smalld"] += 1
+    return (storage, U) if with_propagators else storage
+
+
+def taylor_order_for_bound(bound, tolerance=1e-8, max_order=100,
+                           prefactor=1.0):
+    """Static Taylor order for the χ'-recursion: smallest ``m`` with
+    ``prefactor · m · bound^m / m! < tolerance`` (+2 safety).  ``bound`` is
+    the host-side envelope of ``|dt|·‖H‖`` (the bound that sizes the expm
+    squarings); ``prefactor`` is ``‖μ‖/‖H‖``: the recursion iterates
+    ``Φ_m = μ H^{m-1} χ + H Φ_{m-1}``, so ``‖Φ_m‖ ≤ m·‖μ‖·‖H‖^{m-1}`` and the
+    m-th series term is bounded by ``(‖μ‖/‖H‖)·m·(dt‖H‖)^m/m!``.  Returns
+    ``None`` if no order ≤ ``max_order`` satisfies the tolerance: the
+    caller then takes the per-step pass with its own convergence check."""
+    term = max(float(prefactor), 1e-30)
+    for m in range(1, max_order + 1):
+        term *= max(float(bound), 1e-30) / m
+        if m * term < tolerance:
+            return min(m + 2, max_order)
+    return None

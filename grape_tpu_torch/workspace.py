@@ -20,7 +20,7 @@ not ported yet and raises.
 import numpy as np
 
 from .controls import discretize_on_midpoints
-from .fg import build_f, build_fg, compile_problem
+from .fg import build_f, build_fg, compile_problem, uses_static_envelope
 from .result import GrapeResult
 
 __all__ = [
@@ -105,7 +105,8 @@ class GrapeWrk:
                     )
 
         # Amplitude-envelope bucketing: the squaring count of the kernels
-        # and of the chunked Fréchet pass is derived from the envelope.
+        # and of the chunked Fréchet pass and the static order count of the
+        # vectorized Taylor pass are derived from the envelope.
         # Controls with FINITE box bounds use the bound itself as the
         # envelope (pulses can never exceed it); unbounded controls get a
         # power-of-two bucket that grows only when the optimizer pushes a
@@ -114,9 +115,11 @@ class GrapeWrk:
         # integer handed to the kernels, so growing the bucket rebuilds
         # nothing.
         self._program_cache = {}
-        self._amp_bucket = self._bucket_for(
-            np.max(np.abs(self.cp.guess_pulsevals), axis=1)
-        )
+        self._amp_bucket = None  # no static data: nothing to bucket
+        if uses_static_envelope(self.cp):
+            self._amp_bucket = self._bucket_for(
+                np.max(np.abs(self.cp.guess_pulsevals), axis=1)
+            )
         self.fg, self.f = self._programs()
 
         continue_from = self.kwargs.get("continue_from", None)
@@ -205,6 +208,8 @@ class GrapeWrk:
 
     def _ensure_envelope(self, x):
         """Grow the envelope bucket if the pulse exceeds it."""
+        if self._amp_bucket is None:
+            return
         N_T = self.cp.n_timesteps
         amps = np.max(
             np.abs(np.reshape(np.asarray(x), (-1, N_T))), axis=1
@@ -234,9 +239,26 @@ class GrapeWrk:
     def evaluate_gradient(self, x, G_out=None):
         self._ensure_envelope(x)
         J, G, aux = self.fg(np.asarray(x, dtype=np.float64))
+        if not bool(aux["taylor_ok"]) and self._amp_bucket:
+            # safety net: the static Taylor order was sized from the
+            # amplitude envelope; if the honest last-term check still
+            # fails (envelope bound too loose for this problem), grow the
+            # bucket once (more orders) before giving up
+            self._amp_bucket = self._bucket_for(
+                2.0 * np.asarray(self._amp_bucket)
+            )
+            self.fg, self.f = self._programs()
+            J, G, aux = self.fg(np.asarray(x, dtype=np.float64))
         self.fg_count[0] += 1
         self.result.fg_calls += 1
         self._store_common(aux)
+        if not bool(aux["taylor_ok"]):
+            raise RuntimeError(
+                "Taylor gradient series did not converge within "
+                f"max_order={self.cp.taylor_grad_max_order} terms "
+                f"(tolerance={self.cp.taylor_grad_tolerance}); decrease the "
+                "time step or increase taylor_grad_max_order"
+            )
         if not bool(aux["chi_ok"]):
             raise RuntimeError(
                 f"The norm of a state χ(T) is below chi_min_norm="

@@ -263,8 +263,12 @@ def test_ensemble_fg_complex64_matches_reference_kernels(compiled, name):
 def test_u_free_route_matches_stored_u_route(compiled, name, monkeypatch):
     """With the propagator stream declared too large, complex64 forms the
     propagators again window by window for the χ chain: the same J and
-    gradient to 1e-5 as over the stored stream.  complex128 refuses."""
+    gradient to 1e-5 as over the stored stream.  complex128 has no kernel
+    to form them again and takes the per-step backward pass: the same
+    gradient as its vectorized pass to 1e-10 relative."""
     cp_ref, _, cp, fg = compiled(name, np.complex64)
+    # built here, within budget: the vectorized pass
+    _, _, cp128, fg128 = compiled(name, np.complex128)
     x = _pulses(cp_ref)["perturbed"]
     J, g, _ = fg(x)
     monkeypatch.setattr(port_fg, "_gg_u_bytes_ok", lambda cp: False)
@@ -276,8 +280,12 @@ def test_u_free_route_matches_stored_u_route(compiled, name, monkeypatch):
     assert float((g2 - g).abs().max()) < 1e-5
     Jf, _ = build_f(cp)(x)
     assert abs(float(Jf) - float(J)) < 1e-5
-    with pytest.raises(NotImplementedError, match="propagator stream"):
-        build_fg(compiled(name, np.complex128)[2])
+    assert not port_fg._vec_gradgen_enabled(cp128)
+    J128, g128, _ = fg128(x)
+    J3, g3, aux3 = build_fg(cp128)(x)
+    assert abs(float(J3) - float(J128)) < 1e-13
+    assert float((g3 - g128).abs().max()) < 1e-10 * float(g128.abs().max())
+    assert bool(aux3["taylor_ok"])
 
 
 @pytest.mark.parametrize("dtype", [np.complex128, np.complex64],

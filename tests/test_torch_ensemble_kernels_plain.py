@@ -257,6 +257,7 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
     assert set(hopper_prop.launches) == {
         "forward_scan_shared", "chi_scan_shared", "forward_scan_grouped",
         "forward_scan_pertraj", "chi_scan_grouped", "chi_scan_recompute",
+        "forward_scan_smalld",
     }
     assert set(hopper_frechet.launches) == {
         "frechet_trace_shared", "frechet_trace_pertraj",

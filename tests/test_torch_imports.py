@@ -46,6 +46,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert {"chip_smoke.py", "grape_tpu_torch/models/transmon.py",
             "grape_tpu_torch/ops/hopper_prop.py",
             "grape_tpu_torch/ops/hopper_frechet.py",
+            "grape_tpu_torch/ops/frechet.py", "grape_tpu_torch/workspace.py",
             "grape_tpu_torch/generators.py"} <= rel
     bad = []
     for path in files:

@@ -1,8 +1,8 @@
 """End to end through ``grape_tpu_torch.optimize(..., device="cpu")`` in
 complex128: the reference anchors of the TLS state transfer, the golden
-J_T series recorded from the JAX package, a small robust ensemble against
-the JAX package run here, exception capture, and the options that are not
-ported yet."""
+J_T series recorded from the JAX package, small robust ensembles against
+the JAX package run here (gradgen and taylor), exception capture, and the
+options that are not ported yet."""
 
 import json
 import os
@@ -77,6 +77,83 @@ def test_tls_golden_trace():
     assert res.converged == golden["converged"]
     assert res.message == golden["message"]
     assert res.J_T < 1e-3
+
+
+def test_tls_taylor_golden_trace():
+    """The ``tls_taylor`` golden series, in the same band."""
+    with open(GOLDEN) as f:
+        golden = json.load(f)["tls_taylor"]
+    trace = []
+    res = optimize_problem(
+        tls_problem(n_steps=500, T=5.0, J_T=J_T_sm, iter_stop=5),
+        callback=lambda wrk, it: trace.append(float(wrk.result.J_T)),
+        print_iters=False, rethrow_exceptions=True, device="cpu",
+        gradient_method="taylor",
+    )
+    assert len(trace) == len(golden["J_T_trace"])
+    np.testing.assert_allclose(
+        trace, golden["J_T_trace"], rtol=1e-3, atol=1e-10
+    )
+    assert res.iter == golden["iter"]
+    assert res.converged == golden["converged"]
+    assert res.message == golden["message"]
+    assert res.J_T < 1e-3
+
+
+@pytest.mark.parametrize("options", [
+    {}, {"vectorize_backward": False}, {"reuse_propagators": False},
+], ids=["vectorized", "per_step", "no_reuse"])
+def test_taylor_vs_gradgen_anchor(options):
+    """Reference anchor: |ΔJ_T| < 1e-10 between the two gradient methods
+    after five iterations, for each of the taylor backward passes."""
+    trajs, tlist = _tls_quickstart()
+    common = dict(iter_stop=5, J_T=J_T_sm, rethrow_exceptions=True,
+                  print_iters=False, device="cpu")
+    res_gradgen = optimize(trajs, tlist, gradient_method="gradgen", **common)
+    res_taylor = optimize(trajs, tlist, gradient_method="taylor", **common,
+                          **options)
+    assert res_gradgen.J_T < 1e-3
+    assert abs(res_gradgen.J_T - res_taylor.J_T) < 1e-10
+    assert res_taylor.fg_calls == res_gradgen.fg_calls
+
+
+def test_auto_optimizes_to_the_tls_anchor():
+    trajs, tlist = _tls_quickstart()
+    res = optimize(trajs, tlist, iter_stop=5, J_T=J_T_sm, device="cpu",
+                   gradient_method="auto", print_iters=False,
+                   rethrow_exceptions=True)
+    assert res.J_T < 1e-3
+    assert 0.75 < np.max(np.abs(res.optimized_controls[0])) < 0.85
+
+
+def test_qutrit_ensemble_taylor_matches_reference_series():
+    """Five L-BFGS-B iterations on a 16-sample qutrit ensemble with the
+    taylor gradient in complex128: the JAX package's J_T series to 1e-8."""
+    import grape_tpu
+    from grape_tpu.functionals import J_T_sm as ref_J_T_sm
+    from grape_tpu.models import (
+        transmon_ensemble_trajectories as ref_transmon_ensemble,
+    )
+    from grape_tpu_torch.models import transmon_ensemble_trajectories
+
+    tlist = np.linspace(0, 20.0, 41)
+    ref_trace, trace = [], []
+    ref_res = grape_tpu.optimize(
+        ref_transmon_ensemble(16, d=3, T=20.0), tlist, J_T=ref_J_T_sm,
+        gradient_method="taylor", iter_stop=5, dtype=np.complex128,
+        use_pallas=False, print_iters=False, rethrow_exceptions=True,
+        callback=lambda wrk, it: ref_trace.append(float(wrk.result.J_T)),
+    )
+    res = optimize(
+        transmon_ensemble_trajectories(16, d=3, T=20.0), tlist, J_T=J_T_sm,
+        gradient_method="taylor", iter_stop=5, device="cpu",
+        print_iters=False, rethrow_exceptions=True,
+        callback=lambda wrk, it: trace.append(float(wrk.result.J_T)),
+    )
+    assert res.iter == ref_res.iter == 5 and len(trace) == 6
+    assert res.fg_calls == ref_res.fg_calls
+    np.testing.assert_allclose(trace, ref_trace, rtol=0, atol=1e-8)
+    assert all(b < a for a, b in zip(trace, trace[1:])), trace
 
 
 def test_cz_small_optimizes_in_both_precisions():
@@ -207,7 +284,6 @@ def test_check_convergence_and_records():
 
 
 UNPORTED = {
-    "gradient_method": "taylor",
     "prop_method": "cheby",
     "fw_prop_method": "newton",
     "storage_mode": "recompute",
@@ -217,20 +293,41 @@ UNPORTED = {
     "optimizer": "scipy-lbfgsb",
     "fw_prop_callback": lambda values, tlist: None,
     "eval_device_calls": 4,
+}
+
+# options that raised until they were ported: their cases stay, under the
+# same ids, and now hold the option to what it does
+PORTED = {
+    "gradient_method": "taylor",
     "reuse_propagators": False,
     "taylor_grad_max_order": 50,
 }
 
 
-@pytest.mark.parametrize("option", sorted(UNPORTED))
+@pytest.mark.parametrize("option", sorted({**UNPORTED, **PORTED}))
 def test_unported_option_raises(option):
+    """An option that is not ported raises ``NotImplementedError`` naming
+    it.  An option that has been ported since (``PORTED``) is honoured: the
+    run reaches the TLS anchor and the compiled problem carries it."""
     trajs, tlist = _tls_quickstart()
-    with pytest.raises(NotImplementedError, match=option.split("_")[0]):
-        optimize(trajs, tlist, J_T=J_T_sm, device="cpu", print_iters=False,
-                 rethrow_exceptions=True, **{option: UNPORTED[option]})
+    kw = dict(J_T=J_T_sm, device="cpu", print_iters=False,
+              rethrow_exceptions=True)
+    if option in UNPORTED:
+        with pytest.raises(NotImplementedError, match=option.split("_")[0]):
+            optimize(trajs, tlist, **kw, **{option: UNPORTED[option]})
+        return
+    if option != "gradient_method":
+        kw["gradient_method"] = "taylor"
+    seen = []
+    res = optimize(trajs, tlist, iter_stop=5, **kw,
+                   callback=lambda wrk, it: seen.append(wrk.cp),
+                   **{option: PORTED[option]})
+    assert res.J_T < 1e-3 and res.message.startswith("Reached maximum")
+    assert getattr(seen[0], option) == PORTED[option]
+    assert seen[0].gradient_method == "taylor"
 
 
-def test_unported_constructs_raise():
+def test_unported_constructs_raise(monkeypatch):
     trajs, tlist = _tls_quickstart()
     with pytest.raises(NotImplementedError, match="CustomAmplitude"):
         gt.CustomAmplitude(lambda v, t: v[0] ** 2, lambda t: 0.1)
@@ -238,8 +335,8 @@ def test_unported_constructs_raise():
         optimize_problem(tls_problem(J_T=J_T_sm), method="krotov",
                          device="cpu")
     # two different Hamiltonians (per-trajectory generators, aligned to the
-    # union of their controls) compile; what still raises for them is a
-    # complex128 propagator stream beyond its storage budget
+    # union of their controls) compile; with a complex128 propagator stream
+    # beyond its storage budget they take the per-step backward pass
     H2 = gt.hamiltonian(
         np.diag([0.3, -0.3]).astype(complex),
         (np.array([[0, 1], [1, 0]], dtype=complex), lambda t: 0.1),
@@ -248,9 +345,16 @@ def test_unported_constructs_raise():
     cp = gt.compile_problem(trajs + [other], tlist, J_T=J_T_sm, device="cpu")
     assert not cp.shared_generator and cp.H0.shape[0] == 2
     assert cp.n_controls == 2 and cp.ops.shape[1] == 2
-    cp.n_timesteps = 10**9  # only the budget check reads it at build time
-    with pytest.raises(NotImplementedError, match="propagator stream"):
-        gt.build_fg(cp)
+    from grape_tpu_torch import fg as port_fg
+
+    x = cp.guess_pulsevals.reshape(-1)[::1].copy()
+    J, g, _ = gt.build_fg(cp)(x)
+    monkeypatch.setattr(port_fg, "_gg_u_bytes_ok", lambda cp: False)
+    assert not port_fg._vec_gradgen_enabled(cp)
+    J2, g2, aux2 = gt.build_fg(cp)(x)  # the per-step pass
+    assert abs(float(J2) - float(J)) < 1e-13
+    assert float((g2 - g).abs().max()) < 1e-10 * float(g.abs().max())
+    assert bool(aux2["taylor_ok"])
     with pytest.raises(TypeError, match="no_such_option"):
         optimize(trajs, tlist, J_T=J_T_sm, device="cpu", print_iters=False,
                  rethrow_exceptions=True, no_such_option=1)
