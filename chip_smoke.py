@@ -5,10 +5,10 @@
 
 Builds the CUDA kernels from ``grape_tpu_torch/csrc`` and holds each wrapper
 against its plain PyTorch version on the card at the shapes of the paths
-that use it and at a few other shapes, then drives three paths through
-``compile_problem`` / ``build_fg`` and through five L-BFGS-B iterations of
-``optimize_problem`` / ``optimize`` each, and checks that every evaluation
-went through the kernels:
+that use it and at a few other shapes, then drives four paths through
+``compile_problem`` / ``build_fg`` and through up to five L-BFGS-B
+iterations of ``optimize_problem`` / ``optimize`` each, and checks that
+every evaluation went through the kernels:
 
 - the two-transmon CZ gate (dim = 100, K = 4 trajectories under one shared
   generator, T = 4 control terms, N_T = 2000 steps);
@@ -21,7 +21,13 @@ went through the kernels:
   the small-dimension forward kernel, the co-state chain over its
   propagators and the time-vectorized Taylor backward pass; beside it the
   CZ gate with the taylor gradient and the per-step backward pass at a
-  small size.
+  small size;
+- the two-transmon CZ at d = 32 (dim = 1024, K = 4, 4 control terms,
+  N_T = 100 steps over a time of 1.0) under Chebyshev propagation with the
+  taylor gradient: the
+  Chebyshev-scan kernel forward and for the co-state chain, 27 terms per
+  step, and the vectorized Taylor pass; beside it 64 basis states of the
+  same register and the per-step extended-state gradgen at dim 256.
 
 Each phase prints one JSON line and raises on failure; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -524,7 +530,7 @@ def fg_breakdown(fg, x, reps=3):
         "forward_scan_shared", "forward_scan_grouped", "forward_scan_pertraj",
         "forward_scan_smalld", "chi_scan_shared", "chi_scan_grouped",
         "chi_scan_recompute", "frechet_trace_shared", "frechet_trace_pertraj",
-        "_backward_vectorized",
+        "cheby_scan", "_backward_vectorized",
     ]
     spans = []
 
@@ -535,7 +541,10 @@ def fg_breakdown(fg, x, reps=3):
             a.record()
             out = fn(*args, **kwargs)
             b.record()
-            spans.append((name, a, b))
+            label = name
+            if name == "cheby_scan":  # one wrapper, two directions
+                label += "_adjoint" if kwargs.get("adjoint") else "_forward"
+            spans.append((label, a, b))
             return out
         return wrapped
 
@@ -707,7 +716,7 @@ def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
     )
     from grape_tpu_torch.functionals import J_T_sm
     from grape_tpu_torch.models import transmon_ensemble_trajectories
-    from grape_tpu_torch.ops import hopper_frechet, hopper_prop
+    from grape_tpu_torch.ops import hopper_cheby, hopper_frechet, hopper_prop
 
     trajs = transmon_ensemble_trajectories(QUTRIT_SAMPLES, d=3,
                                            T=QUTRIT_T, seed=SEED)
@@ -736,11 +745,11 @@ def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
     require(_smalld_enabled(cp_gg) and _vec_gradgen_enabled(cp_gg),
             "the gradgen cross-check must take the small-dimension route")
     fg_gg = gt.build_fg(cp_gg)
-    zero_counts(hopper_prop, hopper_frechet)
+    zero_counts(hopper_prop, hopper_frechet, hopper_cheby)
     J_gg, g_gg, _ = fg_gg(x0)
     torch.cuda.synchronize()
-    counts_gg = {k: v for k, v in
-                 read_counts(hopper_prop, hopper_frechet).items() if v}
+    counts_gg = {k: v for k, v in read_counts(
+        hopper_prop, hopper_frechet, hopper_cheby).items() if v}
     require(counts_gg == {"forward_scan_smalld": 1, "chi_scan_grouped": 1,
                           "frechet_trace_pertraj": 1},
             f"gradgen on the qutrits launched {counts_gg}")
@@ -765,7 +774,7 @@ def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
             f"qutrit cut: dJ {dJs}, dgrad {dgs} against complex128")
 
     # ---- the counted run: fg, then five iterations ------------------------
-    zero_counts(hopper_prop, hopper_frechet)
+    zero_counts(hopper_prop, hopper_frechet, hopper_cheby)
     fg = gt.build_fg(cp)
     J, g, aux, dJ, dg = fg_against_plain(fg, x0, "fg_smalld")
     n_fg = 1
@@ -828,7 +837,7 @@ def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
     )
     torch.cuda.synchronize()
     opt_s = time.perf_counter() - t0
-    counts = read_counts(hopper_prop, hopper_frechet)
+    counts = read_counts(hopper_prop, hopper_frechet, hopper_cheby)
     n_fg += res.fg_calls
     n_f += res.f_calls
     require(len(series) == ITER_STOP + 1 and res.iter == ITER_STOP,
@@ -861,7 +870,7 @@ def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
             "the CZ gate must take the vectorized Taylor pass over stored "
             "propagators")
     x_cz = cp_t.guess_pulsevals.reshape(-1)
-    zero_counts(hopper_prop, hopper_frechet)
+    zero_counts(hopper_prop, hopper_frechet, hopper_cheby)
     fg_t = gt.build_fg(cp_t)
     J_t, g_t, aux_t, dJ_t, dg_t = fg_against_plain(fg_t, x_cz, "fg_taylor_cz")
     require(bool(aux_t["taylor_ok"]), "CZ: the Taylor series did not converge")
@@ -870,7 +879,7 @@ def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
             f"{d_tg} of the max")
     taylor_ms = timed_ms(lambda: fg_t(x_cz), 3)
     parts_cz = fg_breakdown(fg_t, x_cz)
-    counts_cz = read_counts(hopper_prop, hopper_frechet)
+    counts_cz = read_counts(hopper_prop, hopper_frechet, hopper_cheby)
     expect = dict.fromkeys(counts_cz, 0)
     expect.update({"forward_scan_shared": 8, "chi_scan_shared": 8})
     require(counts_cz == expect, f"CZ-taylor launch counts {counts_cz} do "
@@ -966,7 +975,7 @@ def ensemble_paths(problem, cp, s_ens):
     )
     from grape_tpu_torch.functionals import make_ensemble_gate_functional
     from grape_tpu_torch.models import two_transmon_cz_ensemble_problem
-    from grape_tpu_torch.ops import hopper_frechet, hopper_prop
+    from grape_tpu_torch.ops import hopper_cheby, hopper_frechet, hopper_prop
 
     K, d, N_T, L = cp.n_traj, cp.dim, cp.n_timesteps, cp.n_controls
     x0 = cp.guess_pulsevals.reshape(-1)
@@ -1014,7 +1023,7 @@ def ensemble_paths(problem, cp, s_ens):
             f"small ensemble: dJ {dJs}, dgrad {dgs}")
 
     # ---- the grouped path: every count set to 0 just before --------------
-    zero_counts(hopper_prop, hopper_frechet)
+    zero_counts(hopper_prop, hopper_frechet, hopper_cheby)
     fg = gt.build_fg(cp)
     J, g, aux, dJ, dg = fg_against_plain(fg, x0, "fg_ensemble")
     n_fg = 1
@@ -1044,7 +1053,7 @@ def ensemble_paths(problem, cp, s_ens):
     # one more evaluation at once: a card that lost clock over the run
     # shows it here against ms_per_eval above
     fg_ms_after = timed_ms(lambda: fg(x0), 1)
-    counts = read_counts(hopper_prop, hopper_frechet)
+    counts = read_counts(hopper_prop, hopper_frechet, hopper_cheby)
     n_fg += res.fg_calls + 1
     require(len(series) == ITER_STOP + 1 and res.iter == ITER_STOP,
             f"optimize_ensemble: {res.message}, series {series}")
@@ -1058,7 +1067,7 @@ def ensemble_paths(problem, cp, s_ens):
             f"match the evaluations {expect}")
 
     # ---- the per-trajectory path: counts set to 0 again -------------------
-    zero_counts(hopper_prop, hopper_frechet)
+    zero_counts(hopper_prop, hopper_frechet, hopper_cheby)
     J_same, g_same, _ = gt.build_fg(cp_same)(x0)
     torch.cuda.synchronize()
     dJ_same = abs(float(J_same) - float(J))
@@ -1076,7 +1085,7 @@ def ensemble_paths(problem, cp, s_ens):
     Jf, _ = gt.build_f(cp_diff)(x_diff)
     require(abs(float(Jf) - float(J_d)) < 1e-5,
             "build_f disagrees with build_fg on the distinct ensemble")
-    counts_k = read_counts(hopper_prop, hopper_frechet)
+    counts_k = read_counts(hopper_prop, hopper_frechet, hopper_cheby)
     expect = dict.fromkeys(counts_k, 0)
     expect.update({"forward_scan_pertraj": 8, "chi_scan_recompute": 7,
                    "frechet_trace_pertraj": 7})
@@ -1113,6 +1122,353 @@ def ensemble_paths(problem, cp, s_ens):
     return counts, counts_k
 
 
+# ---- the Chebyshev path (dim 1024) ----------------------------------------
+
+# the reference's dim1024_cz_cheby_taylor row: the CZ register at d = 32
+CHEBY_D, CHEBY_STEPS, CHEBY_T = 32, 100, 1.0
+# the dim-256 row (d = 16), for the gradgen pass and a third kernel shape
+CHEBY256_D, CHEBY256_STEPS, CHEBY256_T = 16, 200, 5.0
+SUBSPACE_BASIS = 64
+
+
+def cheby_flops_bytes(d, K, T, N_T, n_cheby):
+    """Float32 operations and bytes of one direction of the Chebyshev scan:
+    per step the generator's rows (T real-by-complex axpys and the
+    normalisation), per term a complex (d, d) by (d, K) product, the
+    recursion's 2 x - y and the weighted sum; each input read once (the
+    T + 1 operators, the coefficient, Chebyshev and phase tables, the
+    initial states), the (N_T, K, d) output written once."""
+    per_term = 8.0 * K * d * d + 12.0 * K * d
+    flops = N_T * ((n_cheby - 1) * per_term + (4.0 * T + 4.0) * d * d)
+    byts = (8.0 * (T + 1) * d * d + 4.0 * N_T * T + 8.0 * N_T * n_cheby
+            + 8.0 * N_T + 8.0 * K * d + 8.0 * N_T * K * d)
+    return flops, byts
+
+
+def cheby_inputs(cp, rng, dev, noise=0.02):
+    """The scan's inputs for a compiled shared-generator problem: its
+    operators, the coefficient table of the guess plus seeded noise, and the
+    tables of ``_cheby_data`` at the default envelope."""
+    from grape_tpu_torch.fg import _prop_data, _prop_data_on
+
+    L, N_T = cp.n_controls, cp.n_timesteps
+    eps = cp.guess_pulsevals + noise * rng.normal(size=(L, N_T))
+    c64 = lambda x: torch.tensor(np.ascontiguousarray(x),
+                                 dtype=torch.complex64, device=dev)
+    coeffs = torch.tensor(np.einsum("ntl,ln->nt", cp.M, eps) + cp.Mfix,
+                          dtype=torch.float32, device=dev)
+    pd = _prop_data_on(_prop_data(cp), dev)["fw"]
+    return (c64(cp.H0[0]), c64(cp.ops[0]), coeffs, pd), c64(cp.psi0)
+
+
+def cheby_kernel_phase(cp_cz, cp_sub, cp_256, rng, dev):
+    """Phase ``kernel_check_cheby``: ``cheby_scan`` against its plain version
+    on the card, forward and adjoint, at the three shapes of the Chebyshev
+    paths and at ragged ones, then its times at the main path's shape.
+    Returns its entry for the kernels line (without the launch count)."""
+    from grape_tpu_torch.ops import hopper_cheby as hc
+    from grape_tpu_torch.ops import plain_versions
+
+    def both(args, psi0, chi0):
+        H0, ops, coeffs, pd = args
+        fw = hc.cheby_scan(H0, ops, coeffs, pd["tab_fw_t"], pd["ph_fw_t"],
+                           pd["shift"], pd["dE"], psi0)
+        bw = hc.cheby_scan(H0, ops, coeffs, pd["tab_bw_t"], pd["ph_bw_t"],
+                           pd["shift"], pd["dE"], chi0, adjoint=True)
+        return fw, bw
+
+    checks = []
+    err = 0.0
+    main = {}
+    for name, cp in (("cz_dim1024", cp_cz), ("subspace_dim1024", cp_sub),
+                     ("cz_dim256", cp_256)):
+        args, psi0 = cheby_inputs(cp, rng, dev)
+        K, d = psi0.shape
+        chi0 = rng.normal(size=(K, d)) + 1j * rng.normal(size=(K, d))
+        chi0 = torch.tensor(chi0 / np.linalg.norm(chi0, axis=1,
+                                                  keepdims=True),
+                            dtype=torch.complex64, device=dev)
+        got = both(args, psi0, chi0)
+        torch.cuda.synchronize()
+        with plain_versions():
+            want = both(args, psi0, chi0)
+        torch.cuda.synchronize()
+        require(finite(*got), f"cheby_scan output not finite at {name}")
+        require(all(g.shape == (cp.n_timesteps, K, d) for g in got),
+                f"cheby_scan output has the wrong shape at {name}")
+        e = {"forward": max_abs(got[0], want[0]),
+             "adjoint": max_abs(got[1], want[1])}
+        n_cheby = int(args[3]["tab_fw_t"].shape[1])
+        checks.append({"shape": name, "d": d, "K": K,
+                       "N_T": cp.n_timesteps, "n_cheby": n_cheby,
+                       "layout": hc.cheby_scan_layout(d, K), **e})
+        require(max(e.values()) < TOL_STATE, f"cheby_scan disagrees with "
+                f"its plain version at {name}: {e}")
+        err = max(err, *e.values())
+        if name == "cz_dim1024":
+            main = {"args": args, "psi0": psi0, "chi0": chi0,
+                    "n_cheby": n_cheby}
+    # ragged shapes: d not a multiple of the rows per block, K below and
+    # above one shared tile, one step, two or three terms with the last
+    # column of the table a zero pad
+    shape_checks = []
+    for (d_, K_, nc_) in [(257, 3, 2), (300, 1, 3), (1000, 5, 3),
+                          (300, 3, 2), (257, 5, 3), (1000, 1, 2)]:
+        A = rng.normal(size=(d_, d_)) + 1j * rng.normal(size=(d_, d_))
+        B = rng.normal(size=(2, d_, d_)) + 1j * rng.normal(size=(2, d_, d_))
+        c64 = lambda x: torch.tensor(np.ascontiguousarray(x),
+                                     dtype=torch.complex64, device=dev)
+        H0_ = c64((A + A.conj().T) / np.sqrt(d_))
+        ops_ = c64(0.3 * (B + B.conj().transpose(0, 2, 1)) / np.sqrt(d_))
+        co_ = torch.tensor(0.3 * rng.normal(size=(1, 2)),
+                           dtype=torch.float32, device=dev)
+        tab_ = np.zeros((1, nc_), dtype=complex)
+        tab_[0, :nc_ - 1] = rng.normal(size=nc_ - 1) \
+            + 1j * rng.normal(size=nc_ - 1)
+        p0 = rng.normal(size=(K_, d_)) + 1j * rng.normal(size=(K_, d_))
+        p0 = c64(p0 / np.linalg.norm(p0, axis=1, keepdims=True))
+        ph_ = c64([np.exp(0.3j)])
+        worst = 0.0
+        for adj in (False, True):
+            call = lambda: hc.cheby_scan(H0_, ops_, co_, c64(tab_), ph_, 0.2,
+                                         5.0, p0, adjoint=adj)
+            g = call()
+            torch.cuda.synchronize()
+            with plain_versions():
+                w = call()
+            worst = max(worst, max_abs(g, w))
+        shape_checks.append({"d": d_, "K": K_, "N_T": 1, "n_cheby": nc_,
+                             "padded": True, "max_abs_err": worst})
+        require(worst < TOL_TRJ, "cheby_scan disagrees with its plain "
+                f"version at {shape_checks[-1]}")
+    emit({"phase": "kernel_check_cheby", "tol": TOL_STATE,
+          "tol_ragged": TOL_TRJ, "checks": checks,
+          "ragged_checks": shape_checks})
+
+    # ---- times at the main path's shape, each direction apart -------------
+    H0, ops, coeffs, pd = main["args"]
+    psi0, chi0 = main["psi0"], main["chi0"]
+    fw = lambda: hc.cheby_scan(H0, ops, coeffs, pd["tab_fw_t"],
+                               pd["ph_fw_t"], pd["shift"], pd["dE"], psi0)
+    bw = lambda: hc.cheby_scan(H0, ops, coeffs, pd["tab_bw_t"],
+                               pd["ph_bw_t"], pd["shift"], pd["dE"], chi0,
+                               adjoint=True)
+    out = {"err": err, "ms_runs": [], "ms_adjoint_runs": []}
+    out["ms"] = median_ms(fw, runs=out["ms_runs"])
+    out["ms_adjoint"] = median_ms(bw, runs=out["ms_adjoint_runs"])
+    with plain_versions():
+        out["plain_ms"] = median_ms(fw, reps=3)
+        out["plain_ms_adjoint"] = median_ms(bw, reps=3)
+    # the other two shapes: one timed run each way
+    for name, cp in (("subspace_dim1024", cp_sub), ("cz_dim256", cp_256)):
+        args_, p0 = cheby_inputs(cp, rng, dev)
+        H0_, ops_, co_, pd_ = args_
+        out[f"ms_{name}"] = median_ms(
+            lambda: hc.cheby_scan(H0_, ops_, co_, pd_["tab_fw_t"],
+                                  pd_["ph_fw_t"], pd_["shift"], pd_["dE"],
+                                  p0), reps=3)
+        out[f"bound_ms_{name}"] = bound(*cheby_flops_bytes(
+            cp.dim, p0.shape[0], cp.ops.shape[1], cp.n_timesteps,
+            int(pd_["tab_fw_t"].shape[1])))[0]
+    out["flops"], out["bytes"] = cheby_flops_bytes(
+        cp_cz.dim, psi0.shape[0], ops.shape[0], coeffs.shape[0],
+        main["n_cheby"])
+    out["per"] = "direction (ms forward; ms_adjoint the co-state chain)"
+    out["library_ms"] = None
+    out["library_call"] = "none: no single PyTorch call computes the scan"
+    return out
+
+
+def cheby_paths(rng, dev):
+    """The fourth path: phases ``kernel_check_cheby``, ``fg_cheby``,
+    ``optimize_cheby`` (the CZ at dim 1024 under Chebyshev propagation, the
+    taylor gradient), ``fg_cheby_subspace`` (K = 64) and
+    ``fg_cheby_gradgen`` (dim 256, the per-step extended-state pass); the
+    main run with the counts set to 0 just before and read just after.
+    Returns ``(the kernel's entry for the kernels line, the counts)``."""
+    import grape_tpu_torch as gt
+    import grape_tpu_torch.fg as F
+    from grape_tpu_torch.models import (
+        two_transmon_cz_problem, two_transmon_subspace_gate_problem,
+    )
+    from grape_tpu_torch.ops import hopper_cheby, hopper_frechet, hopper_prop
+
+    modules = (hopper_prop, hopper_frechet, hopper_cheby)
+
+    def compiled(problem, dtype=np.complex64, **kw):
+        kwargs = dict(problem.kwargs, prop_method="cheby")
+        kwargs.update(kw)
+        return gt.compile_problem(problem.trajectories, problem.tlist,
+                                  dtype=dtype, **kwargs)
+
+    # the reference's row names the taylor gradient; "auto" resolves to it
+    # under Chebyshev propagation (the default of compile_problem is
+    # gradgen)
+    problem = two_transmon_cz_problem(d=CHEBY_D, n_steps=CHEBY_STEPS,
+                                      T=CHEBY_T, prop_method="cheby",
+                                      gradient_method="auto")
+    cp = compiled(problem)
+    sub = two_transmon_subspace_gate_problem(
+        d=CHEBY_D, n_basis=SUBSPACE_BASIS, n_steps=CHEBY_STEPS, T=CHEBY_T,
+        gradient_method="auto")
+    cp_sub = compiled(sub)
+    p256 = two_transmon_cz_problem(d=CHEBY256_D, n_steps=CHEBY256_STEPS,
+                                   T=CHEBY256_T)
+    cp_256 = compiled(p256, gradient_method="taylor")
+    d, K, N_T, L = cp.dim, cp.n_traj, cp.n_timesteps, cp.n_controls
+    pds = F._prop_data(cp)
+    n_orders = F._vectorized_taylor_orders(cp)
+    require((d, K, cp.ops.shape[1], L, N_T) == (1024, 4, 4, 4, 100)
+            and cp.shared_generator and cp.gradient_method == "taylor"
+            and F._cheby_kernel_enabled(cp, pds["fw"])
+            and F._cheby_kernel_enabled(cp, pds["bw"])
+            and not F._reuse_U_enabled(cp),
+            "the dim-1024 CZ must take the Chebyshev-scan kernel both ways "
+            "with the taylor gradient")
+    require(pds["fw"]["tab_fw"].shape[1] == 27 and n_orders == 44,
+            f"n_cheby {pds['fw']['tab_fw'].shape[1]}, Taylor orders "
+            f"{n_orders}: expected 27 and 44")
+    k8 = cheby_kernel_phase(cp, cp_sub, cp_256, rng, dev)
+    x0 = cp.guess_pulsevals.reshape(-1)
+
+    # ---- side check before the counted run: complex64 against complex128
+    # (the plain series: complex128 takes no kernel), both on the card
+    cp128 = compiled(problem, dtype=np.complex128)
+    J128, g128, aux128 = gt.build_fg(cp128)(x0)
+    torch.cuda.synchronize()
+
+    # ---- the counted run: fg, then five iterations ------------------------
+    zero_counts(*modules)
+    for key in hopper_cheby.launches_by_direction:
+        hopper_cheby.launches_by_direction[key] = 0
+    fg = gt.build_fg(cp)
+    J, g, aux, dJ, dg = fg_against_plain(fg, x0, "fg_cheby")
+    n_fg = 1
+    require(abs(float(J) - 0.749439) < 1e-5,
+            f"fg_cheby: J = {float(J)} at the guess, expected 0.749439")
+    require(g.shape == (L * N_T,) and g.device.type == "cuda"
+            and aux["psi_T"].shape == (K, d) and bool(aux["taylor_ok"]),
+            "fg_cheby output has the wrong shape or device, or the Taylor "
+            "series did not converge")
+    dJ128 = abs(float(J) - float(J128))
+    dg128 = float((g.double() - g128).abs().max() / g128.abs().max())
+    require(dJ128 < 1e-5 and dg128 < 1e-3 and bool(aux128["taylor_ok"]),
+            f"fg_cheby complex64 vs complex128: dJ {dJ128}, dgrad {dg128}")
+    by_dir = dict(hopper_cheby.launches_by_direction)
+    require(by_dir == {"forward": 1, "adjoint": 1},
+            f"one fg_cheby evaluation launched {by_dir}")
+    reps = 3
+    fg_ms = timed_ms(lambda: fg(x0), reps)
+    n_fg += reps
+    parts = fg_breakdown(fg, x0)
+    n_fg += 4
+    Jf, _ = gt.build_f(cp)(x0)
+    n_f = 1
+    require(abs(float(Jf) - float(J)) < 1e-6,
+            "build_f disagrees with build_fg on the dim-1024 CZ")
+    emit({"phase": "fg_cheby", "J": float(J), "grad_norm": float(g.norm()),
+          "ms_per_eval": fg_ms, "device_ms_by_part": parts,
+          "J_abs_diff_vs_plain": dJ, "grad_diff_of_max_vs_plain": dg,
+          "n_cheby": int(pds["fw"]["tab_fw"].shape[1]),
+          "dE": pds["fw"]["dE"], "shift": pds["fw"]["shift"],
+          "taylor_orders": n_orders, "taylor_ok": bool(aux["taylor_ok"]),
+          "dtype": "complex64",
+          "vs_complex128": {"J_complex128": float(J128), "J_abs_diff": dJ128,
+                            "grad_diff_of_max": dg128},
+          "launches_one_eval": by_dir})
+
+    series, iter_secs, iter_fg, wrks = [], [], [], []
+
+    def record(wrk, iteration):
+        series.append(float(wrk.result.J_T))
+        iter_secs.append(float(wrk.result.secs))
+        iter_fg.append(int(wrk.fg_count[0]))
+        wrks[:] = [wrk]
+
+    t0 = time.perf_counter()
+    res = gt.optimize_problem(problem, iter_stop=ITER_STOP, print_iters=False,
+                              rethrow_exceptions=True, callback=record)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    counts = read_counts(*modules)
+    by_dir = dict(hopper_cheby.launches_by_direction)
+    n_fg += res.fg_calls
+    n_f += res.f_calls
+    # T = 1 is far too short for a CZ at a coupling of 0.05: J_T moves by
+    # about 1e-7 per iteration, at the resolution of a float32 J, and
+    # L-BFGS-B may stop early by its relative-reduction test
+    require(res.iter >= 1 and len(series) == res.iter + 1
+            and (res.iter == ITER_STOP
+                 or res.message.startswith("CONVERGENCE")),
+            f"optimize_cheby: {res.message}, series {series}")
+    require(all(math.isfinite(v) for v in series)
+            and all(b <= a for a, b in zip(series, series[1:]))
+            and series[-1] < series[0],
+            f"dim-1024 J_T does not fall monotonically: {series}")
+    expect = dict.fromkeys(counts, 0)
+    expect["cheby_scan"] = 2 * n_fg + n_f
+    require(counts == expect and by_dir == {"forward": n_fg + n_f,
+                                            "adjoint": n_fg},
+            f"dim-1024 launch counts {counts} {by_dir} do not match the "
+            f"evaluations: {n_fg} fg, {n_f} f")
+    steady_s = sum(iter_secs[1:])
+    emit({"phase": "optimize_cheby", "J_T_series": series,
+          "iterations": res.iter, "seconds": opt_s,
+          "iters_per_second": res.iter / opt_s,
+          "iteration_seconds": iter_secs, "iteration_fg_calls": iter_fg,
+          "steady_ms_per_fg": steady_s / max(sum(iter_fg[1:]), 1) * 1e3,
+          "steady_iters_per_second": (res.iter / steady_s if steady_s
+                                      else None),
+          "fg_calls": res.fg_calls, "f_calls": res.f_calls,
+          "J_T_fall": series[0] - series[-1],
+          "envelope_bucket_growths": len(wrks[0]._program_cache) - 1,
+          "envelope_bucket": [float(a) for a in wrks[0]._amp_bucket],
+          "message": res.message, "launches": counts,
+          "launches_by_direction": by_dir})
+
+    # ---- K = 64 basis states under the same generator ---------------------
+    x_sub = cp_sub.guess_pulsevals.reshape(-1)
+    fg_sub = gt.build_fg(cp_sub)
+    J_s, g_s, aux_s, dJ_s, dg_s = fg_against_plain(fg_sub, x_sub,
+                                                   "fg_cheby_subspace")
+    require(abs(float(J_s) - 0.999756) < 1e-5 and bool(aux_s["taylor_ok"])
+            and cp_sub.gradient_method == "taylor",
+            f"fg_cheby_subspace: J = {float(J_s)}, expected 0.999756")
+    sub_ms = timed_ms(lambda: fg_sub(x_sub), 2)
+    parts_sub = fg_breakdown(fg_sub, x_sub, reps=2)
+    emit({"phase": "fg_cheby_subspace", "K": cp_sub.n_traj, "J": float(J_s),
+          "taylor_orders": F._vectorized_taylor_orders(cp_sub),
+          "ms_per_eval": sub_ms, "device_ms_by_part": parts_sub,
+          "J_abs_diff_vs_plain": dJ_s, "grad_diff_of_max_vs_plain": dg_s,
+          "taylor_ok": bool(aux_s["taylor_ok"])})
+
+    # ---- dim 256: the per-step extended-state gradgen pass ----------------
+    cp_gg = compiled(p256, gradient_method="gradgen")
+    require(cp_gg.gradient_method == "gradgen"
+            and F._cheby_kernel_enabled(cp_gg, F._prop_data(cp_gg)["fw"])
+            and not F._vec_gradgen_enabled(cp_gg),
+            "the dim-256 gradgen problem must take the forward kernel and "
+            "the per-step extended-state pass")
+    x256 = cp_gg.guess_pulsevals.reshape(-1)
+    fg_gg, fg_tl = gt.build_fg(cp_gg), gt.build_fg(cp_256)
+    J_gg, g_gg, aux_gg, dJ_gg, dg_gg = fg_against_plain(fg_gg, x256,
+                                                        "fg_cheby_gradgen")
+    J_tl, g_tl, _ = fg_tl(x256)
+    d_gt = max_abs(g_gg, g_tl) / float(g_tl.abs().max())
+    require(abs(float(J_gg) - float(J_tl)) < 1e-5 and d_gt < 1e-3,
+            f"dim 256: gradgen and taylor gradients differ by {d_gt} of the "
+            "max")
+    emit({"phase": "fg_cheby_gradgen", "dim": cp_gg.dim,
+          "N_T": cp_gg.n_timesteps,
+          "n_cheby": int(F._prop_data(cp_gg)["fw"]["tab_fw"].shape[1]),
+          "J": float(J_gg), "gradgen_ms_per_eval": timed_ms(
+              lambda: fg_gg(x256), 2),
+          "taylor_ms_per_eval": timed_ms(lambda: fg_tl(x256), 3),
+          "grad_diff_of_max_vs_taylor": d_gt,
+          "J_abs_diff_vs_plain": dJ_gg, "grad_diff_of_max_vs_plain": dg_gg})
+    return k8, counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: "
@@ -1126,7 +1482,9 @@ def main():
     from grape_tpu_torch.models import (
         two_transmon_cz_ensemble_problem, two_transmon_cz_problem,
     )
-    from grape_tpu_torch.ops import _build, hopper_frechet, hopper_prop
+    from grape_tpu_torch.ops import (
+        _build, hopper_cheby, hopper_frechet, hopper_prop,
+    )
     from grape_tpu_torch.ops import plain_versions
     from grape_tpu_torch.optimizers import lbfgsb
 
@@ -1385,7 +1743,7 @@ def main():
           "grad_diff_of_max": dgs})
 
     # ---- the main path: every count set to 0 just before -----------------
-    zero_counts(hopper_prop, hopper_frechet)
+    zero_counts(hopper_prop, hopper_frechet, hopper_cheby)
 
     # ---- phase 4: one fg evaluation through compile_problem / build_fg ----
     fg = gt.build_fg(cp)
@@ -1457,7 +1815,7 @@ def main():
             f"J_T does not fall monotonically: {series}")
 
     # ---- the counts, read just after the main path ------------------------
-    counts = read_counts(hopper_prop, hopper_frechet)
+    counts = read_counts(hopper_prop, hopper_frechet, hopper_cheby)
     n_fg += res.fg_calls
     n_f = res.f_calls
     expect = dict.fromkeys(counts, 0)
@@ -1482,6 +1840,9 @@ def main():
     # ---- the qutrit ensemble, the taylor gradient, the per-step pass ------
     k7, counts_smalld, counts_cz_taylor = smalld_and_taylor_paths(
         problem, fg_ms, g, rng, dev)
+
+    # ---- the Chebyshev path at dim 1024 -----------------------------------
+    k8, counts_cheby = cheby_paths(rng, dev)
 
     prop_cu = "grape_tpu_torch/csrc/prop_scan.cu"
     frechet_cu = "grape_tpu_torch/csrc/frechet_trace.cu"
@@ -1508,6 +1869,10 @@ def main():
         "forward_scan_smalld": (
             "grape_tpu_torch/csrc/smalld_scan.cu",
             "grape_tpu/ops/pallas_prop.py:766", counts_smalld),
+        # one kernel for both TPU kernels of the Chebyshev regime
+        "cheby_scan": (
+            "grape_tpu_torch/csrc/cheby_scan.cu",
+            "grape_tpu/ops/pallas_prop.py:956 and :1183", counts_cheby),
     }
     cz = {
         name: {"err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
@@ -1523,7 +1888,7 @@ def main():
     cz["frechet_trace_shared"].update(
         algorithm_flops=frechet_algorithm_flops,
         under_load=frechet_under_load, ms_by_steps=frechet_ms_by_steps)
-    measured = {**cz, **ens, "forward_scan_smalld": k7}
+    measured = {**cz, **ens, "forward_scan_smalld": k7, "cheby_scan": k8}
     # launches on the taylor paths, beside the counted run of each kernel
     cz["forward_scan_shared"]["launches_cz_taylor"] = (
         counts_cz_taylor["forward_scan_shared"])

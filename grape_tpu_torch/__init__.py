@@ -4,13 +4,16 @@ A GRAPE quantum-optimal-control engine: piecewise-constant pulse
 optimization over Schrödinger dynamics for final-time functionals plus a
 pulse running cost, exact per-time-step gradients (rank-1 Fréchet traces),
 semi-automatic differentiation of functionals via ``torch.autograd``, and a
-host-side C++ L-BFGS-B optimizer with box constraints.  The heavy phases of
-the gate-optimization and the robust-ensemble paths (one generator shared
-by all trajectories, per group of them, or per trajectory) run in
-hand-written CUDA kernels for Hopper (``ops.hopper_prop``,
-``ops.hopper_frechet``).
+host-side C++ L-BFGS-B optimizer with box constraints.  Propagation is
+ExpProp, the Chebyshev series or the Krylov (Newton) series, chosen per
+direction.  The heavy phases of the gate-optimization and the
+robust-ensemble paths (one generator shared by all trajectories, per group
+of them, or per trajectory) and the Chebyshev scans at large dimension run
+in hand-written CUDA kernels for Hopper (``ops.hopper_prop``,
+``ops.hopper_frechet``, ``ops.hopper_cheby``).
 
-This package imports ``torch`` and ``numpy`` only — nothing of JAX and
+This package imports ``torch``, ``numpy`` and ``scipy`` (the Bessel
+functions of the Chebyshev tables) only — nothing of JAX and
 nothing of ``grape_tpu``, which stays in the repository as the reference.
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.

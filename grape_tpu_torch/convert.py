@@ -11,7 +11,7 @@ import numpy as np
 
 from . import functionals
 from .config import complex_dtype, numpy_dtype, real_dtype, resolve_device
-from .fg import CompiledProblem, _make_norm_cache
+from .fg import CompiledProblem, _make_norm_cache, _prop_methods
 from .functionals import accepts_tau, make_chi, make_grad_J_a
 from .trajectory import Trajectory
 
@@ -38,7 +38,11 @@ def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
                                 reuse_propagators="auto",
                                 taylor_grad_max_order=100,
                                 taylor_grad_tolerance=1e-16,
-                                taylor_grad_check_convergence=True):
+                                taylor_grad_check_convergence=True,
+                                prop_method=None, fw_prop_method=None,
+                                bw_prop_method=None, grad_prop_method=None,
+                                cheby_tol=1e-14, newton_m=30,
+                                newton_substeps=1):
     """The port's ``CompiledProblem`` from the reference's arrays.
 
     ``arrays`` holds ``psi0 (K, d)``, ``H0 (1 | G | K, d, d)``,
@@ -49,13 +53,17 @@ def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
     ``ctl_idx`` (one entry per term, ``None`` for a locked term),
     ``shared_generator``, and optionally ``per_traj_coeffs``,
     ``gen_group_size``, ``ops_grouped``, ``norm_cache``
-    (``{"h0", "ops"}``), ``target_states (K, d)`` and ``weights (K,)``.
+    (``{"h0", "ops"}`` and, where a direction is Chebyshev, ``"spec"``),
+    ``target_states (K, d)`` and ``weights (K,)``.
     ``J_T`` / ``chi`` / ``J_a`` are callables of this package or their
     names (``"J_T_sm"``).  ``dtype=None`` keeps the dtype of ``psi0``.
     ``gradient_method`` (``"gradgen"`` or ``"taylor"``, as the reference's
     ``CompiledProblem`` holds it after resolving ``"auto"``),
-    ``vectorize_backward``, ``reuse_propagators`` and the ``taylor_grad_*``
-    settings are carried over as given.
+    ``vectorize_backward``, ``reuse_propagators``, the ``taylor_grad_*``
+    settings, the propagators (``prop_method`` and the per-direction
+    ``fw_/bw_/grad_prop_method`` with the reference's override chain),
+    ``cheby_tol`` and ``newton_m`` / ``newton_substeps`` are carried over as
+    given.
     """
     if gradient_method not in ("gradgen", "taylor"):
         raise ValueError(
@@ -126,14 +134,23 @@ def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
     if J_a is not None and grad_J_a is None:
         grad_J_a = make_grad_J_a(J_a, tlist)
 
+    methods = _prop_methods(prop_method, fw_prop_method, bw_prop_method,
+                            grad_prop_method)
     norm_cache = arrays.get("norm_cache")
     if norm_cache is None:
-        norm_cache = _make_norm_cache(H0, ops)
+        norm_cache = _make_norm_cache(H0, ops,
+                                      with_spectral="cheby" in methods)
     else:
+        spec = norm_cache.get("spec")
         norm_cache = {
             "h0": float(norm_cache["h0"]),
             "ops": np.asarray(norm_cache["ops"], dtype=np.float64),
         }
+        if spec is not None:
+            norm_cache["spec"] = {
+                key: np.asarray(spec[key], dtype=np.float64)
+                for key in ("eig_lo", "eig_hi", "op2")
+            }
     return CompiledProblem(
         psi0=psi0, H0=H0, ops=ops, M=M, Mfix=Mfix, tlist=tlist,
         trajectories=trajectories,
@@ -152,6 +169,10 @@ def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
         J_T_takes_tau=accepts_tau(J_T) and has_targets,
         chi_takes_tau=accepts_tau(chi) and has_targets,
         has_targets=has_targets,
+        prop_method=methods[0], fw_prop_method=methods[1],
+        bw_prop_method=methods[2], grad_prop_method=methods[3],
+        cheby_tol=float(cheby_tol), newton_m=int(newton_m),
+        newton_substeps=int(newton_substeps),
         ctl_idx=tuple(arrays.get("ctl_idx", ())),
         shared_generator=shared,
         per_traj_coeffs=per_traj_coeffs,

@@ -42,10 +42,22 @@ complex128 they run in plain PyTorch with Padé-13 and
 precision.  Everything else (coefficient tables, ``J_T``, χ(T), the
 contraction with ``dM``, the Taylor recursion) is plain PyTorch in both.
 
+Propagation in each direction (``fw_prop_method``, ``bw_prop_method``,
+``grad_prop_method``, each defaulting to ``prop_method``) is ExpProp (the
+above), the Chebyshev series (``"cheby"``, ``ops.cheby``) or the Krylov
+series (``"newton"``, ``ops.newton``).  Where forward or backward
+propagation is not ExpProp no propagator is stored: the co-state chain runs
+the adjoint series step by step, and ``gradient_method="gradgen"`` takes the
+per-step pass with the series of the extended state ``(χ'_1..χ'_L, χ)``
+under the gradient generator.  For a shared generator in complex64 at
+``256 ≤ dim ≤ CHEBY_MAX_DIM`` the Chebyshev forward scan and co-state chain
+run in the hand-written kernel of ``ops.hopper_cheby``; every other
+Chebyshev or Krylov step is plain PyTorch, as in the reference.
+
 Not ported yet, and raising ``NotImplementedError`` when asked for:
-``prop_method="cheby"|"newton"``, ``storage_mode="recompute"``, state
-running costs ``g_b``/``xi``, ``CustomAmplitude``, ``mesh=`` sharding and
-the forward-propagation observables callback.
+``storage_mode="recompute"``, state running costs ``g_b``/``xi``,
+``CustomAmplitude``, per-trajectory propagator settings, ``mesh=``
+sharding and the forward-propagation observables callback.
 """
 
 from dataclasses import dataclass, field
@@ -60,8 +72,10 @@ from .config import (
 from .controls import discretize_on_midpoints, get_controls
 from .functionals import accepts_tau, make_chi, make_grad_J_a, taus
 from .generators import align_generators
+from .ops.cheby import cheby_apply, cheby_coeffs, spectral_envelope
 from .ops.expm import _THETA13_F64, _THETA_TAYLOR_F32, expm
 from .ops.frechet import expm_frechet, gradgen_step, taylor_grad_step
+from .ops.hopper_cheby import CHEBY_MAX_DIM, cheby_scan
 from .ops.hopper_frechet import frechet_trace_pertraj, frechet_trace_shared
 from .ops.hopper_prop import (
     SMALLD_MAX_DIM, _chi_window_plain, chi_scan_grouped,
@@ -69,6 +83,7 @@ from .ops.hopper_prop import (
     forward_scan_grouped, forward_scan_pertraj, forward_scan_shared,
     forward_scan_smalld, taylor_order_for_bound,
 )
+from .ops.newton import arnoldi_expmv
 
 __all__ = [
     "CompiledProblem", "compile_problem", "build_fg", "build_f",
@@ -82,6 +97,10 @@ _STATIC_H_MIN_DIM = 128
 
 # the small-dimension forward kernel: trajectories from which it is taken
 _SMALLD_MIN_TRAJ = 128
+
+# the Chebyshev-scan kernel: dimension from which it is taken (the
+# reference's gate, a TPU threshold kept so that both packages route alike)
+_CHEBY_MIN_DIM = 256
 
 # up to this dimension the vectorized Taylor pass forms its (d, d)·(d,)
 # products as a broadcast multiply and a sum over d: a batched matrix
@@ -127,7 +146,15 @@ class CompiledProblem:
     J_T_takes_tau: bool = False
     chi_takes_tau: bool = False
     has_targets: bool = False
+    # propagator per direction, normalized: "expprop", "cheby" or "newton"
+    # (fw_/bw_/grad_prop_method default to prop_method)
     prop_method: str = "expprop"
+    fw_prop_method: str = "expprop"
+    bw_prop_method: str = "expprop"
+    grad_prop_method: str = "expprop"
+    cheby_tol: float = 1e-14
+    newton_m: int = 30
+    newton_substeps: int = 1
     storage_mode: str = "full"
     # keep the forward propagators for the co-state chain of the taylor
     # pass: "auto" (while the stream fits 4 GiB), True or False
@@ -151,7 +178,9 @@ class CompiledProblem:
     # group (K/gen_group_size entries) instead of one per trajectory
     ops_grouped: bool = False
     # host-side operator norms cached at compile time:
-    # {"h0": ||H0||_1, "ops": (T,) per-term ||Op_j||_1}
+    # {"h0": ||H0||_1, "ops": (T,) per-term ||Op_j||_1} and, where a
+    # direction is Chebyshev, "spec": {"eig_lo", "eig_hi" (per entry),
+    # "op2" (per entry and term, 2-norms)}
     norm_cache: Any = None
     # memo for the host-side coefficient envelope (keyed by amp_max)
     env_cache: Any = field(default_factory=dict)
@@ -167,10 +196,7 @@ class CompiledProblem:
 _UNPORTED_DEFAULTS = {
     "g_b": None,
     "xi": None,
-    "cheby_tol": 1e-14,
     "storage_segments": None,
-    "newton_m": 30,
-    "newton_substeps": 1,
     "fw_prop_callback": None,
     "fw_prop_observables": None,
     "mesh": None,
@@ -191,7 +217,17 @@ def _normalize_prop_method(prop_method):
     raise ValueError(f"Unknown prop_method: {prop_method!r}")
 
 
-def _check_ported(gradient_method, storage_mode, prop_methods, options):
+def _prop_methods(prop_method, fw_prop_method, bw_prop_method,
+                  grad_prop_method):
+    """The normalized ``(prop, fw, bw, grad)`` methods: each direction's
+    own setting, else ``prop_method`` (the reference's override chain)."""
+    return tuple(
+        _normalize_prop_method(prop_method if m is None else m)
+        for m in (None, fw_prop_method, bw_prop_method, grad_prop_method)
+    )
+
+
+def _check_ported(gradient_method, storage_mode, options):
     """Raise ``NotImplementedError`` naming the first unported option."""
     if gradient_method not in ("gradgen", "taylor", "auto"):
         raise ValueError(
@@ -203,12 +239,6 @@ def _check_ported(gradient_method, storage_mode, prop_methods, options):
             f"storage_mode={storage_mode!r} is not ported to "
             "grape_tpu_torch yet (only 'full')"
         )
-    for key, val in prop_methods.items():
-        if _normalize_prop_method(val) != "expprop":
-            raise NotImplementedError(
-                f"{key}={val!r} is not ported to grape_tpu_torch yet "
-                "(only ExpProp)"
-            )
     for key, val in options.items():
         if key not in _UNPORTED_DEFAULTS:
             raise TypeError(
@@ -241,6 +271,9 @@ def compile_problem(
     fw_prop_method=None,
     bw_prop_method=None,
     grad_prop_method=None,
+    cheby_tol=1e-14,
+    newton_m=30,
+    newton_substeps=1,
     storage_mode="full",
     reuse_propagators="auto",
     vectorize_backward=True,
@@ -257,19 +290,19 @@ def compile_problem(
     ``device=None`` means the CUDA device (and raises without one);
     ``dtype=None`` means complex64 there and complex128 on the CPU.
     ``gradient_method="auto"`` resolves as in the reference: gradgen
-    wherever its time-vectorized pass serves (``dim ≤ 128`` and a feasible
-    co-state chain), else taylor.  A keyword for a feature that is not
-    ported yet raises ``NotImplementedError``; an unknown keyword raises
-    ``TypeError``.
+    wherever its time-vectorized pass serves (ExpProp in every direction,
+    ``dim ≤ 128`` and a feasible co-state chain), else taylor.  The
+    propagator of each direction is ``fw_prop_method`` / ``bw_prop_method``
+    / ``grad_prop_method`` where given, else ``prop_method`` (``None``:
+    ExpProp); ``cheby_tol`` truncates the Chebyshev series, ``newton_m`` and
+    ``newton_substeps`` size the Krylov one.  A keyword for a feature that
+    is not ported yet raises ``NotImplementedError``; an unknown keyword
+    raises ``TypeError``.
     """
     device = resolve_device(device)
-    _check_ported(
-        gradient_method, storage_mode,
-        {"prop_method": prop_method, "fw_prop_method": fw_prop_method,
-         "bw_prop_method": bw_prop_method,
-         "grad_prop_method": grad_prop_method},
-        options,
-    )
+    _check_ported(gradient_method, storage_mode, options)
+    methods = _prop_methods(prop_method, fw_prop_method, bw_prop_method,
+                            grad_prop_method)
     trajectories = list(trajectories)
     tlist = np.asarray(tlist, dtype=np.float64)
     N_T = len(tlist) - 1
@@ -398,6 +431,13 @@ def compile_problem(
         J_T_takes_tau=accepts_tau(J_T) and has_targets,
         chi_takes_tau=accepts_tau(chi) and has_targets,
         has_targets=has_targets,
+        prop_method=methods[0],
+        fw_prop_method=methods[1],
+        bw_prop_method=methods[2],
+        grad_prop_method=methods[3],
+        cheby_tol=float(cheby_tol),
+        newton_m=int(newton_m),
+        newton_substeps=int(newton_substeps),
         storage_mode=storage_mode,
         reuse_propagators=reuse_propagators,
         vectorize_backward=bool(vectorize_backward),
@@ -412,7 +452,8 @@ def compile_problem(
             )
         ),
         ops_grouped=ops_grouped,
-        norm_cache=_make_norm_cache(H0, ops),
+        norm_cache=_make_norm_cache(H0, ops,
+                                    with_spectral="cheby" in methods),
         device=device,
     )
     if gradient_method == "auto":
@@ -424,7 +465,8 @@ def _resolve_auto_gradient_method(cp):
     """``gradient_method="auto"`` (the reference's rule, kept whatever this
     card's own timings say so that both packages route a problem alike):
     gradgen wherever the time-vectorized rank-1 Fréchet pass serves
-    (ExpProp, full storage, ``dim ≤ 128``, a feasible co-state chain), else
+    (ExpProp in every direction, full storage, ``dim ≤ 128``, a feasible
+    co-state chain), else taylor: a Chebyshev or Krylov direction means
     taylor.  ``cp.gradient_method`` holds ``"gradgen"`` on entry."""
     if cp.dim > 128 or not _vec_gradgen_enabled(cp):
         cp.gradient_method = "taylor"
@@ -483,10 +525,13 @@ def _slots_aligned(generators, controls):
     return True
 
 
-def _make_norm_cache(H0, ops):
-    """Host-side operator 1-norms captured at compile time."""
+def _make_norm_cache(H0, ops, with_spectral=False):
+    """Host-side operator 1-norms captured at compile time and, for a
+    Chebyshev direction, the spectral data of each operator entry: the
+    extreme eigenvalues of the drift's Hermitian part and the 2-norm of
+    every term (the reference's numpy calls, on the same arrays)."""
     K = H0.shape[0]
-    return {
+    cache = {
         "h0": max(
             float(np.abs(H0[k]).sum(axis=0).max()) for k in range(K)
         ),
@@ -498,6 +543,17 @@ def _make_norm_cache(H0, ops):
             for j in range(ops.shape[1])
         ]),
     }
+    if with_spectral:
+        eig_lo = np.empty(K)
+        eig_hi = np.empty(K)
+        op2 = np.empty((K, ops.shape[1]))
+        for k in range(K):
+            w = np.linalg.eigvalsh(0.5 * (H0[k] + H0[k].conj().T))
+            eig_lo[k], eig_hi[k] = w[0], w[-1]
+            for j in range(ops.shape[1]):
+                op2[k, j] = np.linalg.norm(ops[k, j], 2)
+        cache["spec"] = {"eig_lo": eig_lo, "eig_hi": eig_hi, "op2": op2}
+    return cache
 
 
 # --------------------------------------------------------------------------
@@ -599,14 +655,17 @@ def _taylor_tol_effective(cp: CompiledProblem):
 
 def _reuse_U_enabled(cp: CompiledProblem):
     """Keep the forward step propagators ``U_n`` for the backward co-state
-    propagation of the taylor gradient (``χ ← U_n†χ``, an exact identity).
-    ``"auto"`` gates on the storage cost ``N_T·K·d²`` (one entry for a
-    shared generator) staying within 4 GiB.  The reference has one more
+    propagation of the taylor gradient (``χ ← U_n†χ``, an exact identity),
+    where forward and backward propagation are ExpProp.  ``"auto"`` gates
+    on the storage cost ``N_T·K·d²`` (one entry for a shared generator)
+    staying within 4 GiB.  The reference has one more
     clause, for its TPU platform only, where collecting per-trajectory
     propagators from a scan that is not a kernel was slower than forming
     them again; it is dropped here: on the card every forward path emits U
     as it goes."""
     if cp.reuse_propagators is False:
+        return False
+    if cp.fw_prop_method != "expprop" or cp.bw_prop_method != "expprop":
         return False
     if cp.gradient_method != "taylor":
         return False
@@ -636,10 +695,14 @@ def _vectorized_taylor_orders(cp: CompiledProblem, amp_max=None):
 
 def uses_static_envelope(cp: CompiledProblem):
     """True when the evaluations derive STATIC data from the
-    pulse-amplitude envelope: the kernels' squaring count, the squaring
-    count of the vectorized gradgen pass, or the order count of the
-    vectorized Taylor pass.  The workspace then grows its envelope bucket
-    when the optimizer pushes a pulse past it."""
+    pulse-amplitude envelope: the Chebyshev tables, the kernels' squaring
+    count, the squaring count of the vectorized gradgen pass, or the order
+    count of the vectorized Taylor pass.  The workspace then grows its
+    envelope bucket (and builds the tables again) when the optimizer
+    pushes a pulse past it."""
+    if "cheby" in (cp.fw_prop_method, cp.bw_prop_method,
+                   cp.grad_prop_method):
+        return True
     if _kernels_enabled(cp):
         return True
     if cp.gradient_method == "taylor" and cp.vectorize_backward:
@@ -700,14 +763,22 @@ def _gg_u_bytes_ok(cp: CompiledProblem):
     return nbytes <= 4 * 1024**3
 
 
+def _all_expprop(cp: CompiledProblem):
+    """Forward, backward and gradient propagation are all ExpProp (the
+    formulation the stored-propagator and Fréchet paths need)."""
+    return (cp.fw_prop_method == "expprop" and cp.bw_prop_method == "expprop"
+            and cp.grad_prop_method == "expprop")
+
+
 def _vec_gradgen_enabled(cp: CompiledProblem):
     """The time-vectorized gradgen backward pass: asked for (gradgen,
-    ``vectorize_backward``, propagator reuse not refused) and with a
-    feasible phase A: a propagator stream within its budget, or the
-    kernels, whose co-state chain can form the propagators again."""
+    ``vectorize_backward``, propagator reuse not refused), ExpProp in every
+    direction, and with a feasible phase A: a propagator stream within its
+    budget, or the kernels, whose co-state chain can form the propagators
+    again."""
     if not cp.vectorize_backward or cp.gradient_method != "gradgen":
         return False
-    if cp.reuse_propagators is False:
+    if cp.reuse_propagators is False or not _all_expprop(cp):
         return False
     return _gg_u_bytes_ok(cp) or _kernels_enabled(cp)
 
@@ -715,11 +786,12 @@ def _vec_gradgen_enabled(cp: CompiledProblem):
 def _smalld_enabled(cp: CompiledProblem):
     """The small-dimension forward kernel (``forward_scan_smalld``), under
     the reference's gates so that both packages route a problem alike: the
-    kernels' precision, one generator per trajectory at ``d ≤ 4``, at least
-    128 trajectories, one coefficient table.  It does not look at the
-    gradient method."""
+    kernels' precision, ExpProp forward, one generator per trajectory at
+    ``d ≤ 4``, at least 128 trajectories, one coefficient table.  It does
+    not look at the gradient method."""
     return (
-        _kernels_enabled(cp) and not cp.shared_generator
+        _kernels_enabled(cp) and cp.fw_prop_method == "expprop"
+        and not cp.shared_generator
         and not cp.per_traj_coeffs and cp.dim <= SMALLD_MAX_DIM
         and cp.n_traj >= _SMALLD_MIN_TRAJ
     )
@@ -730,6 +802,155 @@ def _compute_group_size(cp: CompiledProblem):
     effective group size, but 1 on the small-dimension route, whose kernel
     takes one generator per trajectory."""
     return 1 if _smalld_enabled(cp) else _effective_group_size(cp)
+
+
+# --------------------------------------------------------------------------
+# Chebyshev and Krylov propagator data
+# --------------------------------------------------------------------------
+
+def _cheby_data(cp: CompiledProblem, amp_max):
+    """Static Chebyshev data for a pulse-amplitude envelope ``amp_max (L,)``
+    (the reference's ``_cheby_data``): the spectral envelope of the
+    generators over the envelope, from the compile-time ``spec`` cache or
+    by :func:`spectral_envelope`, and per step the Bessel coefficient rows
+    of the forward and backward series (padded with zeros to one width)
+    and the overall phases.  Host numpy in float64, the tables cast to the
+    problem's dtype."""
+    amp_max = np.asarray(amp_max, dtype=np.float64)
+    cmax, _ = _coeff_env(cp, amp_max)  # (T,)
+    spec = (cp.norm_cache or {}).get("spec")
+    if spec is not None:
+        lo = spec["eig_lo"] - spec["op2"] @ cmax  # (entries,)
+        hi = spec["eig_hi"] + spec["op2"] @ cmax
+        E_min, E_max = float(lo.min()), float(hi.max())
+        span = max(E_max - E_min, 1e-12)
+        E_min, E_max = E_min - 0.05 * span, E_max + 0.05 * span
+    else:
+        E_min, E_max = spectral_envelope(
+            np.asarray(cp.H0), np.asarray(cp.ops), -cmax, cmax
+        )
+    dE = E_max - E_min
+    shift = E_max + E_min  # normalization H_norm = (2H - shift)/dE
+    dt = np.diff(np.asarray(cp.tlist, dtype=np.float64))
+    rows_fw, rows_bw, ph_fw, ph_bw = [], [], [], []
+    for dtn in dt:
+        alpha = 0.5 * dE * dtn
+        rows_fw.append(cheby_coeffs(alpha, tol=cp.cheby_tol))
+        rows_bw.append(cheby_coeffs(-alpha, tol=cp.cheby_tol))
+        # overall phase e^{-i (dE/2 + E_min) dt} (forward), conj backward
+        ph = np.exp(-1j * 0.5 * (E_max + E_min) * dtn)
+        ph_fw.append(ph)
+        ph_bw.append(np.conj(ph))
+    Kt = max(max(len(r) for r in rows_fw), max(len(r) for r in rows_bw))
+    tab_fw = np.zeros((len(dt), Kt), dtype=np.complex128)
+    tab_bw = np.zeros((len(dt), Kt), dtype=np.complex128)
+    for n, (rf, rb) in enumerate(zip(rows_fw, rows_bw)):
+        tab_fw[n, : len(rf)] = rf
+        tab_bw[n, : len(rb)] = rb
+    cdtype = cp.psi0.dtype
+    return {
+        "dE": dE,
+        "shift": shift,
+        "tab_fw": np.asarray(tab_fw, dtype=cdtype),
+        "tab_bw": np.asarray(tab_bw, dtype=cdtype),
+        "ph_fw": np.asarray(ph_fw, dtype=cdtype),
+        "ph_bw": np.asarray(ph_bw, dtype=cdtype),
+    }
+
+
+def _prop_data_for(cp: CompiledProblem, method, amp_max=None, cache=None):
+    """The data of one direction's propagator: None for ExpProp, the
+    Chebyshev tables, or the Krylov sizes; memoized in ``cache`` by
+    method."""
+    if cache is not None and method in cache:
+        return cache[method]
+    if method == "cheby":
+        if amp_max is None:
+            amp_max = 2.0 * _default_amp_max(cp)
+        pd = _cheby_data(cp, amp_max)
+        pd["kind"] = "cheby"
+    elif method == "newton":
+        pd = {"kind": "newton", "m": cp.newton_m,
+              "substeps": cp.newton_substeps}
+    else:
+        pd = None
+    if cache is not None:
+        cache[method] = pd
+    return pd
+
+
+def _prop_data(cp: CompiledProblem, amp_max=None):
+    """Per-direction propagator data (``"fw"``, ``"bw"``, ``"grad"``),
+    built once per ``build_fg`` / ``build_f``."""
+    cache = {}
+    return {
+        "fw": _prop_data_for(cp, cp.fw_prop_method, amp_max, cache),
+        "bw": _prop_data_for(cp, cp.bw_prop_method, amp_max, cache),
+        "grad": _prop_data_for(cp, cp.grad_prop_method, amp_max, cache),
+        "amp_max": amp_max,
+    }
+
+
+def _prop_data_on(pds, device):
+    """``pds`` with each Chebyshev table also as a tensor on ``device``
+    (what the kernel reads) and as Python numbers (what the plain series
+    multiplies by; read from the host, so a step never waits for the
+    card)."""
+    out = dict(pds)
+    done = {}
+    for key in ("fw", "bw", "grad"):
+        pd = pds[key]
+        if pd is None or pd["kind"] != "cheby":
+            continue
+        if id(pd) not in done:
+            ext = dict(pd)
+            for name in ("tab_fw", "tab_bw", "ph_fw", "ph_bw"):
+                ext[name + "_t"] = torch.as_tensor(pd[name], device=device)
+                ext[name + "_list"] = pd[name].tolist()
+            done[id(pd)] = ext
+        out[key] = done[id(pd)]
+    return out
+
+
+def _cheby_kernel_enabled(cp: CompiledProblem, pd):
+    """The Chebyshev-scan kernel serves the direction whose data is ``pd``:
+    the reference's gates without their TPU memory budgets (the port has
+    no ``use_pallas`` option, so nothing forbids it): a Chebyshev
+    direction, one shared generator with one coefficient table, the
+    kernels' precision, ``dim ≥ 256``; and the kernel's own ceiling,
+    ``dim ≤ CHEBY_MAX_DIM`` (its rows of H_n live in shared memory), above
+    which the plain series runs, as the reference's scan does above its
+    ceiling."""
+    return (
+        pd is not None and pd["kind"] == "cheby" and _kernels_enabled(cp)
+        and cp.shared_generator and not cp.per_traj_coeffs
+        and _CHEBY_MIN_DIM <= cp.dim <= CHEBY_MAX_DIM
+    )
+
+
+def _series_operator(pd, H):
+    """The matrix a series step multiplies the row-vector states by, for
+    generators ``H (..., d, d)``: the normalized ``H̃ᵀ`` (Chebyshev) or
+    ``Hᵀ`` (Krylov)."""
+    if pd["kind"] == "cheby":
+        eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+        H = (2.0 * H - pd["shift"] * eye) / pd["dE"]
+    return H.transpose(-1, -2)
+
+
+def _series_prop(pd, opT, psi, dt_n, n, adjoint=False):
+    """One step of the Chebyshev or Krylov series on the ``(G, gs, d)``
+    block ``psi``, one generator per group given by its
+    ``opT = _series_operator(pd, H) (G, d, d)``: forward
+    ``exp(-i dt_n H) ψ``; ``adjoint`` ``exp(+i dt_n H) χ`` with ``H`` the
+    adjoint generator."""
+    if pd["kind"] == "newton":
+        a = (1j if adjoint else -1j) * dt_n
+        return arnoldi_expmv(lambda v: a * (v @ opT), psi, m=pd["m"],
+                             substeps=pd["substeps"])
+    key = "bw" if adjoint else "fw"
+    return cheby_apply(lambda v: v @ opT, psi, pd[f"tab_{key}_list"][n],
+                       pd[f"ph_{key}_list"][n])
 
 
 # --------------------------------------------------------------------------
@@ -813,10 +1034,43 @@ def _expm_steps(A):
     return out
 
 
-def _forward(cp: CompiledProblem, consts, coeffs, amp_max, want_U=True):
+def _forward_series(cp: CompiledProblem, consts, coeffs, pd):
+    """Forward propagation by the Chebyshev or Krylov series:
+    ``storage (N_T+1, K, d)``.  The Chebyshev-scan kernel where it is
+    gated on, else step by step (one generator per group, broadcast over
+    the group's states: the reference's per-trajectory arithmetic)."""
+    psi0 = consts["psi0"]
+    if _cheby_kernel_enabled(cp, pd):
+        ys = cheby_scan(
+            consts["H0"][0], consts["ops"][0],
+            coeffs.to(torch.float32).contiguous(), pd["tab_fw_t"],
+            pd["ph_fw_t"], pd["shift"], pd["dE"], psi0, adjoint=False,
+        )
+        return torch.cat([psi0[None], ys])
+    G = consts["H0"].shape[0]
+    K, d = psi0.shape
+    N_T = cp.n_timesteps
+    dts = np.diff(np.asarray(cp.tlist, dtype=np.float64)).tolist()
+    psi = psi0.reshape(G, K // G, d)
+    states = [psi0]
+    C = _gradgen_chunk(cp)
+    for c0 in range(0, N_T, C):
+        opT = _series_operator(
+            pd, _generators(consts, coeffs, slice(c0, c0 + C)))
+        for j in range(opT.shape[0]):
+            psi = _series_prop(pd, opT[j], psi, dts[c0 + j], c0 + j)
+            states.append(psi.reshape(K, d))
+    return torch.stack(states)
+
+
+def _forward(cp: CompiledProblem, consts, coeffs, amp_max, pds,
+             want_U=True):
     """Forward propagation: ``(storage (N_T+1, K, d), Us)`` with
     ``Us (N_T, d, d)`` for a shared generator, ``(N_T, G, d, d)`` otherwise,
-    or None where ``want_U`` is false and the path can do without."""
+    or None where ``want_U`` is false and the path can do without (always
+    None under a Chebyshev or Krylov forward)."""
+    if pds["fw"] is not None:
+        return _forward_series(cp, consts, coeffs, pds["fw"]), None
     if _kernels_enabled(cp):
         args = (
             coeffs.to(torch.float32).contiguous(),
@@ -908,14 +1162,44 @@ def _chi_trajectory(cp: CompiledProblem, Us, chi_hat):
                                   chi_hat)
 
 
-def _chi_prop_scan(cp: CompiledProblem, consts, coeffs, chi_hat, amp_max):
-    """Phase A without stored propagators (a stream beyond its budget, or
-    ``reuse_propagators=False``): the co-state chain over propagators
-    formed again, one ``exp(-i H_ng dt_n)`` per step and group, applied as
-    ``χ ← χ·conj(U_ng)`` (``exp(+i dt H†) ≡ U†``).  In the kernels'
-    precision the propagator and χ-scan kernels do it window by window;
+def _chi_prop_scan(cp: CompiledProblem, consts, coeffs, chi_hat, amp_max,
+                   pds):
+    """Phase A without stored propagators (a Chebyshev or Krylov backward
+    direction, a stream beyond its budget, or ``reuse_propagators=False``).
+
+    Under the backward series: the Chebyshev-scan kernel's adjoint where it
+    is gated on, else ``χ ← exp(+i dt_n H_n†) χ`` step by step.  Under
+    ExpProp: the co-state chain over propagators formed again, one
+    ``exp(-i H_ng dt_n)`` per step and group, applied as
+    ``χ ← χ·conj(U_ng)`` (``exp(+i dt H†) ≡ U†``); in the kernels'
+    precision the propagator and χ-scan kernels do it window by window,
     otherwise (complex128) the plain branch below does, a chunk of steps at
     a time with each step's own norm-derived squaring count."""
+    pd_bw = pds["bw"]
+    if pd_bw is not None:
+        if _cheby_kernel_enabled(cp, pd_bw):
+            return cheby_scan(
+                consts["H0"][0], consts["ops"][0],
+                coeffs.to(torch.float32).contiguous(), pd_bw["tab_bw_t"],
+                pd_bw["ph_bw_t"], pd_bw["shift"], pd_bw["dE"],
+                chi_hat.contiguous(), adjoint=True,
+            )
+        N_T, K, d = cp.n_timesteps, cp.n_traj, cp.dim
+        G = consts["H0"].shape[0]
+        dts = np.diff(np.asarray(cp.tlist, dtype=np.float64)).tolist()
+        chis = torch.empty((N_T, K, d), dtype=chi_hat.dtype,
+                           device=chi_hat.device)
+        chi = chi_hat.reshape(G, K // G, d)
+        C = _gradgen_chunk(cp)
+        for n1 in range(N_T, 0, -C):
+            n0 = max(0, n1 - C)
+            Hd = _generators(consts, coeffs, slice(n0, n1)).conj()
+            opT = _series_operator(pd_bw, Hd.transpose(-1, -2))
+            for n in range(n1 - 1, n0 - 1, -1):
+                chis[n] = chi.reshape(K, d)  # χ(t_{n+1})
+                chi = _series_prop(pd_bw, opT[n - n0], chi, dts[n], n,
+                                   adjoint=True)
+        return chis
     if _kernels_enabled(cp):
         return chi_scan_recompute(
             consts["H0"], consts["ops"],
@@ -1129,44 +1413,93 @@ def _backward_vectorized(cp: CompiledProblem, consts, coeffs, dM, psis,
     return rho[None, :, None].to(cdt) * grads, taylor_ok
 
 
-def _step_ops(cp: CompiledProblem, consts, coeffs, dM, n):
-    """``(H_n (G, d, d), μ_n (G, L, d, d))`` of time step ``n``, one entry
-    per operator group (linear amplitudes)."""
+def _adjoint_ops(cp: CompiledProblem, consts, coeffs, dM, sl):
+    """``(H_n† (C, G, d, d), μ_n† (C, G, L, d, d))`` of the time steps
+    ``sl``, one entry per operator group (linear amplitudes)."""
     cdt = consts["cdtype"]
-    H0, ops = consts["H0"], consts["ops"]
+    ops = consts["ops"]
     if cp.per_traj_coeffs:
-        H = H0 + torch.einsum("kt,ktij->kij", coeffs[:, n].to(cdt), ops)
-        mu = torch.einsum("ktl,ktij->klij", dM[:, n].to(cdt), ops)
+        mu = torch.einsum("kctl,ktij->cklij", dM[:, sl].to(cdt), ops)
     else:
-        H = H0 + torch.einsum("t,gtij->gij", coeffs[n].to(cdt), ops)
-        mu = torch.einsum("tl,gtij->glij", dM[n].to(cdt), ops)
-    return H, mu
+        mu = torch.einsum("ctl,gtij->cglij", dM[sl].to(cdt), ops)
+    H = _generators(consts, coeffs, sl)
+    return H.conj().transpose(-1, -2), mu.conj().transpose(-1, -2)
 
 
-def _apply_bw_prop(cp: CompiledProblem, Hd, chi, dt_n, U_n=None):
+def _apply_bw_prop(pd_bw, Hd, chi, dt_n, n, U_n=None):
     """One backward co-state step ``χ ← exp(+i dt_n H†) χ`` for the
     ``(G, gs, d)`` block ``chi``: with the stored forward propagator
-    ``U_n (G, d, d)`` its exact adjoint (one product), else the
-    exponential of the adjoint generator ``Hd (G, d, d)`` (ExpProp; the
-    Chebyshev and Krylov propagators are not ported)."""
-    if cp.prop_method != "expprop":
-        raise NotImplementedError(
-            f"prop_method={cp.prop_method!r} is not ported to "
-            "grape_tpu_torch yet (only ExpProp)"
-        )
+    ``U_n (G, d, d)`` its exact adjoint (one product), else by the
+    backward propagator of data ``pd_bw`` applied to the adjoint generator
+    ``Hd (G, d, d)``: the exponential (ExpProp, ``pd_bw`` None), the
+    Chebyshev or the Krylov series."""
     if U_n is not None:
         return torch.einsum("gji,gkj->gki", U_n.conj(), chi)
+    if pd_bw is not None:
+        return _series_prop(pd_bw, _series_operator(pd_bw, Hd), chi, dt_n,
+                            n, adjoint=True)
     U = expm((1j * dt_n) * Hd)
     return torch.einsum("gij,gkj->gki", U, chi)
 
 
+def _gradgen_series_operators(pd, Hd, mud):
+    """The two matrices of the augmented generator
+    ``G[H†] = [[H†, μ†], [0, H†]]`` that a series step multiplies the
+    extended row-vector state ``(χ'_1..χ'_L, χ)`` by, for
+    ``Hd (..., d, d)``, ``mud (..., L, d, d)``: ``_series_operator`` of
+    ``H†``, and the μ† block as one ``(d, (L+1)·d)`` matrix, zero in the
+    last block (the row vector χ times it gives every ``(μ_l† χ)ᵀ`` at
+    once), normalized like ``H†`` under Chebyshev (``2μ†/dE``)."""
+    L, d = mud.shape[-3], mud.shape[-1]
+    muT = torch.cat([mud, torch.zeros_like(mud[..., :1, :, :])], dim=-3)
+    muT = muT.transpose(-1, -2).transpose(-3, -2).reshape(
+        mud.shape[:-3] + (d, (L + 1) * d))
+    if pd["kind"] == "cheby":
+        muT = (2.0 / pd["dE"]) * muT
+    return _series_operator(pd, Hd), muT
+
+
+def _gradgen_series_step(pd, HT, muT, chi, dt_n, n):
+    """One backward gradient-generator step under the Chebyshev or Krylov
+    series: the extended state ``(χ'_1..χ'_L, χ)``, zeros and the co-state
+    ``chi (G, gs, d)``, propagated by the augmented generator whose
+    matrices ``HT (G, d, d)``, ``muT (G, d, (L+1)·d)`` are those of
+    :func:`_gradgen_series_operators`.  Returns
+    ``(χ' (G, gs, L, d), χ_new (G, gs, d))``."""
+    Gn, gs, d = chi.shape
+    L = muT.shape[-1] // d - 1
+    ext0 = torch.cat([chi.new_zeros((Gn, gs, L, d)), chi[:, :, None]],
+                     dim=2)  # (G, gs, L+1, d)
+
+    def gmatvec(v):  # v (G, gs, L+1, d)
+        out = (v.reshape(Gn, -1, d) @ HT).reshape(Gn, gs, -1)
+        return (out + v[:, :, -1] @ muT).reshape(Gn, gs, L + 1, d)
+
+    if pd["kind"] == "newton":
+        a = 1j * dt_n
+        ext = arnoldi_expmv(
+            lambda vflat: (a * gmatvec(vflat.reshape(Gn, gs, L + 1, d)))
+            .reshape(Gn, gs, (L + 1) * d),
+            ext0.reshape(Gn, gs, (L + 1) * d), m=pd["m"],
+            substeps=pd["substeps"],
+        ).reshape(Gn, gs, L + 1, d)
+    else:
+        # the Chebyshev series in the normalized augmented operator
+        ext = cheby_apply(gmatvec, ext0, pd["tab_bw_list"][n],
+                          pd["ph_bw_list"][n])
+    return ext[:, :, :-1], ext[:, :, -1]
+
+
 def _backward_per_step(cp: CompiledProblem, consts, coeffs, dM, storage, Us,
-                       chi_hat, rho, amp_max):
-    """The per-step backward pass (the fallback of the vectorized ones):
-    in reverse time, one step at a time, the co-state and its control
+                       chi_hat, rho, amp_max, pds):
+    """The per-step backward pass (the fallback of the vectorized ones, and
+    gradgen's pass under a Chebyshev or Krylov gradient propagator): in
+    reverse time, one step at a time, the co-state and its control
     derivatives ``χ'_l = (∂/∂ε_l exp(+i dt H†)) χ`` by the Taylor recursion
-    with its own convergence check (taylor) or by the augmented exponential
-    (gradgen), and ``∇τ_{knl} = ρ_k ⟨χ'_{kl}|Ψ_k(t_n)⟩``.  ``Us`` holds the
+    with its own convergence check and the ``bw`` propagator for χ
+    (taylor), or by the augmented generator under the ``grad`` propagator
+    (gradgen: the exponential, or the extended-state Chebyshev or Krylov
+    series), and ``∇τ_{knl} = ρ_k ⟨χ'_{kl}|Ψ_k(t_n)⟩``.  ``Us`` holds the
     stored forward propagators or is None.  Returns
     ``(tau_grads (N_T, K, L), taylor_ok)``, ``taylor_ok`` the ``all`` over
     the steps."""
@@ -1177,35 +1510,45 @@ def _backward_per_step(cp: CompiledProblem, consts, coeffs, dM, storage, Us,
     L = cp.n_controls
     dts = np.diff(np.asarray(cp.tlist, dtype=np.float64))
     h_scale = max(_h_norm_bound(cp, amp_max), 1e-30) if use_taylor else None
-    rho_c = rho[:, None].to(cdt)
+    pd_grad = None if use_taylor else pds["grad"]
     chi = chi_hat.reshape(G, K // G, d)
-    grads = torch.empty((N_T, K, L), dtype=cdt, device=chi_hat.device)
+    chi_primes = torch.empty((N_T, K, L, d), dtype=cdt,
+                             device=chi_hat.device)
     oks = []
-    for n in range(N_T - 1, -1, -1):
-        H, mu = _step_ops(cp, consts, coeffs, dM, n)
-        Hd = H.conj().transpose(-1, -2)
-        mud = mu.conj().transpose(-1, -2)
-        dt_n = float(dts[n])
-        # one generator per group, broadcast over the group's co-states
-        if use_taylor:
-            chi_prime, ok = taylor_grad_step(
-                Hd[:, None], mud[:, None], chi, -dt_n,
-                max_order=cp.taylor_grad_max_order,
-                tolerance=cp.taylor_grad_tolerance,
-                check_convergence=cp.taylor_grad_check_convergence,
-                with_status=True, scale=h_scale,
-            )
-            oks.append(ok)
-            U_n = None
-            if Us is not None:
-                U_n = Us[n] if Us.ndim == 4 else Us[n][None]
-            chi = _apply_bw_prop(cp, Hd, chi, dt_n, U_n)
-        else:
-            chi_prime, chi = gradgen_step(Hd[:, None], mud[:, None], chi,
-                                          -dt_n)
-        grads[n] = rho_c * torch.einsum(
-            "kli,ki->kl", chi_prime.reshape(K, L, d).conj(), storage[n]
-        )
+    # the step operators a chunk of steps at a time, then step by step
+    C = _gradgen_chunk(cp)
+    for n1 in range(N_T, 0, -C):
+        n0 = max(0, n1 - C)
+        Hd_c, mud_c = _adjoint_ops(cp, consts, coeffs, dM, slice(n0, n1))
+        if pd_grad is not None:
+            HT_c, muT_c = _gradgen_series_operators(pd_grad, Hd_c, mud_c)
+        for n in range(n1 - 1, n0 - 1, -1):
+            Hd, mud = Hd_c[n - n0], mud_c[n - n0]
+            dt_n = float(dts[n])
+            # one generator per group, broadcast over the group's co-states
+            if use_taylor:
+                chi_prime, ok = taylor_grad_step(
+                    Hd[:, None], mud[:, None], chi, -dt_n,
+                    max_order=cp.taylor_grad_max_order,
+                    tolerance=cp.taylor_grad_tolerance,
+                    check_convergence=cp.taylor_grad_check_convergence,
+                    with_status=True, scale=h_scale,
+                )
+                oks.append(ok)
+                U_n = None
+                if Us is not None:
+                    U_n = Us[n] if Us.ndim == 4 else Us[n][None]
+                chi = _apply_bw_prop(pds["bw"], Hd, chi, dt_n, n, U_n)
+            elif pd_grad is not None:
+                chi_prime, chi = _gradgen_series_step(
+                    pd_grad, HT_c[n - n0], muT_c[n - n0], chi, dt_n, n)
+            else:
+                chi_prime, chi = gradgen_step(Hd[:, None], mud[:, None], chi,
+                                              -dt_n)
+            chi_primes[n] = chi_prime.reshape(K, L, d)
+    # ∇τ_{knl} = ρ_k ⟨χ'_{kl}|Ψ_k(t_n)⟩
+    grads = rho[None, :, None].to(cdt) * torch.einsum(
+        "nkli,nki->nkl", chi_primes.conj(), storage[:-1])
     if oks:
         taylor_ok = torch.all(torch.stack(oks))
     else:
@@ -1231,13 +1574,14 @@ def build_f(cp: CompiledProblem, amp_max=None, device=None):
     compiled for."""
     device = cp.device if device is None else resolve_device(device)
     consts = _device_constants(cp, device)
+    pds = _prop_data_on(_prop_data(cp, amp_max), device)
 
     @torch.no_grad()
     def f(pulsevals):
         pulsevals = _as_pulse(pulsevals, consts, device)
         eps = pulsevals.reshape(cp.n_controls, cp.n_timesteps)
         coeffs, _ = _coeff_tables(cp, consts, eps)
-        storage, _ = _forward(cp, consts, coeffs, amp_max, want_U=False)
+        storage, _ = _forward(cp, consts, coeffs, amp_max, pds, want_U=False)
         J_T_val, J_a_val, J_b_val, tau = _J_parts(cp, pulsevals, storage)
         J = J_T_val + J_a_val + J_b_val
         aux = {
@@ -1261,6 +1605,7 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
     """
     device = cp.device if device is None else resolve_device(device)
     consts = _device_constants(cp, device)
+    pds = _prop_data_on(_prop_data(cp, amp_max), device)
     cdt = consts["cdtype"]
     # the three backward passes: vectorized gradgen; vectorized taylor
     # where a static order count within taylor_grad_max_order exists; else
@@ -1278,7 +1623,8 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
         pulsevals = _as_pulse(pulsevals, consts, device)
         eps = pulsevals.reshape(cp.n_controls, cp.n_timesteps)
         coeffs, dM = _coeff_tables(cp, consts, eps)
-        storage, Us = _forward(cp, consts, coeffs, amp_max, want_U=reuse_U)
+        storage, Us = _forward(cp, consts, coeffs, amp_max, pds,
+                               want_U=reuse_U)
         J_T_val, J_a_val, J_b_val, tau = _J_parts(cp, pulsevals, storage)
         J = J_T_val + J_a_val + J_b_val
         psi_T = storage[-1]
@@ -1297,7 +1643,8 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
             if Us is not None:
                 chis = _chi_trajectory(cp, Us, chi_hat)
             else:
-                chis = _chi_prop_scan(cp, consts, coeffs, chi_hat, amp_max)
+                chis = _chi_prop_scan(cp, consts, coeffs, chi_hat, amp_max,
+                                      pds)
             if vec_gg:
                 tau_grads = _backward_vectorized_gradgen(
                     cp, consts, coeffs, dM, storage[:-1], chis, rho, amp_max
@@ -1309,7 +1656,8 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
                 )
         else:
             tau_grads, taylor_ok = _backward_per_step(
-                cp, consts, coeffs, dM, storage, Us, chi_hat, rho, amp_max
+                cp, consts, coeffs, dM, storage, Us, chi_hat, rho, amp_max,
+                pds,
             )
 
         grad_Tb = -2.0 * torch.real(torch.sum(tau_grads, dim=1))  # (N_T, L)

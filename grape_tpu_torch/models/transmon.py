@@ -1,6 +1,8 @@
 """Transmon model family: the two-transmon CZ gate with multi-control
-pulses (BASELINE config 4), the flagship of the gate-optimization path, and
-its robust ensembles over Hamiltonian samples (BASELINE config 5)."""
+pulses (BASELINE config 4), the flagship of the gate-optimization path,
+unitary synthesis on a subspace of the same register (many basis states
+under one generator), and robust ensembles over Hamiltonian samples
+(BASELINE config 5)."""
 
 import numpy as np
 
@@ -10,8 +12,8 @@ from ..shapes import flattop
 from ..trajectory import ControlProblem, Trajectory
 
 __all__ = [
-    "two_transmon_cz_problem", "two_transmon_cz_ensemble_problem",
-    "transmon_ensemble_trajectories",
+    "two_transmon_cz_problem", "two_transmon_subspace_gate_problem",
+    "two_transmon_cz_ensemble_problem", "transmon_ensemble_trajectories",
 ]
 
 
@@ -78,6 +80,48 @@ def two_transmon_cz_problem(
     trajectories = [
         Trajectory(b, H, target_state=ph * b)
         for b, ph in zip(basis, cz_phases)
+    ]
+    kwargs.setdefault("J_T", J_T_sm)
+    return ControlProblem(trajectories, tlist, **kwargs)
+
+
+def two_transmon_subspace_gate_problem(
+    d=32, n_basis=64, delta1=0.0, delta2=0.5, alpha1=-1.2, alpha2=-1.0,
+    J=0.05, T=1.0, n_steps=100, E0=0.05, seed=0, **kwargs
+):
+    """Unitary synthesis on an ``n_basis``-dimensional subspace of the
+    two-transmon register (dim = d²): K = n_basis computational basis
+    states propagate under ONE shared generator toward a seeded random
+    target unitary on the subspace (the reference's gate-functional
+    pattern with many basis states: the forward product is one
+    ``(K, dim) @ (dim, dim)`` product per propagator term)."""
+    H0, drives = _two_transmon_hamiltonian(
+        d, delta1, delta2, alpha1, alpha2, J
+    )
+    dim = d * d
+    if not (1 <= n_basis <= dim):
+        raise ValueError(f"n_basis must be in [1, {dim}]")
+    tlist = np.linspace(0, T, n_steps + 1)
+
+    def mk_guess(scale):
+        def g(t):
+            return scale * float(
+                flattop(t, T=T, t_rise=T / 10.0, func="blackman")
+            )
+        return g
+
+    guesses = [mk_guess(E0), mk_guess(0.0), mk_guess(E0), mk_guess(0.0)]
+    H = hamiltonian(H0, *zip(drives, guesses))
+
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(n_basis, n_basis)) \
+        + 1j * rng.normal(size=(n_basis, n_basis))
+    W, _ = np.linalg.qr(A)  # Haar-like target unitary on the subspace
+    basis = np.eye(dim, dtype=complex)[:, :n_basis]
+    targets = basis @ W  # (dim, n_basis) target states
+    trajectories = [
+        Trajectory(basis[:, i], H, target_state=targets[:, i])
+        for i in range(n_basis)
     ]
     kwargs.setdefault("J_T", J_T_sm)
     return ControlProblem(trajectories, tlist, **kwargs)

@@ -1,6 +1,7 @@
 """Numerical building blocks: plain PyTorch matrix functions (``expm``,
-``frechet``) and the hand-written CUDA kernels with their wrappers
-(``hopper_prop``, ``hopper_frechet``; built by ``_build``).
+``frechet``), the Chebyshev and Krylov series (``cheby``, ``newton``) and
+the hand-written CUDA kernels with their wrappers (``hopper_prop``,
+``hopper_frechet``, ``hopper_cheby``; built by ``_build``).
 
 A kernel wrapper takes its plain PyTorch version only for a CPU tensor.
 :func:`plain_versions` is the one explicit exception, a switch for tests

@@ -120,6 +120,13 @@ def _declare(lib):
     lib.grape_smalld_propagators.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
     lib.grape_smalld_apply.restype = i
     lib.grape_smalld_apply.argtypes = [p, p, p, i, i, i, p]
+    lib.grape_cheby_scan.restype = i
+    lib.grape_cheby_scan.argtypes = [
+        p, p, p, p, ctypes.c_float, ctypes.c_float, p, i, i, i, i, i, i, p,
+        p, p,
+    ]
+    lib.grape_cheby_scan_layout.restype = i
+    lib.grape_cheby_scan_layout.argtypes = [i, i, ctypes.POINTER(i)]
     lib.grape_propagator_scratch_matrices.restype = i
     lib.grape_propagator_scratch_matrices.argtypes = []
     lib.grape_frechet_scratch_matrices.restype = i

@@ -42,7 +42,10 @@ def optimize(trajectories, tlist, **kwargs):
     ``J_a``, ``grad_J_a``, ``lambda_a``, ``gradient_method`` (``"gradgen"``,
     ``"taylor"`` or ``"auto"``), ``taylor_grad_max_order``,
     ``taylor_grad_tolerance``, ``taylor_grad_check_convergence``,
-    ``reuse_propagators``, ``vectorize_backward``, ``dtype``, ``upper_bound``/``lower_bound``/``pulse_options``,
+    ``reuse_propagators``, ``vectorize_backward``, ``prop_method`` and
+    ``fw_/bw_/grad_prop_method`` (``"expprop"``, ``"cheby"``,
+    ``"newton"``), ``cheby_tol``, ``newton_m``, ``newton_substeps``,
+    ``dtype``, ``upper_bound``/``lower_bound``/``pulse_options``,
     ``callback``, ``check_convergence``, ``iter_start``/``iter_stop``,
     ``continue_from``, ``verbose``, ``rethrow_exceptions``,
     ``print_iters``/``print_iter_info``/``store_iter_info``, optimizer
@@ -52,8 +55,7 @@ def optimize(trajectories, tlist, **kwargs):
     ``device=None`` means the CUDA device and raises if there is none;
     pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.
     Options of ``grape_tpu.optimize`` that are not ported yet
-    (``prop_method="cheby"|"newton"``,
-    ``storage_mode="recompute"``, ``g_b``/``xi``, ``mesh=``, an
+    (``storage_mode="recompute"``, ``g_b``/``xi``, ``mesh=``, an
     ``optimizer=`` other than the native L-BFGS-B, ...) raise
     ``NotImplementedError`` naming the option.
     """

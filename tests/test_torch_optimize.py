@@ -284,8 +284,6 @@ def test_check_convergence_and_records():
 
 
 UNPORTED = {
-    "prop_method": "cheby",
-    "fw_prop_method": "newton",
     "storage_mode": "recompute",
     "g_b": lambda Psi, trajectories, tlist, n: Psi.abs().sum(-1),
     "xi": lambda Psi, trajectories, tlist, n: Psi,
@@ -301,7 +299,11 @@ PORTED = {
     "gradient_method": "taylor",
     "reuse_propagators": False,
     "taylor_grad_max_order": 50,
+    "prop_method": "cheby",
+    "fw_prop_method": "newton",
 }
+# what a ported option's run also takes: a Krylov space that fits the TLS
+PORTED_WITH = {"fw_prop_method": {"newton_m": 6}}
 
 
 @pytest.mark.parametrize("option", sorted({**UNPORTED, **PORTED}))
@@ -319,6 +321,7 @@ def test_unported_option_raises(option):
     if option != "gradient_method":
         kw["gradient_method"] = "taylor"
     seen = []
+    kw.update(PORTED_WITH.get(option, {}))
     res = optimize(trajs, tlist, iter_stop=5, **kw,
                    callback=lambda wrk, it: seen.append(wrk.cp),
                    **{option: PORTED[option]})
