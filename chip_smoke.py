@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``grape_tpu_torch/csrc`` and holds each wrapper
 against its plain PyTorch version on the card at the shapes of the paths
-that use it and at a few other shapes, then drives four paths through
+that use it and at a few other shapes, then drives the paths through
 ``compile_problem`` / ``build_fg`` and through up to five L-BFGS-B
 iterations of ``optimize_problem`` / ``optimize`` each, and checks that
 every evaluation went through the kernels:
@@ -27,7 +27,19 @@ every evaluation went through the kernels:
   taylor gradient: the
   Chebyshev-scan kernel forward and for the co-state chain, 27 terms per
   step, and the vectorized Taylor pass; beside it 64 basis states of the
-  same register and the per-step extended-state gradgen at dim 256.
+  same register and the per-step extended-state gradgen at dim 256;
+- the two kernels outside the optimizer: the per-trajectory forward scan
+  without the propagator stream (``forward_scan_time``) and the probe of
+  chained complex products (``python -m
+  grape_tpu_torch.experiments.mxu_probe``, its kernel ``karatsuba_chain``
+  at B = 512, 256 products, D = 100 and 128, float32 and TF32);
+- the robust CZ ensemble under ``storage_mode="recompute"`` (40 segments
+  of 50 steps; the forward and Fréchet kernels once per segment), against
+  full storage, with peak memory at K = 32 and K = 512; the single-transmon
+  qutrit gate with its guard running cost (BASELINE config 3) and the CZ
+  with a leakage running cost (the ξ co-state chain); the CZ with its
+  drives as nonlinear amplitudes ``A·sin(ε)``; the CZ with per-step
+  observables handed to ``fw_prop_callback``.
 
 Each phase prints one JSON line and raises on failure; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -274,7 +286,7 @@ def ensemble_kernel_phases(cp, s_main, rng, dev):
         st_w, U_w = hp.forward_scan_pertraj(H0k, opsk, coeffs, dts, psi0, s,
                                             with_propagators=False)
         chis = hp.chi_scan_grouped(U, chi0)
-        chis_r = hp.chi_scan_recompute(H0k, opsk, coeffs, dts, chi0, s)
+        chis_r, _ = hp.chi_scan_recompute(H0k, opsk, coeffs, dts, chi0, s)
         psis = st[:-1].contiguous()
         trj = hf.frechet_trace_pertraj(H0g, opsg, coeffs, dts, psis, chis, s,
                                        group_size=gs)
@@ -345,7 +357,8 @@ def ensemble_kernel_phases(cp, s_main, rng, dev):
             try:
                 st_w, _ = hp.forward_scan_grouped(
                     Hs, Os, cs, ts, p0, gs_, s_, with_propagators=False)
-                chis_r = hp.chi_scan_recompute(Hs, Os, cs, ts, x0_, s_)
+                chis_r, _ = hp.chi_scan_recompute(Hs, Os, cs, ts, x0_,
+                                                  s_)
             finally:
                 hp._WINDOW_BYTES = window_bytes
             trj = hf.frechet_trace_pertraj(
@@ -487,10 +500,10 @@ def ensemble_kernel_phases(cp, s_main, rng, dev):
     return out
 
 
-def fg_against_plain(fg, x0, what):
+def fg_against_plain(fg, x0, what, tol_J=1e-5):
     """One evaluation through the kernels and one with the plain versions
     forced, on the same pulse: ``(J, g, aux, |ΔJ|, gradient difference as
-    a share of its max)``, held to 1e-5 and 2e-3."""
+    a share of its max)``, held to ``tol_J`` and 2e-3."""
     from grape_tpu_torch.ops import plain_versions
 
     J, g, aux = fg(x0)
@@ -502,7 +515,8 @@ def fg_against_plain(fg, x0, what):
             and bool(aux["chi_ok"]), f"{what}: fg output is not finite")
     dJ = abs(float(J) - float(J_p))
     dg = max_abs(g, g_p) / float(g_p.abs().max())
-    require(dJ < 1e-5, f"{what}: J kernels {float(J)} vs plain {float(J_p)}")
+    require(dJ < tol_J,
+            f"{what}: J kernels {float(J)} vs plain {float(J_p)}")
     require(dg < 2e-3, f"{what}: gradient differs by {dg} of its max")
     return J, g, aux, dJ, dg
 
@@ -530,7 +544,8 @@ def fg_breakdown(fg, x, reps=3):
         "forward_scan_shared", "forward_scan_grouped", "forward_scan_pertraj",
         "forward_scan_smalld", "chi_scan_shared", "chi_scan_grouped",
         "chi_scan_recompute", "frechet_trace_shared", "frechet_trace_pertraj",
-        "cheby_scan", "_backward_vectorized",
+        "cheby_scan", "_backward_vectorized", "chi_window_plain",
+        "_xi_sources",
     ]
     spans = []
 
@@ -1119,7 +1134,7 @@ def ensemble_paths(problem, cp, s_ens):
           "fg_calls": res.fg_calls, "f_calls": res.f_calls,
           "fg_ms_right_after": fg_ms_after,
           "message": res.message, "launches": counts})
-    return counts, counts_k
+    return counts, counts_k, series
 
 
 # ---- the Chebyshev path (dim 1024) ----------------------------------------
@@ -1467,6 +1482,637 @@ def cheby_paths(rng, dev):
           "grad_diff_of_max_vs_taylor": d_gt,
           "J_abs_diff_vs_plain": dJ_gg, "grad_diff_of_max_vs_plain": dg_gg})
     return k8, counts
+
+
+# ---- the last two TPU kernels: K10 and K11 ---------------------------------
+
+# K11's probe shapes (the reference's) and its kernel check
+PROBE_BATCH, PROBE_REPS = 512, 256
+KARATSUBA_CHECK_BATCH, KARATSUBA_CHECK_REPS = 8, 16
+# kernel against plain, relative to max|c|: float32 FMAs on both sides, and
+# the TF32 path (operands rounded to 10 mantissa bits, 2^-11 = 4.9e-4 each)
+# against the float32 plain version over 16 chained products
+TOL_KARATSUBA = {"highest": 1e-5, "default": 1e-2}
+PEAK_TF32_FLOPS = 495e12
+
+
+def time_grid_kernel_phase(cp_ens, s_ens, rng, dev):
+    """Phase ``kernel_check_time``: ``forward_scan_time`` (K10) against its
+    plain version at K = 4, d = 100, T = 4, N_T = 2000 with one generator
+    per trajectory (four of the ensemble's Hamiltonian samples), and at
+    ragged shapes (K 1, 3 and 256; d 2, 3, 8, 130; N_T 1; the last on the
+    small-dimension route), with its time beside ``forward_scan_pertraj(...,
+    with_propagators=False)`` on the same inputs.  Its counted run is the
+    timed launches.  Returns the kernel line's numbers and the counts."""
+    from grape_tpu_torch.ops import (
+        hopper_cheby, hopper_frechet, hopper_matmul, hopper_prop,
+        plain_versions,
+    )
+
+    c64 = lambda x: torch.tensor(x, dtype=torch.complex64, device=dev)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    K, d, N_T = 4, cp_ens.dim, cp_ens.n_timesteps
+    T, L = cp_ens.ops.shape[1], cp_ens.n_controls
+    H0, ops = c64(cp_ens.H0[:K]), c64(cp_ens.ops[:K])
+    eps = cp_ens.guess_pulsevals + 0.02 * rng.normal(size=(L, N_T))
+    coeffs = f32(np.einsum("ntl,ln->nt", cp_ens.M, eps) + cp_ens.Mfix)
+    dts = f32(np.diff(cp_ens.tlist))
+    psi0 = c64(cp_ens.psi0[:K])
+    s = s_ens
+    st = hopper_prop.forward_scan_time(H0, ops, coeffs, dts, psi0, s)
+    torch.cuda.synchronize()
+    with plain_versions():
+        st_p = hopper_prop.forward_scan_time(H0, ops, coeffs, dts, psi0, s)
+    require(finite(st) and st.shape == (N_T + 1, K, d),
+            "forward_scan_time output is not finite or has the wrong shape")
+    err = max_abs(st, st_p)
+    require(err < TOL_STATE, f"forward_scan_time disagrees: {err}")
+    shape_checks = []
+    for (d_, K_, T_, N_, s_, h_) in [(2, 1, 1, 300, 0, 5.0),
+                                     (8, 3, 2, 40, 2, 20.0),
+                                     (130, 3, 2, 5, 1, 20.0),
+                                     (64, 1, 3, 1, 3, 50.0),
+                                     (3, 256, 2, 50, 1, 5.0)]:
+        Hs, Os, cs, ts, p0, _ = random_group_inputs(rng, dev, d_, K_, 1, T_,
+                                                    N_, h_, False)
+        out = hopper_prop.forward_scan_time(Hs, Os, cs, ts, p0, s_)
+        torch.cuda.synchronize()
+        with plain_versions():
+            ref = hopper_prop.forward_scan_time(Hs, Os, cs, ts, p0, s_)
+        e = max_abs(out, ref)
+        shape_checks.append({"d": d_, "K": K_, "T": T_, "N_T": N_, "s": s_,
+                             "route": "small-d" if d_ <= 4 and K_ >= 128
+                             else "large-d", "max_abs_err": e})
+        require(e < TOL_TRJ, f"forward_scan_time disagrees at "
+                f"{shape_checks[-1]}")
+
+    # the counted run: the wrapper as a caller drives it, timed
+    zero_counts(hopper_prop, hopper_frechet, hopper_cheby, hopper_matmul)
+    ms = median_ms(lambda: hopper_prop.forward_scan_time(
+        H0, ops, coeffs, dts, psi0, s))
+    counts = read_counts(hopper_prop, hopper_frechet, hopper_cheby,
+                         hopper_matmul)
+    expect = dict.fromkeys(counts, 0)
+    expect["forward_scan_time"] = 6
+    require(counts == expect, f"kernel_check_time launch counts {counts}")
+    pertraj_ms = median_ms(lambda: hopper_prop.forward_scan_pertraj(
+        H0, ops, coeffs, dts, psi0, s, with_propagators=False))
+    with plain_versions():
+        plain_ms = median_ms(lambda: hopper_prop.forward_scan_time(
+            H0, ops, coeffs, dts, psi0, s), reps=1)
+    A_lib = ((-1j * dts.to(torch.complex64))[:, None, None, None] * (
+        H0[None] + torch.einsum("nt,ktij->nkij", coeffs.to(torch.complex64),
+                                ops))).reshape(-1, d, d)
+    library_ms = median_ms(lambda: torch.linalg.matrix_exp(A_lib), reps=3)
+    del A_lib
+    cmm = 8.0 * d ** 3
+    emit({"phase": "kernel_check_time",
+          "shape": {"d": d, "K": K, "T": T, "N_T": N_T}, "s": s,
+          "max_abs_err": err, "tol_state": TOL_STATE,
+          "shapes": shape_checks, "tol_shapes": TOL_TRJ, "ms": ms,
+          "forward_scan_pertraj_no_stream_ms": pertraj_ms,
+          "plain_ms": plain_ms, "library_ms": library_ms,
+          "launches": counts})
+    return {"err": err, "ms": ms, "plain_ms": plain_ms,
+            "flops": N_T * (K * (6 + s) * cmm + 8.0 * K * d * d),
+            "bytes": nbytes(H0, ops, coeffs, dts, psi0, st),
+            "library_ms": library_ms,
+            "library_call": f"torch.linalg.matrix_exp on ({N_T * K}, {d}, "
+                            f"{d}): the propagators only",
+            "forward_scan_pertraj_no_stream_ms": pertraj_ms,
+            "computed_by": "csrc/prop_scan.cu propagator_kernel + "
+                           "forward_apply_kernel (the K5 pair, no U "
+                           "stream); csrc/smalld_scan.cu for d <= 4, "
+                           "K >= 128"}, counts
+
+
+def _tf32_chain(ar, ai, br, bi, reps):
+    """The Karatsuba chain with each product's operands rounded to TF32 as
+    the kernel's tensor-core path rounds them (``cvt.rna``: 10 mantissa
+    bits, to nearest, ties away from zero), the products in float32: where
+    the TF32 kernel's distance from the float32 chain comes from."""
+    def rna(x):
+        i = x.contiguous().view(torch.int32)
+        return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+    cr, ci = ar, ai
+    b_r, b_i, b_s = rna(br), rna(bi), rna(br + bi)
+    for _ in range(reps):
+        t1 = rna(cr) @ b_r
+        t2 = rna(ci) @ b_i
+        t3 = rna(cr + ci) @ b_s
+        cr, ci = t1 - t2, t3 - t1 - t2
+    return torch.complex(cr, ci)
+
+
+def karatsuba_kernel_phase(dev):
+    """Phases ``kernel_check_karatsuba`` (``karatsuba_chain``, K11, against
+    its plain version at B = 8, reps = 16, D 100 and 128, both precisions;
+    errors relative to max|c|), ``probe_mxu`` (the probe's lines at
+    B = 512, reps = 256: its counted run) and ``probe_mxu_check`` (the
+    kernel against its plain version on the probe's own operands, to the
+    same limits).  Returns the kernel line's numbers and the counts."""
+    from grape_tpu_torch.experiments import mxu_probe
+    from grape_tpu_torch.ops import (
+        hopper_cheby, hopper_frechet, hopper_matmul, hopper_prop,
+        plain_versions,
+    )
+
+    checks = []
+    err = {"highest": 0.0, "default": 0.0}
+    for D in (100, 128):
+        args = mxu_probe.operands(KARATSUBA_CHECK_BATCH, D, seed=SEED + D)
+        for prec in ("highest", "default"):
+            c = hopper_matmul.karatsuba_chain(*args, KARATSUBA_CHECK_REPS,
+                                              prec)
+            torch.cuda.synchronize()
+            with plain_versions():
+                c_p = hopper_matmul.karatsuba_chain(
+                    *args, KARATSUBA_CHECK_REPS, prec)
+            require(finite(c) and c.shape == (KARATSUBA_CHECK_BATCH, D, D),
+                    "karatsuba_chain output is not finite or misshapen")
+            e = max_abs(c, c_p) / float(c_p.abs().max())
+            checks.append({"D": D, "precision": prec,
+                           "max_abs_err_of_max": e,
+                           "max_abs_c": float(c_p.abs().max())})
+            require(e < TOL_KARATSUBA[prec],
+                    f"karatsuba_chain disagrees at D={D}, {prec}: {e}")
+            err[prec] = max(err[prec], e)
+    emit({"phase": "kernel_check_karatsuba", "batch": KARATSUBA_CHECK_BATCH,
+          "reps": KARATSUBA_CHECK_REPS, "tol_of_max": TOL_KARATSUBA,
+          "checks": checks})
+
+    # the probe: its entry point as a user runs it, every count set to 0
+    zero_counts(hopper_prop, hopper_frechet, hopper_cheby, hopper_matmul)
+    lines = mxu_probe.run_probe(
+        B=PROBE_BATCH, reps=PROBE_REPS,
+        emit=lambda obj: emit({"phase": "probe_mxu", **obj}))
+    counts = read_counts(hopper_prop, hopper_frechet, hopper_cheby,
+                         hopper_matmul)
+    expect = dict.fromkeys(counts, 0)
+    expect["karatsuba_chain"] = 2 * 2 * 3  # 2 D x 2 precisions x 3 calls
+    require(counts == expect, f"probe launch counts {counts}")
+    by = {ln["probe"]: ln for ln in lines}
+
+    # the probe's launches return only a sum: hold the kernel's output on
+    # the probe's own operands (``run_probe`` makes them with seed 0)
+    # against its plain version, at both D and both precisions
+    probe_checks = []
+    for D in (100, 128):
+        args = mxu_probe.operands(PROBE_BATCH, D)
+        with plain_versions():
+            c_p = hopper_matmul.karatsuba_chain(*args, PROBE_REPS, "highest")
+            if D == 128:
+                plain_ms = median_ms(lambda: hopper_matmul.karatsuba_chain(
+                    *args, PROBE_REPS, "highest"), reps=1)
+        scale = float(c_p.abs().max())
+        c_e = _tf32_chain(*args, PROBE_REPS)
+        for prec in ("highest", "default"):
+            c = hopper_matmul.karatsuba_chain(*args, PROBE_REPS, prec)
+            require(finite(c) and c.shape == (PROBE_BATCH, D, D),
+                    "karatsuba_chain output is not finite or misshapen")
+            e = max_abs(c, c_p) / scale
+            probe_checks.append({"D": D, "precision": prec,
+                                 "max_abs_err_of_max": e,
+                                 "max_abs_c": scale,
+                                 "vs_tf32_rounded_chain_of_max":
+                                 max_abs(c, c_e) / scale})
+            require(e < TOL_KARATSUBA[prec],
+                    f"karatsuba_chain disagrees on the probe's operands at "
+                    f"D={D}, {prec}: {e}")
+            err[prec] = max(err[prec], e)
+            del c
+        del args, c_p, c_e
+    emit({"phase": "probe_mxu_check", "batch": PROBE_BATCH,
+          "reps": PROBE_REPS, "tol_of_max": TOL_KARATSUBA,
+          "checks": probe_checks})
+    D = 128
+    # the least operations of the function: three real D^3 products
+    real_flops = 6.0 * D ** 3 * PROBE_BATCH * PROBE_REPS
+    operand_bytes = 4 * 4 * PROBE_BATCH * D * D + 8 * PROBE_BATCH * D * D
+    tf32_bound = max(real_flops / PEAK_TF32_FLOPS,
+                     operand_bytes / PEAK_BYTES) * 1e3
+    return {"err": err["highest"], "err_tf32": err["default"],
+            "ms": by[f"karatsuba_chain_kernel_d{D}_highest"]["ms"],
+            "ms_tf32": by[f"karatsuba_chain_kernel_d{D}_default"]["ms"],
+            "ms_d100": by["karatsuba_chain_kernel_d100_highest"]["ms"],
+            "ms_d100_tf32": by["karatsuba_chain_kernel_d100_default"]["ms"],
+            "plain_ms": plain_ms, "flops": real_flops,
+            "bytes": operand_bytes, "bound_ms_tf32": tf32_bound,
+            "library_ms": by[f"torch_c64_chain_d{D}_highest"]["ms"],
+            "library_call": f"{PROBE_REPS} torch.matmul products of "
+                            f"({PROBE_BATCH}, {D}, {D}) complex64",
+            "shape": {"B": PROBE_BATCH, "D": D, "reps": PROBE_REPS},
+            "counted_tflops": by[f"karatsuba_chain_kernel_d{D}_highest"][
+                "tflops"]}, counts
+
+
+# ---- recompute storage, running costs, nonlinear amplitudes, observables -
+
+RECOMPUTE_SEGMENTS = 40
+RECOMPUTE_WIDE_SAMPLES = 128
+# J of the A·sin(ε) CZ in complex64 through the kernels against complex128:
+# an H100 read 2.30e-5 and 2.34e-5 (the final states 1.25e-4 apart in norm;
+# J_T_sm, blind to a global phase, moves less than the 2·‖Δψ(T)‖ that
+# bounds it), and the control, the pulse scaled by 1 + 1e-3, 2.66e-4
+TOL_J_CUSTOM_C128 = 1e-4
+
+
+def _peak_bytes(fn):
+    """Peak device memory allocated during ``fn()`` and its host ms."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, torch.cuda.max_memory_allocated() - base, ms
+
+
+def recompute_paths(problem, cp_full, ens_series):
+    """Phases ``fg_recompute`` and ``optimize_recompute``: the robust CZ
+    ensemble (K = 32 in 8 x 4, N_T = 2000) under
+    ``storage_mode="recompute"`` with 40 segments of 50 steps, gradgen,
+    against full storage; peak memory of each mode; one evaluation each
+    way at 128 samples (K = 512); five L-BFGS-B iterations against the
+    full-storage series of ``optimize_ensemble``.  Returns the counts of
+    its counted run (the evaluations and the iterations)."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.fg import _seg_reuse_U, _vec_gradgen_enabled
+    from grape_tpu_torch.models import two_transmon_cz_ensemble_problem
+    from grape_tpu_torch.ops import (
+        hopper_cheby, hopper_frechet, hopper_matmul, hopper_prop,
+    )
+
+    mods = (hopper_prop, hopper_frechet, hopper_cheby, hopper_matmul)
+    kw = dict(dtype=np.complex64, storage_mode="recompute",
+              storage_segments=RECOMPUTE_SEGMENTS)
+    cp = gt.compile_problem(problem.trajectories, problem.tlist, **kw,
+                            **problem.kwargs)
+    S = cp.storage_segments
+    require(S == RECOMPUTE_SEGMENTS and _vec_gradgen_enabled(cp)
+            and _seg_reuse_U(cp), "unexpected recompute routing")
+    x0 = cp.guess_pulsevals.reshape(-1)
+    fg_full = gt.build_fg(cp_full)
+    (J_f, g_f, _), peak_full, _ = _peak_bytes(lambda: fg_full(x0))
+    fg_full_ms = timed_ms(lambda: fg_full(x0), 2)
+
+    zero_counts(*mods)
+    fg = gt.build_fg(cp)
+    J, g, aux, dJ_p, dg_p = fg_against_plain(fg, x0, "fg_recompute")
+    _, peak_rec, _ = _peak_bytes(lambda: fg(x0))
+    dJ = abs(float(J) - float(J_f))
+    dg = max_abs(g, g_f) / float(g_f.abs().max())
+    require(dJ < 1e-6 and dg < 1e-4,
+            f"recompute against full storage: dJ {dJ}, dgrad {dg}")
+    fg_ms = timed_ms(lambda: fg(x0), 2)
+    parts = fg_breakdown(fg, x0, reps=2)
+    n_fg = 1 + 1 + 2 + 3  # fg_against_plain's kernel call, the peak, the
+    # timing, the breakdown (its warm call included)
+
+    series = []
+    res = gt.optimize_problem(
+        problem, iter_stop=ITER_STOP, print_iters=False,
+        rethrow_exceptions=True, **kw,
+        callback=lambda wrk, it: series.append(float(wrk.result.J_T)))
+    counts = read_counts(*mods)
+    n_fg += res.fg_calls
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"forward_scan_grouped": S * (2 * n_fg + res.f_calls),
+                   "chi_scan_grouped": S * n_fg,
+                   "frechet_trace_pertraj": S * n_fg})
+    require(counts == expect, f"recompute launch counts {counts} do not "
+            f"match the evaluations {expect}")
+    dseries = max(abs(a - b) for a, b in zip(series, ens_series))
+    require(len(series) == len(ens_series) == ITER_STOP + 1
+            and dseries < 1e-5,
+            f"recompute J_T series {series} against full {ens_series}")
+
+    # 128 samples: full storage cannot keep its propagator stream
+    wide = two_transmon_cz_ensemble_problem(
+        n_samples=RECOMPUTE_WIDE_SAMPLES, d=D_TRANSMON, n_steps=N_STEPS)
+    wide_out = {}
+    grads = {}
+    for mode in ("full", "recompute"):
+        extra = dict(kw) if mode == "recompute" else {"dtype": np.complex64}
+        cpw = gt.compile_problem(wide.trajectories, wide.tlist, **extra,
+                                 **wide.kwargs)
+        xw = cpw.guess_pulsevals.reshape(-1)
+        fgw = gt.build_fg(cpw)
+        (Jw, gw, _), peak, ms_w = _peak_bytes(lambda: fgw(xw))
+        require(math.isfinite(float(Jw)) and bool(torch.isfinite(gw).all()),
+                f"K = 512 {mode}: not finite")
+        grads[mode] = (float(Jw), gw)
+        wide_out[mode] = {"ms": ms_w, "peak_bytes": peak, "J": float(Jw)}
+        del fgw, gw
+        torch.cuda.empty_cache()
+    dJw = abs(grads["full"][0] - grads["recompute"][0])
+    dgw = (max_abs(grads["full"][1], grads["recompute"][1])
+           / float(grads["full"][1].abs().max()))
+    require(dJw < 1e-6 and dgw < 1e-4,
+            f"K = 512 recompute against full: dJ {dJw}, dgrad {dgw}")
+    del grads
+    torch.cuda.empty_cache()
+    emit({"phase": "fg_recompute", "K": cp.n_traj, "segments": S,
+          "segment_steps": cp.n_timesteps // S, "J": float(J),
+          "J_abs_diff_vs_full": dJ, "grad_diff_of_max_vs_full": dg,
+          "J_abs_diff_vs_plain": dJ_p, "grad_diff_of_max_vs_plain": dg_p,
+          "ms_per_eval": fg_ms, "full_storage_ms_per_eval": fg_full_ms,
+          "device_ms_by_part": parts, "peak_bytes": peak_rec,
+          "full_storage_peak_bytes": peak_full,
+          "wide_128_samples": {"K": RECOMPUTE_WIDE_SAMPLES * N_BASIS,
+                               **wide_out, "J_abs_diff": dJw,
+                               "grad_diff_of_max": dgw}})
+    emit({"phase": "optimize_recompute", "J_T_series": series,
+          "full_storage_series": ens_series, "max_abs_diff": dseries,
+          "iterations": res.iter, "fg_calls": res.fg_calls,
+          "f_calls": res.f_calls, "message": res.message,
+          "launches": counts})
+    return counts
+
+
+def _leakage_mask(d, dev):
+    """Levels of the two-transmon register with either transmon at 2 or
+    above (index i1·d + i2)."""
+    i1, i2 = np.divmod(np.arange(d * d), d)
+    return torch.tensor((i1 >= 2) | (i2 >= 2), device=dev)
+
+
+def running_cost_gap(cz_problem, g_b, mask, x0, dev, control_rel=1e-4):
+    """The limit on |ΔJ| between the kernels and the plain versions for the
+    CZ with the leakage cost, from the forward states of both routes.
+
+    ``J_b = λ_b Σ_n w_n Σ_k g_nk`` with ``g = ⟨ψ|M|ψ⟩`` and M the leakage
+    projector, so states that differ by ``Δ_nk`` move it by at most
+    ``λ_b Σ_n w_n Σ_k (2‖Mψ_nk‖‖Δ_nk‖ + ‖Δ_nk‖²)`` (``‖Mψ‖ = √g``); each
+    float32 sum (over the levels, then over the grid and the trajectories)
+    rounds by at most ``(log2 d + log2((N_T+1)·K) + 2)·2⁻²⁴`` of J_b, and
+    J_T is held to 1e-5 as everywhere else.  The states' distance itself is
+    held to ``TOL_STATE``.  Also: the J_b gap that the two state series
+    make alone (float64 sums), which the evaluation's gap should match, and
+    a control, J on the kernel route at the pulse scaled by
+    ``1 + control_rel``, which the limit must tell apart.  λ_b = 1."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.functionals import grid_weights
+    from grape_tpu_torch.ops import plain_versions
+
+    cpo = gt.compile_problem(
+        cz_problem.trajectories, cz_problem.tlist, dtype=np.complex64,
+        g_b=g_b, lambda_b=1.0, fw_prop_callback=lambda values, tlist: None,
+        **cz_problem.kwargs)
+    f = gt.build_f(cpo)
+    J_k, aux_k = f(x0)
+    with plain_versions():
+        J_p, aux_p = f(x0)
+    J_c, _ = f(x0 * (1.0 + control_rel))
+    st_k, st_p = (a["fw_observables"][0].to(torch.complex128)
+                  for a in (aux_k, aux_p))
+    m = mask.to(torch.float64)
+    g_k = torch.sum(st_k.abs() ** 2 * m, dim=-1)
+    g_p = torch.sum(st_p.abs() ** 2 * m, dim=-1)
+    e = torch.linalg.vector_norm(st_k - st_p, dim=-1)
+    w = grid_weights(torch.tensor(cz_problem.tlist, dtype=torch.float64,
+                                  device=dev))[:, None]
+    Jb_p = float(torch.sum(w * g_p))
+    n_grid, K, d = st_k.shape
+    bound = float(torch.sum(w * (2 * g_p.sqrt() * e + e ** 2)))
+    rounding = (2 * (math.log2(d) + math.log2(n_grid * K) + 2) * 2.0 ** -24
+                * Jb_p)
+    out = {"max_state_distance": float(e.max()), "J_b_plain": Jb_p,
+           "J_b_gap_of_the_states": abs(float(torch.sum(w * (g_k - g_p)))),
+           "J_gap_build_f": abs(float(J_k) - float(J_p)),
+           "J_b_bound_from_states": bound, "rounding_bound": rounding,
+           "tol_J": 1e-5 + bound + rounding, "control_rel": control_rel,
+           "control_J_abs_diff": abs(float(J_c) - float(J_k))}
+    require(out["max_state_distance"] < TOL_STATE,
+            f"leakage CZ: kernel states differ by {out['max_state_distance']}")
+    return out
+
+
+def running_cost_paths(cz_problem, dev):
+    """Phase ``fg_running_cost``: BASELINE config 3 (the qutrit X gate
+    with its guard-level cost: d = 3, K = 2, N_T = 400) — J_b, ξ analytic
+    against ``make_xi``, complex64 against complex128, five iterations —
+    and the CZ at dim 100 with the leakage population of either transmon as
+    ``g_b`` (ξ by ``make_xi``): kernels against plain, the time with the ξ
+    chain's share.  Returns the counts of the CZ run."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.functionals import make_xi
+    from grape_tpu_torch.models import transmon_qutrit_problem
+    from grape_tpu_torch.ops import (
+        hopper_cheby, hopper_frechet, hopper_matmul, hopper_prop,
+    )
+
+    mods = (hopper_prop, hopper_frechet, hopper_cheby, hopper_matmul)
+    q = transmon_qutrit_problem()
+    cps = {dt: gt.compile_problem(q.trajectories, q.tlist, dtype=dt,
+                                  **q.kwargs)
+           for dt in (np.complex64, np.complex128)}
+    xq = cps[np.complex64].guess_pulsevals.reshape(-1)
+    zero_counts(*mods)
+    J64, g64, aux64 = gt.build_fg(cps[np.complex64])(xq)
+    counts_q = read_counts(*mods)
+    J128, g128, aux128 = gt.build_fg(cps[np.complex128])(xq)
+    Jb = float(aux64["J_parts"][2])
+    require(Jb > 0 and finite(g64.to(torch.complex64)),
+            f"config 3: J_b {Jb}")
+    dJq = abs(float(J64) - float(J128))
+    dgq = float((g64.double() - g128).abs().max() / g128.abs().max())
+    require(dJq < 1e-5 and dgq < 1e-3,
+            f"config 3 complex64 against complex128: dJ {dJq}, dg {dgq}")
+    rng = np.random.default_rng(SEED + 3)
+    P = torch.tensor(rng.normal(size=(2, 3)) + 1j * rng.normal(size=(2, 3)),
+                     dtype=torch.complex64, device=dev)
+    tl = torch.tensor(q.tlist, dtype=torch.float32, device=dev)
+    xi_auto = make_xi(q.kwargs["g_b"], q.trajectories)(P, None, tl, 5)
+    dxi = max_abs(xi_auto, q.kwargs["xi"](P, None, tl, 5))
+    require(dxi < 1e-6, f"config 3: make_xi against analytic xi {dxi}")
+    series = []
+    res = gt.optimize_problem(
+        q, iter_stop=ITER_STOP, dtype=np.complex64, print_iters=False,
+        rethrow_exceptions=True,
+        callback=lambda wrk, it: series.append(
+            float(wrk.J_parts[0] + wrk.J_parts[2])))
+    require(len(series) == ITER_STOP + 1
+            and all(b < a for a, b in zip(series, series[1:])),
+            f"config 3: J does not fall monotonically: {series}")
+
+    # the CZ at dim 100 with a leakage running cost
+    mask = _leakage_mask(D_TRANSMON, dev)
+
+    def g_b(Psi, trajectories, tlist, n):
+        return torch.sum(torch.abs(Psi) ** 2 * mask, dim=-1)
+
+    kw = dict(cz_problem.kwargs)
+    cpl = gt.compile_problem(cz_problem.trajectories, cz_problem.tlist,
+                             dtype=np.complex64, g_b=g_b, lambda_b=1.0, **kw)
+    x0 = cpl.guess_pulsevals.reshape(-1)
+    gap = running_cost_gap(cz_problem, g_b, mask, x0, dev)
+    zero_counts(*mods)
+    fg = gt.build_fg(cpl)
+    J, g, aux, dJ, dg = fg_against_plain(fg, x0, "fg_running_cost",
+                                         tol_J=gap["tol_J"])
+    require(gap["control_J_abs_diff"] > gap["tol_J"],
+            f"the J limit {gap['tol_J']} does not tell the control apart")
+    require(abs(dJ - gap["J_b_gap_of_the_states"])
+            < 1e-5 + gap["rounding_bound"],
+            f"fg_running_cost: the J gap {dJ} is not the forward states' "
+            f"{gap['J_b_gap_of_the_states']}")
+    Jb_cz = float(aux["J_parts"][2])
+    require(Jb_cz > 0, f"CZ leakage cost J_b {Jb_cz}")
+    fg_ms = timed_ms(lambda: fg(x0), 3)
+    parts = fg_breakdown(fg, x0)
+    counts = read_counts(*mods)
+    n_fg = 1 + 3 + 4
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"forward_scan_shared": n_fg,
+                   "frechet_trace_shared": n_fg})
+    require(counts == expect, f"running-cost launch counts {counts}")
+    emit({"phase": "fg_running_cost",
+          "config3": {"J": float(J64), "J_b_times_lambda": Jb,
+                      "J_complex128": float(J128), "J_abs_diff": dJq,
+                      "grad_diff_of_max": dgq, "xi_make_xi_vs_analytic": dxi,
+                      "J_series": series, "iterations": res.iter,
+                      "launches_one_eval": counts_q},
+          "cz_leakage": {"J": float(J), "J_b_times_lambda": Jb_cz,
+                         "J_abs_diff_vs_plain": dJ,
+                         "grad_diff_of_max_vs_plain": dg,
+                         "ms_per_eval": fg_ms, "device_ms_by_part": parts,
+                         "xi_chain_ms": parts.get("chi_window_plain", 0.0)
+                         + parts.get("_xi_sources", 0.0),
+                         "J_limit": gap, "launches": counts}})
+    return counts
+
+
+def custom_amplitude_path(cz_problem):
+    """Phase ``fg_custom_amplitude``: the CZ at dim 100 with its four
+    drives as ``CustomAmplitude(lambda v, t: A·sin(v[0]), control)`` and an
+    analytic bound; K1–K3 once per evaluation, kernels against plain, and
+    complex64 against complex128 on the card.  Returns the counts."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.ops import (
+        hopper_cheby, hopper_frechet, hopper_matmul, hopper_prop,
+    )
+
+    mods = (hopper_prop, hopper_frechet, hopper_cheby, hopper_matmul)
+    A = 1.0
+    gen = cz_problem.trajectories[0].generator
+    terms = [
+        (op, gt.CustomAmplitude(
+            lambda v, t: A * torch.sin(v[0]), ctl,
+            bound=lambda amp_max: (A, np.asarray([A]))))
+        for op, ctl in gen.terms
+    ]
+    H = gt.hamiltonian(gen.drift, *terms)
+    trajs = [gt.Trajectory(t.initial_state, H, target_state=t.target_state)
+             for t in cz_problem.trajectories]
+    kw = dict(cz_problem.kwargs)
+    cps = {dt: gt.compile_problem(trajs, cz_problem.tlist, dtype=dt, **kw)
+           for dt in (np.complex64, np.complex128)}
+    cp = cps[np.complex64]
+    require(len(cp.custom_terms) == 4 and cp.shared_generator,
+            "the custom-amplitude CZ must have four nonlinear slots")
+    x0 = cp.guess_pulsevals.reshape(-1)
+    zero_counts(*mods)
+    fg = gt.build_fg(cp)
+    J, g, aux, dJ, dg = fg_against_plain(fg, x0, "fg_custom_amplitude")
+    fg_ms = timed_ms(lambda: fg(x0), 3)
+    counts = read_counts(*mods)
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"forward_scan_shared": 4, "chi_scan_shared": 4,
+                   "frechet_trace_shared": 4})
+    require(counts == expect, f"custom-amplitude launch counts {counts}")
+    fg128 = gt.build_fg(cps[np.complex128])
+    J128, g128, aux128 = fg128(x0)
+    dJ128 = abs(float(J) - float(J128))
+    dg128 = float((g.double() - g128).abs().max() / g128.abs().max())
+    # the final states' distance from complex128, and a control: complex128
+    # J at the pulse scaled by 1 + 1e-3, which the limit must tell apart
+    e_T = float(torch.linalg.vector_norm(
+        aux["psi_T"].to(torch.complex128) - aux128["psi_T"], dim=-1).max())
+    J128_c, _, _ = fg128(x0 * (1.0 + 1e-3))
+    control = abs(float(J128_c) - float(J128))
+    require(dg128 < 1e-3 and dJ128 < TOL_J_CUSTOM_C128
+            and control > TOL_J_CUSTOM_C128,
+            f"custom amplitude complex64 against complex128: dJ {dJ128} "
+            f"(limit {TOL_J_CUSTOM_C128}, control {control}), dgrad {dg128}")
+    emit({"phase": "fg_custom_amplitude", "J": float(J),
+          "grad_norm": float(g.norm()), "ms_per_eval": fg_ms,
+          "J_abs_diff_vs_plain": dJ, "grad_diff_of_max_vs_plain": dg,
+          "J_complex128": float(J128), "J_abs_diff_vs_complex128": dJ128,
+          "final_state_distance_vs_complex128": e_T,
+          "J_limit_vs_complex128": TOL_J_CUSTOM_C128,
+          "control_J_abs_diff_pulse_1e-3": control,
+          "grad_diff_of_max_vs_complex128": dg128, "launches": counts})
+    return counts
+
+
+def observables_path(cz_problem, dev):
+    """Phase ``fg_observables``: the CZ with ``fw_prop_callback`` and two
+    observables (the population of the computational levels and of the
+    leakage levels, per trajectory) over one L-BFGS-B iteration; the
+    callback is called once per evaluation with ``(N_T+1, K)`` values,
+    which equal the observables of the states themselves.  Returns the
+    counts."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.ops import (
+        hopper_cheby, hopper_frechet, hopper_matmul, hopper_prop,
+    )
+
+    mods = (hopper_prop, hopper_frechet, hopper_cheby, hopper_matmul)
+    leak = _leakage_mask(D_TRANSMON, dev)
+    comp = torch.zeros_like(leak)
+    comp[[0, 1, D_TRANSMON, D_TRANSMON + 1]] = True
+
+    def pop_comp(Psi, tlist, n):
+        return torch.sum(torch.abs(Psi) ** 2 * comp, dim=-1)
+
+    def pop_leak(Psi, tlist, n):
+        return torch.sum(torch.abs(Psi) ** 2 * leak, dim=-1)
+
+    seen = []
+    zero_counts(*mods)
+    res = gt.optimize_problem(
+        cz_problem, iter_stop=1, dtype=np.complex64, print_iters=False,
+        rethrow_exceptions=True,
+        fw_prop_callback=lambda values, tlist: seen.append(values),
+        fw_prop_observables=[pop_comp, pop_leak])
+    counts = read_counts(*mods)
+    n_eval = res.fg_calls + res.f_calls
+    N_T, K = N_STEPS, len(cz_problem.trajectories)
+    require(len(seen) == n_eval,
+            f"callback called {len(seen)} times for {n_eval} evaluations")
+    require(all(len(v) == 2 and v[0].shape == (N_T + 1, K)
+                and v[1].shape == (N_T + 1, K) for v in seen),
+            "observables have the wrong shapes")
+    first = seen[0]
+    total = np.abs(first[0]) + np.abs(first[1])
+    require(np.all(np.isfinite(total)) and float(total.max()) < 1 + 1e-4
+            and abs(float(first[0][0].real.min()) - 1.0) < 1e-6,
+            "observable values are not populations")
+    # the same evaluation with the states themselves (no observables)
+    states = []
+    cp = gt.compile_problem(cz_problem.trajectories, cz_problem.tlist,
+                            dtype=np.complex64,
+                            fw_prop_callback=lambda v, t: None,
+                            **cz_problem.kwargs)
+    _, _, aux = gt.build_fg(cp)(cp.guess_pulsevals.reshape(-1))
+    st = aux["fw_observables"][0]
+    require(st.shape == (N_T + 1, K, D_TRANSMON ** 2), "states' shape")
+    want = torch.sum(torch.abs(st) ** 2 * leak, dim=-1).cpu().numpy()
+    dobs = float(np.max(np.abs(first[1].real - want)))
+    require(dobs < 1e-6, f"observable against the states: {dobs}")
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"forward_scan_shared": n_eval,
+                   "chi_scan_shared": res.fg_calls,
+                   "frechet_trace_shared": res.fg_calls})
+    require(counts == expect, f"observables launch counts {counts}")
+    emit({"phase": "fg_observables", "callback_calls": len(seen),
+          "evaluations": n_eval, "shapes": [list(v.shape) for v in first],
+          "leakage_max": float(np.abs(first[1]).max()),
+          "observable_vs_states_max_abs": dobs, "launches": counts})
+    return counts
 
 
 def main():
@@ -1835,7 +2481,8 @@ def main():
           "message": res.message, "launches": counts})
 
     # ---- the ensemble paths, each with its own counted run ----------------
-    counts_ens, counts_pertraj = ensemble_paths(ens_problem, cp_ens, s_ens)
+    counts_ens, counts_pertraj, ens_series = ensemble_paths(
+        ens_problem, cp_ens, s_ens)
 
     # ---- the qutrit ensemble, the taylor gradient, the per-step pass ------
     k7, counts_smalld, counts_cz_taylor = smalld_and_taylor_paths(
@@ -1843,6 +2490,16 @@ def main():
 
     # ---- the Chebyshev path at dim 1024 -----------------------------------
     k8, counts_cheby = cheby_paths(rng, dev)
+
+    # ---- the last two TPU kernels, each with its counted run --------------
+    k10, counts_time = time_grid_kernel_phase(cp_ens, s_ens, rng, dev)
+    k11, counts_probe = karatsuba_kernel_phase(dev)
+
+    # ---- recompute, running costs, nonlinear amplitudes, observables ------
+    counts_rec = recompute_paths(ens_problem, cp_ens, ens_series)
+    counts_rc = running_cost_paths(problem, dev)
+    counts_ca = custom_amplitude_path(problem)
+    counts_obs = observables_path(problem, dev)
 
     prop_cu = "grape_tpu_torch/csrc/prop_scan.cu"
     frechet_cu = "grape_tpu_torch/csrc/frechet_trace.cu"
@@ -1873,6 +2530,13 @@ def main():
         "cheby_scan": (
             "grape_tpu_torch/csrc/cheby_scan.cu",
             "grape_tpu/ops/pallas_prop.py:956 and :1183", counts_cheby),
+        # the per-trajectory scan without the U stream: the K5 pair (or
+        # the small-d pair under its gates)
+        "forward_scan_time": (
+            prop_cu, "grape_tpu/ops/pallas_prop.py:275", counts_time),
+        "karatsuba_chain": (
+            "grape_tpu_torch/csrc/karatsuba_chain.cu",
+            "experiments/mxu_probe.py:90", counts_probe),
     }
     cz = {
         name: {"err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
@@ -1888,7 +2552,16 @@ def main():
     cz["frechet_trace_shared"].update(
         algorithm_flops=frechet_algorithm_flops,
         under_load=frechet_under_load, ms_by_steps=frechet_ms_by_steps)
-    measured = {**cz, **ens, "forward_scan_smalld": k7, "cheby_scan": k8}
+    measured = {**cz, **ens, "forward_scan_smalld": k7, "cheby_scan": k8,
+                "forward_scan_time": k10, "karatsuba_chain": k11}
+    # launches on this slice's paths, beside the counted run of each kernel
+    for name, m in measured.items():
+        for path, c in (("recompute", counts_rec),
+                        ("running_cost", counts_rc),
+                        ("custom_amplitude", counts_ca),
+                        ("observables", counts_obs)):
+            if c.get(name):
+                m[f"launches_{path}"] = c[name]
     # launches on the taylor paths, beside the counted run of each kernel
     cz["forward_scan_shared"]["launches_cz_taylor"] = (
         counts_cz_taylor["forward_scan_shared"])

@@ -70,20 +70,26 @@ class CustomAmplitude:
     ``src/workspace.jl:285-286``, consumed with
     ``evaluate(μ; vals_dict)`` at ``src/optimize.jl:946-957``), so
     amplitudes may depend nonlinearly on the control — e.g. ``a = ε²`` or
-    trig-bounded parametrizations ``a = A·sin(ε)``.  Nonlinear amplitudes
-    are not part of this package yet: constructing one raises
-    ``NotImplementedError``.
+    trig-bounded parametrizations ``a = A·sin(ε)``.  The coefficient and
+    its control derivative are evaluated per interval from the current
+    pulse values inside each evaluation (``torch.func.vmap`` over the time
+    grid), so gradients pick up the chain-rule factor ``∂a/∂ε`` exactly;
+    the kernels consume the resulting coefficient tables as for linear
+    amplitudes.
 
     Parameters
     ----------
     func:
-        ``func(vals, t) -> coefficient`` — real-valued.
+        ``func(vals, t) -> coefficient`` — real-valued, written in torch
+        operations (it is mapped with ``torch.func.vmap`` and
+        differentiated with ``torch.func.jacfwd``).
         ``vals`` is the ``(n,)`` vector of this amplitude's control values
         at time ``t`` (a scalar for a single control works via ``vals[0]``).
     controls:
         The underlying control(s) — a single control or a tuple.
     deriv:
-        Optional ``deriv(vals, t) -> (n,)`` gradient ``∂a/∂ε``.
+        Optional ``deriv(vals, t) -> (n,)`` gradient ``∂a/∂ε``; defaults
+        to forward-mode AD (``torch.func.jacfwd``) of ``func``.
     bound:
         Optional host-side envelope callback
         ``bound(amp_max (n,)) -> (max_abs_a, max_abs_da (n,))`` giving the
@@ -95,11 +101,6 @@ class CustomAmplitude:
     """
 
     def __init__(self, func, controls, deriv=None, bound=None):
-        raise NotImplementedError(
-            "CustomAmplitude (nonlinear amplitudes a(ε, t)) is not ported "
-            "to grape_tpu_torch yet; use a control, a ShapedAmplitude or a "
-            "LockedAmplitude"
-        )
         self.func = func
         if isinstance(controls, (tuple, list)):
             self.controls = tuple(controls)

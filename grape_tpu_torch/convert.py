@@ -11,7 +11,10 @@ import numpy as np
 
 from . import functionals
 from .config import complex_dtype, numpy_dtype, real_dtype, resolve_device
-from .fg import CompiledProblem, _make_norm_cache, _prop_methods
+from .fg import (
+    CompiledProblem, _check_fw_prop_callback, _make_norm_cache,
+    _pick_segments, _prop_methods, _running_cost_closures,
+)
 from .functionals import accepts_tau, make_chi, make_grad_J_a
 from .trajectory import Trajectory
 
@@ -32,6 +35,7 @@ def _functional(fn):
 
 def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
                                 grad_J_a=None, lambda_a=1.0,
+                                g_b=None, xi=None, lambda_b=1.0,
                                 chi_min_norm=1e-100, dtype=None,
                                 device=None, gradient_method="gradgen",
                                 vectorize_backward=True,
@@ -42,7 +46,10 @@ def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
                                 prop_method=None, fw_prop_method=None,
                                 bw_prop_method=None, grad_prop_method=None,
                                 cheby_tol=1e-14, newton_m=30,
-                                newton_substeps=1):
+                                newton_substeps=1, storage_mode="full",
+                                storage_segments=None,
+                                fw_prop_callback=None,
+                                fw_prop_observables=None, custom_terms=()):
     """The port's ``CompiledProblem`` from the reference's arrays.
 
     ``arrays`` holds ``psi0 (K, d)``, ``H0 (1 | G | K, d, d)``,
@@ -63,7 +70,13 @@ def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
     settings, the propagators (``prop_method`` and the per-direction
     ``fw_/bw_/grad_prop_method`` with the reference's override chain),
     ``cheby_tol`` and ``newton_m`` / ``newton_substeps`` are carried over as
-    given.
+    given.  Closures do not cross from the reference: the state running
+    cost ``g_b`` (with ``xi``, else its ``make_xi``) and ``lambda_b``, the
+    observables callback and its ``fw_prop_observables``, and the nonlinear
+    amplitude slots ``custom_terms`` (``(j, CustomAmplitude, ctl_indices)``
+    with this package's ``CustomAmplitude``) are given as torch functions
+    of this package; ``storage_mode`` and ``storage_segments`` as for
+    ``compile_problem``.
     """
     if gradient_method not in ("gradgen", "taylor"):
         raise ValueError(
@@ -133,6 +146,7 @@ def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
         chi = make_chi(J_T, trajectories)
     if J_a is not None and grad_J_a is None:
         grad_J_a = make_grad_J_a(J_a, tlist)
+    g_b, xi = _running_cost_closures(g_b, xi, lambda_b, trajectories)
 
     methods = _prop_methods(prop_method, fw_prop_method, bw_prop_method,
                             grad_prop_method)
@@ -159,6 +173,7 @@ def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
         n_controls=L, n_timesteps=N_T, dim=d, n_traj=K,
         J_T=J_T, chi=chi, J_a=J_a, grad_J_a=grad_J_a,
         lambda_a=float(lambda_a),
+        g_b=g_b, xi=xi, lambda_b=float(lambda_b),
         gradient_method=gradient_method,
         taylor_grad_max_order=int(taylor_grad_max_order),
         taylor_grad_tolerance=float(taylor_grad_tolerance),
@@ -173,6 +188,15 @@ def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
         bw_prop_method=methods[2], grad_prop_method=methods[3],
         cheby_tol=float(cheby_tol), newton_m=int(newton_m),
         newton_substeps=int(newton_substeps),
+        storage_mode=storage_mode,
+        storage_segments=_pick_segments(storage_mode, storage_segments, N_T),
+        fw_prop_callback=_check_fw_prop_callback(fw_prop_callback,
+                                                 storage_mode),
+        fw_prop_observables=tuple(fw_prop_observables or ()),
+        custom_terms=tuple(
+            (int(j), amp, tuple(int(i) for i in idxs))
+            for (j, amp, idxs) in custom_terms
+        ),
         ctl_idx=tuple(arrays.get("ctl_idx", ())),
         shared_generator=shared,
         per_traj_coeffs=per_traj_coeffs,

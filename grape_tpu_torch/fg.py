@@ -1,9 +1,12 @@
 """The GRAPE function-and-gradient evaluation in PyTorch.
 
-Counterpart of ``grape_tpu/fg.py`` for the full-storage paths: linear
-amplitudes, dense ExpProp propagation, ``gradient_method="gradgen"`` or
-``"taylor"`` (``"auto"`` picks one), with the K trajectories in G groups of
-gs contiguous ones that share a generator.  G = 1 is gate optimization (K
+Counterpart of ``grape_tpu/fg.py``: linear and nonlinear
+(``CustomAmplitude``) amplitudes, ExpProp, Chebyshev or Krylov propagation,
+full or checkpoint/recompute storage, ``gradient_method="gradgen"`` or
+``"taylor"`` (``"auto"`` picks one), the final-time functional plus the
+pulse running cost ``J_a`` and the state running cost ``g_b`` (with its
+co-state source ``ξ``), with the K trajectories in G groups of gs
+contiguous ones that share a generator.  G = 1 is gate optimization (K
 basis states, one Hamiltonian); gs > 1 a gate ensemble (each Hamiltonian
 sample propagates its basis states); gs = 1 a robust ensemble of K distinct
 generators, which may also differ in their coefficient tables
@@ -12,21 +15,26 @@ generators, which may also differ in their coefficient tables
 - forward: per step and group ``U_ng = exp(-i H_ng dt_n)`` and
   ``Ψ ← Ψ U_ngᵀ`` for the group's ``(gs, d)`` state block, storing every
   state and, while the stream fits the budget of ``_gg_u_bytes_ok``, every
-  ``U_ng``;
-- co-states: ``χ_k(T) = -∂J_T/∂⟨Ψ_k(T)|`` by analytic formula or
-  ``torch.autograd`` semi-AD, normalised by ``ρ_k = ‖χ_k(T)‖``;
+  ``U_ng``; with ``storage_mode="recompute"`` only the state at the start
+  of each of ``S ≈ √N_T`` segments is kept, and the backward pass
+  propagates each segment again from its checkpoint (memory O(√N_T)
+  states);
+- co-states: ``χ_k(T) = -∂J_T/∂⟨Ψ_k(T)|`` (plus ``λ_b·dt/2·ξ(T)``) by
+  analytic formula or ``torch.autograd`` semi-AD, normalised by
+  ``ρ_k = ‖χ_k(T)‖``;
 - backward, phase A: the co-state chain ``χ ← χ conj(U_ng)`` over the
   stored propagators, or over propagators formed again window by window
-  where the stream was not kept;
+  where the stream was not kept, with the source
+  ``λ_b·w_n·ξ(ψ(t_n))/ρ_k`` added at each interior grid point;
 - backward, phase B: per (step, trajectory) ONE Fréchet derivative in the
   rank-1 direction ``R = ψχ†`` serves all control directions through
   ``tr(L(A, B)·M) = tr(B·L(A, M))``, reduced to the traces
   ``tr(Op_gt·L(A_ng, R_nk))`` and contracted with ``∂a_t/∂ε_l``;
 - backward, phase B with ``gradient_method="taylor"``: the Taylor
   recursion ``χ' = Σ_m (i dt)^m/m! Φ_m``, ``Φ_m = μ†(H†)^{m-1}χ + H†Φ_{m-1}``
-  for all steps at once on ``(N_T, K, L, d)`` tensors, with a static order
-  count from the amplitude envelope and an honest check of the last term
-  (``aux["taylor_ok"]``);
+  for all steps of a window at once on ``(C, K, L, d)`` tensors, with a
+  static order count from the amplitude envelope and an honest check of
+  the last term (``aux["taylor_ok"]``);
 - the per-step backward pass, one step at a time in reverse (the
   fallback): ``vectorize_backward=False``, a Taylor series that no static
   order within ``taylor_grad_max_order`` covers, or a gradgen problem
@@ -34,13 +42,17 @@ generators, which may also differ in their coefficient tables
   again (complex128);
 - assembly: ``(∇J_T)_{nl} = -2 Re Σ_k ∇τ_{knl}`` plus ``λ_a ∇J_a``.
 
-In complex64 the forward scan, the co-state chain and the Fréchet traces
-run in the hand-written CUDA kernels of ``ops.hopper_prop`` and
-``ops.hopper_frechet`` (their plain PyTorch versions for CPU tensors); in
-complex128 they run in plain PyTorch with Padé-13 and
-``torch.linalg.solve``, the arithmetic the reference uses in double
-precision.  Everything else (coefficient tables, ``J_T``, χ(T), the
-contraction with ``dM``, the Taylor recursion) is plain PyTorch in both.
+Phases A and B take a time window (the whole grid under full storage, one
+segment under recompute), so one code path serves both storage modes.
+
+In complex64 the forward scan, the co-state chain (without ``ξ``) and the
+Fréchet traces run in the hand-written CUDA kernels of ``ops.hopper_prop``
+and ``ops.hopper_frechet`` (their plain PyTorch versions for CPU tensors),
+under recompute once per segment; in complex128 they run in plain PyTorch
+with Padé-13 and ``torch.linalg.solve``, the arithmetic the reference uses
+in double precision.  Everything else (coefficient tables, ``J_T``, the
+running costs, χ(T), the ``ξ`` chain, the contraction with ``dM``, the
+Taylor recursion) is plain PyTorch in both.
 
 Propagation in each direction (``fw_prop_method``, ``bw_prop_method``,
 ``grad_prop_method``, each defaulting to ``prop_method``) is ExpProp (the
@@ -54,23 +66,29 @@ under the gradient generator.  For a shared generator in complex64 at
 run in the hand-written kernel of ``ops.hopper_cheby``; every other
 Chebyshev or Krylov step is plain PyTorch, as in the reference.
 
-Not ported yet, and raising ``NotImplementedError`` when asked for:
-``storage_mode="recompute"``, state running costs ``g_b``/``xi``,
-``CustomAmplitude``, per-trajectory propagator settings, ``mesh=``
-sharding and the forward-propagation observables callback.
+``fw_prop_callback`` receives per-step observables (or the states) of
+every evaluation under full storage.  Not ported yet, and raising
+``NotImplementedError`` when asked for: per-trajectory propagator settings
+and ``mesh=`` sharding.
 """
 
+import itertools
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from .amplitudes import CustomAmplitude
 from .config import (
     complex_dtype, numpy_dtype, real_dtype, resolve_device, torch_dtype,
 )
-from .controls import discretize_on_midpoints, get_controls
-from .functionals import accepts_tau, make_chi, make_grad_J_a, taus
+from .controls import discretize_on_midpoints, get_controls, midpoints
+from .functionals import (
+    accepts_tau, grid_weights, make_chi, make_grad_J_a, make_xi,
+    running_cost_values, taus,
+)
 from .generators import align_generators
 from .ops.cheby import cheby_apply, cheby_coeffs, spectral_envelope
 from .ops.expm import _THETA13_F64, _THETA_TAYLOR_F32, expm
@@ -78,9 +96,8 @@ from .ops.frechet import expm_frechet, gradgen_step, taylor_grad_step
 from .ops.hopper_cheby import CHEBY_MAX_DIM, cheby_scan
 from .ops.hopper_frechet import frechet_trace_pertraj, frechet_trace_shared
 from .ops.hopper_prop import (
-    SMALLD_MAX_DIM, _chi_window_plain, chi_scan_grouped,
-    chi_scan_grouped_plain, chi_scan_recompute, chi_scan_shared,
-    forward_scan_grouped, forward_scan_pertraj, forward_scan_shared,
+    SMALLD_MAX_DIM, SMALLD_MIN_TRAJ, chi_scan_grouped, chi_scan_recompute,
+    chi_scan_shared, chi_window_plain, forward_scan_grouped, forward_scan_pertraj, forward_scan_shared,
     forward_scan_smalld, taylor_order_for_bound,
 )
 from .ops.newton import arnoldi_expmv
@@ -94,9 +111,6 @@ __all__ = [
 # pass applies the T+1 static operators instead of materializing the
 # (N_T, d, d) generators
 _STATIC_H_MIN_DIM = 128
-
-# the small-dimension forward kernel: trajectories from which it is taken
-_SMALLD_MIN_TRAJ = 128
 
 # the Chebyshev-scan kernel: dimension from which it is taken (the
 # reference's gate, a TPU threshold kept so that both packages route alike)
@@ -138,6 +152,11 @@ class CompiledProblem:
     J_a: Callable = None
     grad_J_a: Callable = None
     lambda_a: float = 1.0
+    # state running cost g_b(Psi, trajectories, tlist, n) -> (K,) and its
+    # co-state source xi(Psi, trajectories, tlist, n) -> (K, d)
+    g_b: Callable = None
+    xi: Callable = None
+    lambda_b: float = 1.0
     gradient_method: str = "gradgen"
     taylor_grad_max_order: int = 100
     taylor_grad_tolerance: float = 1e-16
@@ -156,12 +175,22 @@ class CompiledProblem:
     newton_m: int = 30
     newton_substeps: int = 1
     storage_mode: str = "full"
+    # segments of storage_mode="recompute" (0 under full storage)
+    storage_segments: int = 0
     # keep the forward propagators for the co-state chain of the taylor
     # pass: "auto" (while the stream fits 4 GiB), True or False
     reuse_propagators: Any = "auto"
     # time-vectorized backward passes; False takes the per-step pass
     vectorize_backward: bool = True
     ctl_idx: tuple = ()  # static control index per term (None = locked)
+    # per-evaluation observables: fw_prop_callback(values, tlist) with
+    # values the observables (Psi (K, d), tlist, n) -> array over the grid
+    # points, or the states themselves
+    fw_prop_callback: Callable = None
+    fw_prop_observables: tuple = ()
+    # nonlinear amplitude slots ((j, CustomAmplitude, ctl_indices), ...):
+    # their coefficient and ∂a/∂ε columns are evaluated per evaluation
+    custom_terms: tuple = ()
     # all trajectories evolve under the SAME generator (gate optimization:
     # K basis states, one H) — U_n is computed once per step, not per k;
     # H0/ops then hold ONE entry
@@ -194,11 +223,6 @@ class CompiledProblem:
 # keyword -> value that means "not asked for"; anything else is an option
 # the port does not support yet
 _UNPORTED_DEFAULTS = {
-    "g_b": None,
-    "xi": None,
-    "storage_segments": None,
-    "fw_prop_callback": None,
-    "fw_prop_observables": None,
     "mesh": None,
     "_controls": None,
 }
@@ -234,10 +258,10 @@ def _check_ported(gradient_method, storage_mode, options):
             f"Unknown gradient_method: {gradient_method!r} "
             "(supported: 'gradgen', 'taylor', 'auto')"
         )
-    if storage_mode != "full":
-        raise NotImplementedError(
-            f"storage_mode={storage_mode!r} is not ported to "
-            "grape_tpu_torch yet (only 'full')"
+    if storage_mode not in ("full", "recompute"):
+        raise ValueError(
+            f"Unknown storage_mode: {storage_mode!r} "
+            "(supported: 'full', 'recompute')"
         )
     for key, val in options.items():
         if key not in _UNPORTED_DEFAULTS:
@@ -260,6 +284,8 @@ def compile_problem(
     J_a=None,
     grad_J_a=None,
     lambda_a=1.0,
+    g_b=None,
+    xi=None,
     lambda_b=1.0,
     gradient_method="gradgen",
     taylor_grad_max_order=100,
@@ -275,8 +301,11 @@ def compile_problem(
     newton_m=30,
     newton_substeps=1,
     storage_mode="full",
+    storage_segments=None,
     reuse_propagators="auto",
     vectorize_backward=True,
+    fw_prop_callback=None,
+    fw_prop_observables=None,
     device=None,
     **options,
 ):
@@ -295,9 +324,14 @@ def compile_problem(
     propagator of each direction is ``fw_prop_method`` / ``bw_prop_method``
     / ``grad_prop_method`` where given, else ``prop_method`` (``None``:
     ExpProp); ``cheby_tol`` truncates the Chebyshev series, ``newton_m`` and
-    ``newton_substeps`` size the Krylov one.  A keyword for a feature that
-    is not ported yet raises ``NotImplementedError``; an unknown keyword
-    raises ``TypeError``.
+    ``newton_substeps`` size the Krylov one.  ``g_b`` (with ``xi``, else
+    its ``make_xi``) adds the state running cost ``λ_b·J_b``;
+    ``storage_mode="recompute"`` keeps ``storage_segments`` (default: the
+    divisor of N_T nearest √N_T) checkpoints instead of every state;
+    ``fw_prop_callback`` (full storage only) receives the per-step
+    ``fw_prop_observables`` once per evaluation.  A keyword for a feature
+    that is not ported yet raises ``NotImplementedError``; an unknown
+    keyword raises ``TypeError``.
     """
     device = resolve_device(device)
     _check_ported(gradient_method, storage_mode, options)
@@ -345,6 +379,8 @@ def compile_problem(
     n_terms = len(g0.terms)
     dim = g0.dim
     ctl_idx = g0.term_control_indices(controls)
+    # nonlinear amplitude slots (identical across k after alignment)
+    custom_terms = tuple(g0.custom_terms(controls))
 
     # Coefficient tensor M (N_T, T, L): term j couples to control l_j with
     # per-interval weight shape_j[n]; locked terms go to Mfix.  Where the
@@ -400,6 +436,7 @@ def compile_problem(
         chi = make_chi(J_T, trajectories)
     if J_a is not None and grad_J_a is None:
         grad_J_a = make_grad_J_a(J_a, tlist)
+    g_b, xi = _running_cost_closures(g_b, xi, lambda_b, trajectories)
 
     rdtype = real_dtype(cdtype)
     cp = CompiledProblem(
@@ -421,6 +458,9 @@ def compile_problem(
         J_a=J_a,
         grad_J_a=grad_J_a,
         lambda_a=float(lambda_a),
+        g_b=g_b,
+        xi=xi,
+        lambda_b=float(lambda_b),
         gradient_method=(
             "gradgen" if gradient_method == "auto" else gradient_method
         ),
@@ -439,9 +479,14 @@ def compile_problem(
         newton_m=int(newton_m),
         newton_substeps=int(newton_substeps),
         storage_mode=storage_mode,
+        storage_segments=_pick_segments(storage_mode, storage_segments, N_T),
         reuse_propagators=reuse_propagators,
         vectorize_backward=bool(vectorize_backward),
         ctl_idx=tuple(ctl_idx),
+        fw_prop_callback=_check_fw_prop_callback(fw_prop_callback,
+                                                 storage_mode),
+        fw_prop_observables=tuple(fw_prop_observables or ()),
+        custom_terms=custom_terms,
         shared_generator=shared_generator,
         per_traj_coeffs=per_traj_coeffs,
         # identity-run grouping stores group-level arrays; equal arrays
@@ -459,6 +504,50 @@ def compile_problem(
     if gradient_method == "auto":
         _resolve_auto_gradient_method(cp)
     return cp
+
+
+def _running_cost_closures(g_b, xi, lambda_b, trajectories):
+    """``(g_b, xi)`` as the reference settles them, with its warnings:
+    ``g_b`` under ``lambda_b = 0`` is dropped, a missing ``xi`` is derived
+    from ``g_b`` (:func:`make_xi`), an ``xi`` without ``g_b`` is dropped."""
+    g_b_given = g_b is not None
+    if lambda_b == 0 and g_b is not None:
+        warnings.warn("Argument `g_b` was given with `lambda_b = 0.0`. Ignoring")
+        g_b = None
+        xi = None
+    if g_b is not None and xi is None:
+        xi = make_xi(g_b, trajectories)
+    if not g_b_given and xi is not None:
+        warnings.warn("Argument `xi` was given without `g_b`. Ignoring")
+        xi = None
+    return g_b, xi
+
+
+def _pick_segments(storage_mode, storage_segments, N_T):
+    """Segment count of checkpoint/recompute storage: ``storage_segments``
+    (which must divide N_T), else the divisor of N_T nearest √N_T (memory
+    about 2·√N_T states instead of N_T); 0 under full storage."""
+    if storage_mode != "recompute":
+        return 0
+    if storage_segments:
+        if N_T % int(storage_segments) != 0:
+            raise ValueError(
+                f"storage_segments ({storage_segments}) must divide the "
+                f"number of time steps ({N_T})"
+            )
+        return int(storage_segments)
+    target = max(1, int(np.sqrt(N_T)))
+    divisors = [s for s in range(1, N_T + 1) if N_T % s == 0]
+    return min(divisors, key=lambda s: abs(s - target))
+
+
+def _check_fw_prop_callback(fw_prop_callback, storage_mode):
+    if fw_prop_callback is not None and storage_mode == "recompute":
+        raise ValueError(
+            "fw_prop_callback requires storage_mode='full' (the recompute "
+            "mode does not materialize the per-step forward states)"
+        )
+    return fw_prop_callback
 
 
 def _resolve_auto_gradient_method(cp):
@@ -512,7 +601,8 @@ def _detect_gen_group_size(trajectories, H0, ops, per_traj_coeffs,
 
 def _slots_aligned(generators, controls):
     """True when all generators share a slot-aligned term structure: same
-    dimension, same term count, slot-wise the same control coupling.
+    dimension, same term count, slot-wise the same control coupling, and
+    slot-wise the SAME object for nonlinear (CustomAmplitude) slots.
     Linear slots may differ in amplitude shape/operator across
     trajectories (handled by per-trajectory coefficient tables)."""
     g0 = generators[0]
@@ -522,6 +612,11 @@ def _slots_aligned(generators, controls):
             return False
         if g.term_control_indices(controls) != idx0:
             return False
+        for (_, a), (_, a0) in zip(g.terms, g0.terms):
+            c, c0 = (isinstance(a, CustomAmplitude),
+                     isinstance(a0, CustomAmplitude))
+            if c != c0 or (c and a is not a0):
+                return False
     return True
 
 
@@ -567,7 +662,9 @@ def _default_amp_max(cp: CompiledProblem):
 def _coeff_env(cp: CompiledProblem, amp_max):
     """Host-side envelope of the per-interval coefficients and their
     control derivatives over the pulse box ``|ε_l| ≤ amp_max_l``:
-    ``(cmax (T,), dmax (T, L))`` numpy (linear amplitudes)."""
+    ``(cmax (T,), dmax (T, L))`` numpy.  A ``CustomAmplitude`` slot takes
+    its analytic ``bound`` or, without one, a sampled envelope
+    (:func:`_sample_amp_env`).  Memoized per ``amp_max``."""
     amp_max = np.asarray(amp_max, dtype=np.float64)
     key = tuple(amp_max.ravel().tolist())
     if key in cp.env_cache:
@@ -582,8 +679,69 @@ def _coeff_env(cp: CompiledProblem, amp_max):
     else:
         cmax = (np.einsum("ntl,l->nt", absM, amp_max) + absMfix).max(axis=0)
         dmax = absM.max(axis=0)
+    for j, amp, idxs in cp.custom_terms:
+        sub = amp_max[list(idxs)]
+        if amp.bound is not None:
+            ca, da = amp.bound(sub)
+        else:
+            if not getattr(amp, "_env_sample_warned", False):
+                warnings.warn(
+                    "CustomAmplitude envelope is being SAMPLED (17-point"
+                    " grids / 256 random points x 1.25 margin): a spiky"
+                    " amplitude between samples can under-size the"
+                    " static Taylor order (the honest last-term check"
+                    " catches divergence at the cost of a rebuild)."
+                    "  Supply CustomAmplitude(bound=...) for an analytic"
+                    " envelope if a(eps, t) has high curvature."
+                )
+                amp._env_sample_warned = True
+            ca, da = _sample_amp_env(amp, sub, np.asarray(cp.tlist))
+        cmax[j] = float(ca)
+        dmax[j, :] = 0.0
+        dmax[j, list(idxs)] = np.asarray(da, dtype=np.float64).reshape(-1)
     cp.env_cache[key] = (cmax, dmax)
     return cmax, dmax
+
+
+def _sample_amp_env(amp, amp_max, tlist, margin=1.25):
+    """Envelope of ``|a|`` and ``|∂a/∂ε|`` for a CustomAmplitude by
+    sampling the pulse box (×``margin``; an over-estimate only costs extra
+    Taylor orders or squarings): a 17-point grid per control for one or
+    two controls, else 256 random points, 64 corners, the axes and the
+    origin; at most 33 of the interval times.  The same points as the
+    reference, evaluated with ``torch.func`` on the CPU in the precision of
+    the inputs."""
+    n = len(amp_max)
+    amp_max = np.maximum(np.asarray(amp_max, dtype=np.float64), 1e-12)
+    if n <= 2:
+        axes = [np.linspace(-a, a, 17) for a in amp_max]
+        pts = np.array(list(itertools.product(*axes)))
+    else:
+        rng = np.random.default_rng(0)
+        pts = np.concatenate([
+            rng.uniform(-1.0, 1.0, size=(256, n)) * amp_max,
+            np.where(rng.uniform(size=(64, n)) < 0.5, -1.0, 1.0) * amp_max,
+            np.diag(amp_max),
+            -np.diag(amp_max),
+            np.zeros((1, n)),
+        ])
+    tmid = midpoints(tlist)
+    if len(tmid) > 33:
+        tmid = tmid[np.linspace(0, len(tmid) - 1, 33).astype(int)]
+    dfun = amp.deriv
+    if dfun is None:
+        dfun = torch.func.jacfwd(amp.func, argnums=0)
+    vmap = torch.func.vmap
+    fv = vmap(vmap(amp.func, in_dims=(0, None)), in_dims=(None, 0))
+    dv = vmap(vmap(dfun, in_dims=(0, None)), in_dims=(None, 0))
+    P = torch.as_tensor(pts)
+    Tm = torch.as_tensor(np.asarray(tmid))
+    with torch.no_grad():
+        av = fv(P, Tm).numpy()            # (n_t, n_pts)
+        gv = np.abs(dv(P, Tm).numpy())    # (n_t, n_pts, n)
+    ca = float(np.max(np.abs(av)))
+    da = gv.reshape(-1, n).max(axis=0)
+    return margin * ca, margin * da
 
 
 def _op_norms(cp: CompiledProblem):
@@ -657,8 +815,9 @@ def _reuse_U_enabled(cp: CompiledProblem):
     """Keep the forward step propagators ``U_n`` for the backward co-state
     propagation of the taylor gradient (``χ ← U_n†χ``, an exact identity),
     where forward and backward propagation are ExpProp.  ``"auto"`` gates
-    on the storage cost ``N_T·K·d²`` (one entry for a shared generator)
-    staying within 4 GiB.  The reference has one more
+    on the storage cost ``N_T·K·d²`` (one entry for a shared generator;
+    under recompute the steps of ONE segment) staying within 4 GiB.  The
+    reference has one more
     clause, for its TPU platform only, where collecting per-trajectory
     propagators from a scan that is not a kernel was slower than forming
     them again; it is dropped here: on the card every forward path emits U
@@ -670,9 +829,12 @@ def _reuse_U_enabled(cp: CompiledProblem):
     if cp.gradient_method != "taylor":
         return False
     if cp.reuse_propagators == "auto":
+        n_stored = cp.n_timesteps
+        if cp.storage_mode == "recompute" and cp.storage_segments:
+            n_stored = cp.n_timesteps // cp.storage_segments  # per segment
         k_u = 1 if cp.shared_generator else cp.n_traj
         nbytes = (
-            cp.n_timesteps * k_u * cp.dim * cp.dim
+            n_stored * k_u * cp.dim * cp.dim
             * np.dtype(cp.psi0.dtype).itemsize
         )
         return nbytes <= 4 * 1024**3
@@ -699,7 +861,9 @@ def uses_static_envelope(cp: CompiledProblem):
     count, the squaring count of the vectorized gradgen pass, or the order
     count of the vectorized Taylor pass.  The workspace then grows its
     envelope bucket (and builds the tables again) when the optimizer
-    pushes a pulse past it."""
+    pushes a pulse past it.  Unlike the reference, whose forward kernels
+    are off under recompute, the port runs each recomputed segment through
+    the forward kernels, so their clause holds in both storage modes."""
     if "cheby" in (cp.fw_prop_method, cp.bw_prop_method,
                    cp.grad_prop_method):
         return True
@@ -775,25 +939,45 @@ def _vec_gradgen_enabled(cp: CompiledProblem):
     ``vectorize_backward``, propagator reuse not refused), ExpProp in every
     direction, and with a feasible phase A: a propagator stream within its
     budget, or the kernels, whose co-state chain can form the propagators
-    again."""
+    again.  Under recompute the pass runs segment by segment, where phase A
+    is always feasible (per-segment stored or re-formed propagators)."""
     if not cp.vectorize_backward or cp.gradient_method != "gradgen":
         return False
     if cp.reuse_propagators is False or not _all_expprop(cp):
         return False
+    if cp.storage_mode == "recompute":
+        return True
     return _gg_u_bytes_ok(cp) or _kernels_enabled(cp)
+
+
+def _seg_reuse_U(cp: CompiledProblem):
+    """Keep the propagators of ONE recomputed segment for its co-state
+    chain (the segment-vectorized backward of recompute storage): ExpProp
+    everywhere, reuse not refused, and a segment block of
+    ``seg_len · k_u · d²`` complex entries (one per generator group) within
+    4 GiB; beyond it phase A forms the propagators again."""
+    if cp.reuse_propagators is False or not _all_expprop(cp):
+        return False
+    seg_len = cp.n_timesteps // max(cp.storage_segments, 1)
+    nbytes = (
+        seg_len * _stored_u_entries(cp) * cp.dim * cp.dim
+        * np.dtype(cp.psi0.dtype).itemsize
+    )
+    return nbytes <= 4 * 1024**3
 
 
 def _smalld_enabled(cp: CompiledProblem):
     """The small-dimension forward kernel (``forward_scan_smalld``), under
     the reference's gates so that both packages route a problem alike: the
-    kernels' precision, ExpProp forward, one generator per trajectory at
-    ``d ≤ 4``, at least 128 trajectories, one coefficient table.  It does
-    not look at the gradient method."""
+    kernels' precision, ExpProp forward, full storage, one generator per
+    trajectory at ``d ≤ 4``, at least 128 trajectories, one coefficient
+    table.  It does not look at the gradient method."""
     return (
         _kernels_enabled(cp) and cp.fw_prop_method == "expprop"
+        and cp.storage_mode != "recompute"
         and not cp.shared_generator
         and not cp.per_traj_coeffs and cp.dim <= SMALLD_MAX_DIM
-        and cp.n_traj >= _SMALLD_MIN_TRAJ
+        and cp.n_traj >= SMALLD_MIN_TRAJ
     )
 
 
@@ -994,12 +1178,43 @@ def _coeff_tables(cp: CompiledProblem, consts, eps):
     the CURRENT pulse values ``eps (L, N_T)``: ``(coeffs (N_T, T),
     dM (N_T, T, L))``, with a leading ``K`` axis when
     ``cp.per_traj_coeffs``.  Linear amplitudes: ``M @ ε + Mfix`` and
-    ``M``."""
+    ``M``; a ``CustomAmplitude`` slot ``j`` gets ``a(ε_n, t_n)`` in its
+    coefficient column and ``∂a/∂ε`` (its ``deriv``, else forward-mode AD)
+    in its derivative entries, evaluated over the time grid with
+    ``torch.func.vmap``, at ``t_n`` the interval midpoints except ``t_0``
+    and ``t_{N_T}`` for the first and last interval."""
     if cp.per_traj_coeffs:
         coeffs = torch.einsum("kntl,ln->knt", consts["M"], eps)
     else:
         coeffs = torch.einsum("ntl,ln->nt", consts["M"], eps)
-    return coeffs + consts["Mfix"], consts["M"]
+    coeffs = coeffs + consts["Mfix"]
+    dM = consts["M"]
+    if not cp.custom_terms:
+        return coeffs, dM
+    tl = consts["tlist"]
+    tmid = 0.5 * (tl[:-1] + tl[1:])
+    tmid[0] = tl[0]
+    tmid[-1] = tl[-1]
+    tmid = tmid.to(eps.dtype)
+    dM = dM.clone()  # the consts are shared by every evaluation
+    vmap = torch.func.vmap
+    for j, amp, idxs in cp.custom_terms:
+        idx = list(idxs)
+        vals = eps[idx, :]  # (n_j, N_T)
+        aj = vmap(amp.func, in_dims=(1, 0))(vals, tmid)
+        aj = aj.reshape(cp.n_timesteps).to(coeffs.dtype)
+        dfun = amp.deriv
+        if dfun is None:
+            dfun = torch.func.jacfwd(amp.func, argnums=0)
+        dj = vmap(dfun, in_dims=(1, 0))(vals, tmid)
+        dj = dj.reshape(cp.n_timesteps, len(idx)).to(dM.dtype)
+        if cp.per_traj_coeffs:
+            coeffs[:, :, j] = aj[None, :]
+            dM[:, :, j, idx] = dj[None]
+        else:
+            coeffs[:, j] = aj
+            dM[:, j, idx] = dj
+    return coeffs, dM
 
 
 def _generators(consts, coeffs, sl):
@@ -1034,47 +1249,75 @@ def _expm_steps(A):
     return out
 
 
-def _forward_series(cp: CompiledProblem, consts, coeffs, pd):
-    """Forward propagation by the Chebyshev or Krylov series:
-    ``storage (N_T+1, K, d)``.  The Chebyshev-scan kernel where it is
-    gated on, else step by step (one generator per group, broadcast over
-    the group's states: the reference's per-trajectory arithmetic)."""
-    psi0 = consts["psi0"]
+def _window(cp: CompiledProblem, consts, coeffs, dM, n0, n1):
+    """The per-step inputs of the time window ``n0..n1-1``: ``(consts`` with
+    its ``dt`` cut to the window, ``coeffs``, ``dM)`` (``dM`` may be None).
+    The phases below index these by the step within the window; where a
+    global index is needed (the Chebyshev tables, the grid weights, the
+    ``ξ`` and ``g_b`` closures) they are given the window's start ``n0``."""
+    if n0 == 0 and n1 == cp.n_timesteps:
+        return consts, coeffs, dM
+
+    def cut(x):
+        if x is None:
+            return None
+        return x[:, n0:n1] if cp.per_traj_coeffs else x[n0:n1]
+
+    return dict(consts, dt=consts["dt"][n0:n1]), cut(coeffs), cut(dM)
+
+
+def _forward_series(cp: CompiledProblem, consts, coeffs, pd, psi0, n0):
+    """Forward propagation by the Chebyshev or Krylov series over the
+    window of ``consts``/``coeffs`` starting at step ``n0``, from ``psi0``:
+    ``states (C+1, K, d)``.  The Chebyshev-scan kernel where it is gated
+    on (on the window's rows of the tables), else step by step (one
+    generator per group, broadcast over the group's states: the
+    reference's per-trajectory arithmetic)."""
+    N = consts["dt"].shape[0]
     if _cheby_kernel_enabled(cp, pd):
         ys = cheby_scan(
             consts["H0"][0], consts["ops"][0],
-            coeffs.to(torch.float32).contiguous(), pd["tab_fw_t"],
-            pd["ph_fw_t"], pd["shift"], pd["dE"], psi0, adjoint=False,
+            coeffs.to(torch.float32).contiguous(),
+            pd["tab_fw_t"][n0:n0 + N].contiguous(),
+            pd["ph_fw_t"][n0:n0 + N].contiguous(),
+            pd["shift"], pd["dE"], psi0, adjoint=False,
         )
         return torch.cat([psi0[None], ys])
     G = consts["H0"].shape[0]
     K, d = psi0.shape
-    N_T = cp.n_timesteps
     dts = np.diff(np.asarray(cp.tlist, dtype=np.float64)).tolist()
     psi = psi0.reshape(G, K // G, d)
     states = [psi0]
-    C = _gradgen_chunk(cp)
-    for c0 in range(0, N_T, C):
+    C = _gradgen_chunk(cp, n_steps=N)
+    for c0 in range(0, N, C):
         opT = _series_operator(
             pd, _generators(consts, coeffs, slice(c0, c0 + C)))
         for j in range(opT.shape[0]):
-            psi = _series_prop(pd, opT[j], psi, dts[c0 + j], c0 + j)
+            n = n0 + c0 + j
+            psi = _series_prop(pd, opT[j], psi, dts[n], n)
             states.append(psi.reshape(K, d))
     return torch.stack(states)
 
 
 def _forward(cp: CompiledProblem, consts, coeffs, amp_max, pds,
-             want_U=True):
-    """Forward propagation: ``(storage (N_T+1, K, d), Us)`` with
-    ``Us (N_T, d, d)`` for a shared generator, ``(N_T, G, d, d)`` otherwise,
-    or None where ``want_U`` is false and the path can do without (always
-    None under a Chebyshev or Krylov forward)."""
+             want_U=True, psi0=None, n0=0):
+    """Forward propagation over the window of ``consts``/``coeffs`` (the
+    whole grid, or one segment starting at step ``n0``) from ``psi0``
+    (default: the initial states): ``(states (C+1, K, d), Us)`` with
+    ``Us (C, d, d)`` for a shared generator, ``(C, G, d, d)`` otherwise, or
+    None where ``want_U`` is false and the path can do without (always
+    None under a Chebyshev or Krylov forward).  A recomputed segment goes
+    through the same kernel wrappers as the whole grid (a routing choice of
+    the port: the reference re-propagates segments in its XLA step); each
+    launch writes only the window's states."""
+    if psi0 is None:
+        psi0 = consts["psi0"]
     if pds["fw"] is not None:
-        return _forward_series(cp, consts, coeffs, pds["fw"]), None
+        return _forward_series(cp, consts, coeffs, pds["fw"], psi0, n0), None
     if _kernels_enabled(cp):
         args = (
             coeffs.to(torch.float32).contiguous(),
-            consts["dt"].to(torch.float32), consts["psi0"],
+            consts["dt"].to(torch.float32).contiguous(), psi0.contiguous(),
         )
         n_sq = _static_squarings(cp, amp_max)
         if consts["smalld"]:
@@ -1101,16 +1344,16 @@ def _forward(cp: CompiledProblem, consts, coeffs, amp_max, pds,
         )
     cdt = consts["cdtype"]
     G = consts["H0"].shape[0]
-    N_T, K, d = cp.n_timesteps, cp.n_traj, cp.dim
+    N = consts["dt"].shape[0]
+    K, d = psi0.shape
     a_all = (-1j * consts["dt"]).to(cdt)
     Us = None
     if want_U:
-        Us = torch.empty((N_T, G, d, d), dtype=cdt,
-                         device=consts["H0"].device)
-    psi = consts["psi0"].reshape(G, K // G, d)
-    states = [consts["psi0"]]
-    C = _gradgen_chunk(cp)
-    for c0 in range(0, N_T, C):
+        Us = torch.empty((N, G, d, d), dtype=cdt, device=psi0.device)
+    psi = psi0.reshape(G, K // G, d)
+    states = [psi0]
+    C = _gradgen_chunk(cp, n_steps=N)
+    for c0 in range(0, N, C):
         sl = slice(c0, c0 + C)
         Uc = _expm_steps(
             a_all[sl, None, None, None] * _generators(consts, coeffs, sl)
@@ -1125,10 +1368,18 @@ def _forward(cp: CompiledProblem, consts, coeffs, amp_max, pds,
     return torch.stack(states), Us
 
 
-def _J_parts(cp: CompiledProblem, pulsevals, storage):
-    """``[J_T, λ_a J_a, λ_b J_b]`` and tau values from the forward storage
-    (``J_b`` is zero: state running costs are not ported)."""
-    psi_T = storage[-1]
+def _running_cost(cp: CompiledProblem, consts, states, n0=0):
+    """``Σ_n w_n Σ_k g_b(Ψ_k(t_n))`` (trapezoid weights ``w``) over the
+    grid points ``n0..n0+C-1`` of ``states (C, K, d)``, without ``λ_b``."""
+    tl = consts["tlist"]
+    w = grid_weights(tl)[n0:n0 + states.shape[0]]
+    gvals = running_cost_values(cp.g_b, states, cp.trajectories, tl, n0)
+    return torch.sum(w[:, None] * gvals)
+
+
+def _J_parts(cp: CompiledProblem, pulsevals, psi_T, gb_sum):
+    """``[J_T, λ_a J_a, λ_b J_b]`` and tau values from the final states
+    and ``gb_sum`` (the weighted sum of ``g_b`` over the grid, or None)."""
     tau = taus(psi_T, cp.trajectories) if cp.has_targets else None
     if cp.J_T_takes_tau:
         J_T_val = cp.J_T(psi_T, cp.trajectories, tau=tau)
@@ -1138,88 +1389,139 @@ def _J_parts(cp: CompiledProblem, pulsevals, storage):
     J_a_val = zero
     if cp.J_a is not None:
         J_a_val = cp.lambda_a * cp.J_a(pulsevals, cp.tlist)
-    return J_T_val, J_a_val, zero, tau
+    J_b_val = zero
+    if gb_sum is not None:
+        J_b_val = (cp.lambda_b * gb_sum).to(J_T_val.dtype)
+    return J_T_val, J_a_val, J_b_val, tau
 
 
-def _chi_boundary(cp: CompiledProblem, psi_T, tau):
-    """``χ(T)``."""
+def _chi_boundary(cp: CompiledProblem, consts, psi_T, tau):
+    """``χ(T)``, including the ``λ_b (dt_NT / 2) ξ(T)`` boundary term."""
     if cp.chi_takes_tau:
-        return cp.chi(psi_T, cp.trajectories, tau=tau)
-    return cp.chi(psi_T, cp.trajectories)
+        chi = cp.chi(psi_T, cp.trajectories, tau=tau)
+    else:
+        chi = cp.chi(psi_T, cp.trajectories)
+    if cp.xi is not None:
+        dt_last = float(cp.tlist[-1] - cp.tlist[-2])
+        chi = chi + cp.lambda_b * 0.5 * dt_last * cp.xi(
+            psi_T, cp.trajectories, consts["tlist"], cp.n_timesteps
+        )
+    return chi
 
 
-def _chi_trajectory(cp: CompiledProblem, Us, chi_hat):
-    """Phase A of the vectorized backward pass: the normalized co-state
-    trajectory via the stored propagators, ``χ ← χ conj(U_ng)`` in reverse
-    time, with ``Us (N_T, d, d)`` shared or ``(N_T, G, d, d)`` one per group
-    of ``K / G`` trajectories.  Returns ``chis (N_T, K, d)`` with
-    ``chis[n] = χ(t_{n+1})`` (what step ``n``'s gradient consumes)."""
-    if _kernels_enabled(cp):
+def _xi_sources(cp: CompiledProblem, consts, psis, n0, safe_rho):
+    """The co-state sources ``λ_b·w_n·ξ(Ψ(t_n))/ρ_k`` of the steps
+    ``n0..n0+C-1`` at the states ``psis (C, K, d)``, zero at ``n = 0``;
+    None without ``ξ``.  ``ξ_n`` depends on ``ψ(t_n)`` alone, so all of a
+    window's are formed at once (``torch.func.vmap`` over the steps);
+    only their sum into the chain is sequential."""
+    if cp.xi is None:
+        return None
+    cdt = consts["cdtype"]
+    tl = consts["tlist"]
+    C = psis.shape[0]
+    ns = torch.arange(n0, n0 + C, device=psis.device)
+    xis = torch.func.vmap(
+        lambda psi, n: cp.xi(psi, cp.trajectories, tl, n)
+    )(psis, ns)
+    w = grid_weights(tl)[n0:n0 + C]
+    scale = (cp.lambda_b * w[:, None] / safe_rho[None, :]).to(cdt)
+    src = scale[:, :, None] * xis.to(cdt)
+    if n0 == 0:
+        src[0] = 0
+    return src
+
+
+def _chi_trajectory(cp: CompiledProblem, Us, chi_hat, src=None):
+    """Phase A over the stored propagators of a window, ``χ ← χ conj(U_ng)``
+    in reverse time, with ``Us (C, d, d)`` shared or ``(C, G, d, d)`` one
+    per group of ``K / G`` trajectories, plus the sources ``src`` (ξ).
+    Returns ``(chis (C, K, d), χ_out)`` with ``chis[j] = χ(t_{n0+j+1})``
+    (what step ``n0 + j``'s gradient consumes) and ``χ_out`` the co-state
+    carried out of the window.  Without ξ in the kernels' precision: the
+    χ-scan kernel; with ξ the chain is plain PyTorch step by step (as the
+    reference's χ kernel is off under ξ)."""
+    Ug = Us[:, None] if Us.ndim == 3 else Us
+    G = Ug.shape[1]
+    K, d = chi_hat.shape
+    if src is None and _kernels_enabled(cp):
         if Us.ndim == 3:
-            return chi_scan_shared(Us, chi_hat.contiguous())
-        return chi_scan_grouped(Us, chi_hat.contiguous())
-    return chi_scan_grouped_plain(Us[:, None] if Us.ndim == 3 else Us,
-                                  chi_hat)
+            chis = chi_scan_shared(Us, chi_hat.contiguous())
+        else:
+            chis = chi_scan_grouped(Us, chi_hat.contiguous())
+        chi_out = (chis[0].reshape(G, K // G, d) @ Ug[0].conj()).reshape(K, d)
+        return chis, chi_out
+    chis = torch.empty((Ug.shape[0], K, d), dtype=chi_hat.dtype,
+                       device=chi_hat.device)
+    return chis, chi_window_plain(Ug, chi_hat, chis, src)
 
 
 def _chi_prop_scan(cp: CompiledProblem, consts, coeffs, chi_hat, amp_max,
-                   pds):
-    """Phase A without stored propagators (a Chebyshev or Krylov backward
-    direction, a stream beyond its budget, or ``reuse_propagators=False``).
+                   pds, src=None, n0=0):
+    """Phase A without stored propagators over the window of
+    ``consts``/``coeffs`` starting at step ``n0`` (a Chebyshev or Krylov
+    backward direction, a stream beyond its budget, or
+    ``reuse_propagators=False``), plus the sources ``src`` (ξ).  Returns
+    ``(chis (C, K, d), χ_out)`` as :func:`_chi_trajectory`.
 
     Under the backward series: the Chebyshev-scan kernel's adjoint where it
-    is gated on, else ``χ ← exp(+i dt_n H_n†) χ`` step by step.  Under
+    is gated on and the window is the whole grid without ξ (as in the
+    reference), else ``χ ← exp(+i dt_n H_n†) χ`` step by step.  Under
     ExpProp: the co-state chain over propagators formed again, one
     ``exp(-i H_ng dt_n)`` per step and group, applied as
-    ``χ ← χ·conj(U_ng)`` (``exp(+i dt H†) ≡ U†``); in the kernels'
-    precision the propagator and χ-scan kernels do it window by window,
-    otherwise (complex128) the plain branch below does, a chunk of steps at
-    a time with each step's own norm-derived squaring count."""
+    ``χ ← χ·conj(U_ng)`` (``exp(+i dt H†) ≡ U†``); in the kernels' precision
+    without ξ the propagator and χ-scan kernels do it window by window,
+    otherwise the plain branch below does, a chunk of steps at a time with
+    each step's own norm-derived squaring count."""
     pd_bw = pds["bw"]
+    N = consts["dt"].shape[0]
+    K, d = chi_hat.shape
+    G = consts["H0"].shape[0]
+    chis = torch.empty((N, K, d), dtype=chi_hat.dtype,
+                       device=chi_hat.device)
     if pd_bw is not None:
-        if _cheby_kernel_enabled(cp, pd_bw):
-            return cheby_scan(
+        if (_cheby_kernel_enabled(cp, pd_bw) and src is None
+                and N == cp.n_timesteps):
+            chis = cheby_scan(
                 consts["H0"][0], consts["ops"][0],
                 coeffs.to(torch.float32).contiguous(), pd_bw["tab_bw_t"],
                 pd_bw["ph_bw_t"], pd_bw["shift"], pd_bw["dE"],
                 chi_hat.contiguous(), adjoint=True,
             )
-        N_T, K, d = cp.n_timesteps, cp.n_traj, cp.dim
-        G = consts["H0"].shape[0]
+            return chis, None  # the whole grid: no carry is consumed
         dts = np.diff(np.asarray(cp.tlist, dtype=np.float64)).tolist()
-        chis = torch.empty((N_T, K, d), dtype=chi_hat.dtype,
-                           device=chi_hat.device)
         chi = chi_hat.reshape(G, K // G, d)
-        C = _gradgen_chunk(cp)
-        for n1 in range(N_T, 0, -C):
-            n0 = max(0, n1 - C)
-            Hd = _generators(consts, coeffs, slice(n0, n1)).conj()
+        C = _gradgen_chunk(cp, n_steps=N)
+        for c1 in range(N, 0, -C):
+            c0 = max(0, c1 - C)
+            Hd = _generators(consts, coeffs, slice(c0, c1)).conj()
             opT = _series_operator(pd_bw, Hd.transpose(-1, -2))
-            for n in range(n1 - 1, n0 - 1, -1):
-                chis[n] = chi.reshape(K, d)  # χ(t_{n+1})
-                chi = _series_prop(pd_bw, opT[n - n0], chi, dts[n], n,
+            for j in range(c1 - 1, c0 - 1, -1):
+                chis[j] = chi.reshape(K, d)  # χ(t_{n+1})
+                n = n0 + j
+                chi = _series_prop(pd_bw, opT[j - c0], chi, dts[n], n,
                                    adjoint=True)
-        return chis
-    if _kernels_enabled(cp):
+                if src is not None:
+                    chi = chi + src[j].reshape(G, K // G, d)
+        return chis, chi.reshape(K, d)
+    if src is None and _kernels_enabled(cp):
         return chi_scan_recompute(
             consts["H0"], consts["ops"],
             coeffs.to(torch.float32).contiguous(),
-            consts["dt"].to(torch.float32), chi_hat.contiguous(),
+            consts["dt"].to(torch.float32).contiguous(), chi_hat.contiguous(),
             _static_squarings(cp, amp_max),
         )
-    N_T, K, d = cp.n_timesteps, cp.n_traj, cp.dim
     a_all = (-1j * consts["dt"]).to(consts["cdtype"])
-    chis = torch.empty((N_T, K, d), dtype=chi_hat.dtype,
-                       device=chi_hat.device)
-    C = _gradgen_chunk(cp)
+    C = _gradgen_chunk(cp, n_steps=N)
     chi = chi_hat
-    for n1 in range(N_T, 0, -C):
-        sl = slice(max(0, n1 - C), n1)
+    for c1 in range(N, 0, -C):
+        sl = slice(max(0, c1 - C), c1)
         Uc = _expm_steps(
             a_all[sl, None, None, None] * _generators(consts, coeffs, sl)
         )
-        chi = _chi_window_plain(Uc, chi, chis[sl])
-    return chis
+        chi = chi_window_plain(Uc, chi, chis[sl],
+                               None if src is None else src[sl])
+    return chis, chi
 
 
 def _gradgen_chunk(cp: CompiledProblem, n_steps=None, n_intermediates=8,
@@ -1490,40 +1792,43 @@ def _gradgen_series_step(pd, HT, muT, chi, dt_n, n):
     return ext[:, :, :-1], ext[:, :, -1]
 
 
-def _backward_per_step(cp: CompiledProblem, consts, coeffs, dM, storage, Us,
-                       chi_hat, rho, amp_max, pds):
+def _backward_per_step(cp: CompiledProblem, consts, coeffs, dM, psis, Us,
+                       chi_hat, rho, amp_max, pds, src=None, n0=0):
     """The per-step backward pass (the fallback of the vectorized ones, and
-    gradgen's pass under a Chebyshev or Krylov gradient propagator): in
+    gradgen's pass under a Chebyshev or Krylov gradient propagator) over
+    the window of ``consts``/``coeffs``/``dM`` starting at step ``n0``: in
     reverse time, one step at a time, the co-state and its control
     derivatives ``χ'_l = (∂/∂ε_l exp(+i dt H†)) χ`` by the Taylor recursion
     with its own convergence check and the ``bw`` propagator for χ
     (taylor), or by the augmented generator under the ``grad`` propagator
     (gradgen: the exponential, or the extended-state Chebyshev or Krylov
-    series), and ``∇τ_{knl} = ρ_k ⟨χ'_{kl}|Ψ_k(t_n)⟩``.  ``Us`` holds the
-    stored forward propagators or is None.  Returns
-    ``(tau_grads (N_T, K, L), taylor_ok)``, ``taylor_ok`` the ``all`` over
-    the steps."""
+    series), and ``∇τ_{knl} = ρ_k ⟨χ'_{kl}|Ψ_k(t_n)⟩``; the sources ``src``
+    (ξ) are added to χ after each step.  ``psis (C, K, d)`` holds the
+    window's states at the step starts, ``Us`` its stored forward
+    propagators or None.  Returns ``(tau_grads (C, K, L), taylor_ok,
+    χ_out)``, ``taylor_ok`` the ``all`` over the steps."""
     cdt = consts["cdtype"]
     use_taylor = cp.gradient_method == "taylor"
     G = consts["H0"].shape[0]
-    N_T, K, d = cp.n_timesteps, cp.n_traj, cp.dim
+    N, K, d = psis.shape
     L = cp.n_controls
     dts = np.diff(np.asarray(cp.tlist, dtype=np.float64))
     h_scale = max(_h_norm_bound(cp, amp_max), 1e-30) if use_taylor else None
     pd_grad = None if use_taylor else pds["grad"]
     chi = chi_hat.reshape(G, K // G, d)
-    chi_primes = torch.empty((N_T, K, L, d), dtype=cdt,
+    chi_primes = torch.empty((N, K, L, d), dtype=cdt,
                              device=chi_hat.device)
     oks = []
     # the step operators a chunk of steps at a time, then step by step
-    C = _gradgen_chunk(cp)
-    for n1 in range(N_T, 0, -C):
-        n0 = max(0, n1 - C)
-        Hd_c, mud_c = _adjoint_ops(cp, consts, coeffs, dM, slice(n0, n1))
+    C = _gradgen_chunk(cp, n_steps=N)
+    for c1 in range(N, 0, -C):
+        c0 = max(0, c1 - C)
+        Hd_c, mud_c = _adjoint_ops(cp, consts, coeffs, dM, slice(c0, c1))
         if pd_grad is not None:
             HT_c, muT_c = _gradgen_series_operators(pd_grad, Hd_c, mud_c)
-        for n in range(n1 - 1, n0 - 1, -1):
-            Hd, mud = Hd_c[n - n0], mud_c[n - n0]
+        for j in range(c1 - 1, c0 - 1, -1):
+            Hd, mud = Hd_c[j - c0], mud_c[j - c0]
+            n = n0 + j  # the global step (the tables, dt)
             dt_n = float(dts[n])
             # one generator per group, broadcast over the group's co-states
             if use_taylor:
@@ -1537,23 +1842,96 @@ def _backward_per_step(cp: CompiledProblem, consts, coeffs, dM, storage, Us,
                 oks.append(ok)
                 U_n = None
                 if Us is not None:
-                    U_n = Us[n] if Us.ndim == 4 else Us[n][None]
+                    U_n = Us[j] if Us.ndim == 4 else Us[j][None]
                 chi = _apply_bw_prop(pds["bw"], Hd, chi, dt_n, n, U_n)
             elif pd_grad is not None:
                 chi_prime, chi = _gradgen_series_step(
-                    pd_grad, HT_c[n - n0], muT_c[n - n0], chi, dt_n, n)
+                    pd_grad, HT_c[j - c0], muT_c[j - c0], chi, dt_n, n)
             else:
                 chi_prime, chi = gradgen_step(Hd[:, None], mud[:, None], chi,
                                               -dt_n)
-            chi_primes[n] = chi_prime.reshape(K, L, d)
+            if src is not None:
+                chi = chi + src[j].reshape(G, K // G, d)
+            chi_primes[j] = chi_prime.reshape(K, L, d)
     # ∇τ_{knl} = ρ_k ⟨χ'_{kl}|Ψ_k(t_n)⟩
     grads = rho[None, :, None].to(cdt) * torch.einsum(
-        "nkli,nki->nkl", chi_primes.conj(), storage[:-1])
+        "nkli,nki->nkl", chi_primes.conj(), psis)
     if oks:
         taylor_ok = torch.all(torch.stack(oks))
     else:
         taylor_ok = torch.ones((), dtype=torch.bool, device=chi_hat.device)
-    return grads, taylor_ok
+    return grads, taylor_ok, chi.reshape(K, d)
+
+
+def _backward_window(cp: CompiledProblem, consts, coeffs, dM, psis, Us,
+                     chi, rho, safe_rho, amp_max, pds, n0, vec_gg,
+                     n_orders):
+    """The backward pass over one time window (the whole grid under full
+    storage, one segment under recompute) starting at step ``n0``: the
+    window's ``consts``/``coeffs``/``dM``, its states at the step starts
+    ``psis (C, K, d)``, its stored propagators ``Us`` or None, and the
+    co-state ``chi`` entering it from the later side.  Phase A and the
+    vectorized gradgen or taylor phase B, or the per-step pass.  Returns
+    ``(tau_grads (C, K, L), taylor_ok, χ_out)``."""
+    src = _xi_sources(cp, consts, psis, n0, safe_rho)
+    if not (vec_gg or n_orders is not None):
+        return _backward_per_step(cp, consts, coeffs, dM, psis, Us, chi,
+                                  rho, amp_max, pds, src, n0)
+    if Us is not None:
+        chis, chi_out = _chi_trajectory(cp, Us, chi, src)
+    else:
+        chis, chi_out = _chi_prop_scan(cp, consts, coeffs, chi, amp_max,
+                                       pds, src, n0)
+    if vec_gg:
+        taylor_ok = torch.ones((), dtype=torch.bool, device=chi.device)
+        tau_grads = _backward_vectorized_gradgen(
+            cp, consts, coeffs, dM, psis, chis, rho, amp_max)
+    else:
+        tau_grads, taylor_ok = _backward_vectorized(
+            cp, consts, coeffs, dM, psis, chis, rho, amp_max, n_orders)
+    return tau_grads, taylor_ok, chi_out
+
+
+def _forward_checkpoints(cp: CompiledProblem, consts, coeffs, amp_max,
+                         pds):
+    """The forward pass of recompute storage: segment by segment from the
+    initial states, keeping only each segment's start state, with the
+    running cost summed segment by segment.  Returns
+    ``(checkpoints (S, K, d), psi_T, gb_sum or None)``."""
+    S = cp.storage_segments
+    seg = cp.n_timesteps // S
+    psi = consts["psi0"]
+    checkpoints = []
+    gb_sum = None
+    for s in range(S):
+        n0 = s * seg
+        cs, co, _ = _window(cp, consts, coeffs, None, n0, n0 + seg)
+        checkpoints.append(psi)
+        states, _ = _forward(cp, cs, co, amp_max, pds, want_U=False,
+                             psi0=psi, n0=n0)
+        if cp.g_b is not None:
+            part = _running_cost(cp, consts, states[:-1], n0)
+            gb_sum = part if gb_sum is None else gb_sum + part
+        psi = states[-1]
+    if cp.g_b is not None:
+        gb_sum = gb_sum + _running_cost(cp, consts, psi[None], cp.n_timesteps)
+    return torch.stack(checkpoints), psi, gb_sum
+
+
+def _fw_observables(cp: CompiledProblem, consts, storage):
+    """Per-step observable values over the stored forward states: each of
+    ``fw_prop_observables`` ``(Psi (K, d), tlist, n) -> array`` at every
+    grid point (``torch.func.vmap`` over the points), as complex tensors
+    ``(N_T+1, ...)``; with no observables the states themselves."""
+    if not cp.fw_prop_observables:
+        return (storage,)
+    tl = consts["tlist"]
+    ns = torch.arange(cp.n_timesteps + 1, device=storage.device)
+    return tuple(
+        torch.func.vmap(lambda psi, n, _o=obs: _o(psi, tl, n))(
+            storage, ns).to(consts["cdtype"])
+        for obs in cp.fw_prop_observables
+    )
 
 
 def _as_pulse(pulsevals, consts, device):
@@ -1575,20 +1953,33 @@ def build_f(cp: CompiledProblem, amp_max=None, device=None):
     device = cp.device if device is None else resolve_device(device)
     consts = _device_constants(cp, device)
     pds = _prop_data_on(_prop_data(cp, amp_max), device)
+    recompute = cp.storage_mode == "recompute"
 
     @torch.no_grad()
     def f(pulsevals):
         pulsevals = _as_pulse(pulsevals, consts, device)
         eps = pulsevals.reshape(cp.n_controls, cp.n_timesteps)
         coeffs, _ = _coeff_tables(cp, consts, eps)
-        storage, _ = _forward(cp, consts, coeffs, amp_max, pds, want_U=False)
-        J_T_val, J_a_val, J_b_val, tau = _J_parts(cp, pulsevals, storage)
+        storage = None
+        if recompute:
+            _, psi_T, gb_sum = _forward_checkpoints(cp, consts, coeffs,
+                                                    amp_max, pds)
+        else:
+            storage, _ = _forward(cp, consts, coeffs, amp_max, pds,
+                                  want_U=False)
+            psi_T = storage[-1]
+            gb_sum = (None if cp.g_b is None
+                      else _running_cost(cp, consts, storage))
+        J_T_val, J_a_val, J_b_val, tau = _J_parts(cp, pulsevals, psi_T,
+                                                  gb_sum)
         J = J_T_val + J_a_val + J_b_val
         aux = {
             "J_parts": torch.stack([J_T_val, J_a_val, J_b_val]),
             "tau": tau if tau is not None else _zero_tau(cp, consts, device),
-            "psi_T": storage[-1],
+            "psi_T": psi_T,
         }
+        if cp.fw_prop_callback is not None:
+            aux["fw_observables"] = _fw_observables(cp, consts, storage)
         return J, aux
 
     return f
@@ -1600,13 +1991,21 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
     Returns ``fg(pulsevals_flat) -> (J, grad_flat, aux)`` (torch tensors on
     the device) with the flat l-major pulse layout
     ``[ε_11.. ε_{N_T}1, ε_12..]``.  ``aux`` has the reference's keys;
-    ``tau`` and ``psi_T`` are complex tensors.  ``device=None`` means the
-    device the problem was compiled for.
+    ``tau`` and ``psi_T`` (and ``fw_observables``) are complex tensors.
+    ``device=None`` means the device the problem was compiled for.
+
+    Under ``storage_mode="recompute"`` the forward pass keeps one state per
+    segment, and the backward pass propagates each segment again from its
+    checkpoint (through the same forward kernels, one launch per segment,
+    with the segment's propagators while ``_seg_reuse_U`` allows), then
+    runs phases A and B over that segment's window (the Fréchet kernels
+    take one segment window per launch).
     """
     device = cp.device if device is None else resolve_device(device)
     consts = _device_constants(cp, device)
     pds = _prop_data_on(_prop_data(cp, amp_max), device)
     cdt = consts["cdtype"]
+    recompute = cp.storage_mode == "recompute"
     # the three backward passes: vectorized gradgen; vectorized taylor
     # where a static order count within taylor_grad_max_order exists; else
     # the per-step pass
@@ -1615,50 +2014,64 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
     if cp.gradient_method == "taylor" and cp.vectorize_backward:
         n_orders = _vectorized_taylor_orders(cp, amp_max)
     # keep the propagator stream for the co-state chain while it fits its
-    # budget (taylor: unless reuse_propagators says otherwise)
+    # budget (taylor: unless reuse_propagators says otherwise); under
+    # recompute, a segment's propagators for the vectorized passes
     reuse_U = _reuse_U_enabled(cp) or (vec_gg and _gg_u_bytes_ok(cp))
+    if recompute and (vec_gg or n_orders is not None):
+        reuse_U = _seg_reuse_U(cp)
 
     @torch.no_grad()
     def fg(pulsevals):
         pulsevals = _as_pulse(pulsevals, consts, device)
         eps = pulsevals.reshape(cp.n_controls, cp.n_timesteps)
         coeffs, dM = _coeff_tables(cp, consts, eps)
-        storage, Us = _forward(cp, consts, coeffs, amp_max, pds,
-                               want_U=reuse_U)
-        J_T_val, J_a_val, J_b_val, tau = _J_parts(cp, pulsevals, storage)
+        if recompute:
+            storage = None
+            checkpoints, psi_T, gb_sum = _forward_checkpoints(
+                cp, consts, coeffs, amp_max, pds)
+        else:
+            storage, Us = _forward(cp, consts, coeffs, amp_max, pds,
+                                   want_U=reuse_U)
+            psi_T = storage[-1]
+            gb_sum = (None if cp.g_b is None
+                      else _running_cost(cp, consts, storage))
+        J_T_val, J_a_val, J_b_val, tau = _J_parts(cp, pulsevals, psi_T,
+                                                  gb_sum)
         J = J_T_val + J_a_val + J_b_val
-        psi_T = storage[-1]
 
-        chi_T = _chi_boundary(cp, psi_T, tau).to(cdt)
+        chi_T = _chi_boundary(cp, consts, psi_T, tau).to(cdt)
         rho = torch.sqrt(torch.sum(torch.abs(chi_T) ** 2, dim=-1))  # (K,)
         chi_ok = torch.all(rho > cp.chi_min_norm)
         safe_rho = torch.where(rho > 0, rho, torch.ones_like(rho))
         chi_hat = chi_T / safe_rho[:, None].to(cdt)
 
-        if not reuse_U:
-            Us = None  # a forward scan may emit them unasked
         taylor_ok = torch.ones((), dtype=torch.bool, device=device)
-        if vec_gg or n_orders is not None:
-            # phase A: over the stored propagators, or forming them again
-            if Us is not None:
-                chis = _chi_trajectory(cp, Us, chi_hat)
-            else:
-                chis = _chi_prop_scan(cp, consts, coeffs, chi_hat, amp_max,
-                                      pds)
-            if vec_gg:
-                tau_grads = _backward_vectorized_gradgen(
-                    cp, consts, coeffs, dM, storage[:-1], chis, rho, amp_max
-                )
-            else:
-                tau_grads, taylor_ok = _backward_vectorized(
-                    cp, consts, coeffs, dM, storage[:-1], chis, rho,
-                    amp_max, n_orders,
-                )
+        if recompute:
+            S = cp.storage_segments
+            seg = cp.n_timesteps // S
+            tau_grads = torch.empty(
+                (cp.n_timesteps, cp.n_traj, cp.n_controls), dtype=cdt,
+                device=device)
+            chi = chi_hat
+            for s in range(S - 1, -1, -1):
+                n0 = s * seg
+                cs, co, dMw = _window(cp, consts, coeffs, dM, n0, n0 + seg)
+                states, Us = _forward(cp, cs, co, amp_max, pds,
+                                      want_U=reuse_U,
+                                      psi0=checkpoints[s], n0=n0)
+                if not reuse_U:
+                    Us = None  # a forward scan may emit them unasked
+                grads, ok, chi = _backward_window(
+                    cp, cs, co, dMw, states[:-1], Us, chi, rho, safe_rho,
+                    amp_max, pds, n0, vec_gg, n_orders)
+                tau_grads[n0:n0 + seg] = grads
+                taylor_ok = taylor_ok & ok
         else:
-            tau_grads, taylor_ok = _backward_per_step(
-                cp, consts, coeffs, dM, storage, Us, chi_hat, rho, amp_max,
-                pds,
-            )
+            if not reuse_U:
+                Us = None  # a forward scan may emit them unasked
+            tau_grads, taylor_ok, _ = _backward_window(
+                cp, consts, coeffs, dM, storage[:-1], Us, chi_hat, rho,
+                safe_rho, amp_max, pds, 0, vec_gg, n_orders)
 
         grad_Tb = -2.0 * torch.real(torch.sum(tau_grads, dim=1))  # (N_T, L)
         grad_Tb_flat = grad_Tb.T.reshape(-1)  # l-major flat layout
@@ -1681,6 +2094,8 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
             "taylor_ok": taylor_ok,
             "chi_norms": rho,
         }
+        if cp.fw_prop_callback is not None:
+            aux["fw_observables"] = _fw_observables(cp, consts, storage)
         return J, grad, aux
 
     return fg

@@ -3,9 +3,10 @@
 Counterpart of ``grape_tpu/functionals.py`` (itself the analog of
 ``QuantumControl.Functionals``): the standard final-time functionals
 ``J_T_sm`` / ``J_T_re`` / ``J_T_ss`` with their analytic ``chi``
-counterparts, the pulse running cost ``J_a_fluence``, the gate and
-ensemble-gate functionals, and the semi-AD constructors ``make_chi`` /
-``make_grad_J_a`` / ``make_gate_chi`` on ``torch.autograd``.
+counterparts, the pulse running cost ``J_a_fluence``, the state running
+cost ``J_b``, the gate and ensemble-gate functionals, and the semi-AD
+constructors ``make_chi`` / ``make_grad_J_a`` / ``make_gate_chi`` on
+``torch.autograd`` and ``make_xi`` on ``torch.func``.
 
 Conventions: the co-state is
 
@@ -14,7 +15,8 @@ Conventions: the co-state is
 For a real function of a complex tensor, ``torch.autograd`` returns
 ``∂J/∂Re[z] + i ∂J/∂Im[z] = 2 ∂J/∂z*``, so ``χ = -½ Ψ.grad`` with NO
 conjugation.  (``jax.grad`` returns the conjugate of that, which is why the
-JAX package has ``χ = -½ conj(g)``.)
+JAX package has ``χ = -½ conj(g)``.)  The same holds for the running-cost
+source ``ξ = -½ ∇_Ψ g_b`` of :func:`make_xi`.
 
 **Batched API**: functionals receive the stacked final states ``Psi (K, d)``
 (torch tensor), the list of :class:`~grape_tpu_torch.trajectory.Trajectory`
@@ -32,8 +34,8 @@ from .config import real_dtype
 __all__ = [
     "J_T_sm", "J_T_re", "J_T_ss", "F_sm", "F_re", "F_ss",
     "chi_sm", "chi_re", "chi_ss",
-    "J_a_fluence", "grad_J_a_fluence",
-    "make_chi", "make_grad_J_a", "make_analytic_chi",
+    "J_a_fluence", "grad_J_a_fluence", "J_b", "grid_weights",
+    "make_chi", "make_grad_J_a", "make_analytic_chi", "make_xi",
     "make_ensemble_gate_functional", "gate_functional", "make_gate_chi",
     "taus", "weights_of", "accepts_tau",
 ]
@@ -166,6 +168,36 @@ def grad_J_a_fluence(pulsevals, tlist):
     return torch.reshape(2.0 * eps * dt[None, :], pulsevals.shape)
 
 
+def grid_weights(tlist):
+    """Trapezoid weights over the grid points of ``tlist (N_T+1,)`` (a
+    tensor): ``[dt_1/2, Δt_1.., dt_NT/2]`` with
+    ``Δt_n = (t_{n+1} - t_{n-1})/2``."""
+    dt = torch.diff(tlist)
+    return torch.cat([0.5 * dt[:1], 0.5 * (dt[:-1] + dt[1:]), 0.5 * dt[-1:]])
+
+
+def running_cost_values(g_b, states, trajectories, tlist, n0=0):
+    """``g_b`` at the states ``states (C, K, d)`` of the grid points
+    ``n0..n0+C-1``, all at once (``torch.func.vmap`` over the points, as the
+    reference maps ``jax.vmap``): ``(C, K)``."""
+    ns = torch.arange(n0, n0 + states.shape[0], device=states.device)
+    return torch.func.vmap(
+        lambda psi, n: g_b(psi, trajectories, tlist, n)
+    )(states, ns)
+
+
+def J_b(storage, trajectories, tlist, g_b):
+    """State-dependent running cost from stored forward states:
+    trapezoid sum ``Σ_k Σ_n ½(g_b(Ψ(t_{n-1})) + g_b(Ψ(t_n))) dt_n``.
+
+    ``storage (N_T+1, K, d)``, ``tlist (N_T+1,)`` a tensor; returns the
+    scalar J_b (excluding λ_b).
+    """
+    w = grid_weights(tlist)
+    gvals = running_cost_values(g_b, storage, trajectories, tlist)
+    return torch.sum(w[:, None] * gvals)
+
+
 # --------------------------------------------------------------------------
 # Semi-automatic differentiation
 # --------------------------------------------------------------------------
@@ -213,6 +245,23 @@ def make_chi(J_T, trajectories, mode="auto"):
         return -0.5 * g
 
     return chi_ad
+
+
+def make_xi(g_b, trajectories):
+    """Construct ``xi(Psi, trajectories, tlist, n) -> (K, d)`` from a
+    state-dependent running cost ``g_b(Psi, trajectories, tlist, n) -> (K,)``:
+    ``ξ_k = -∂g_b/∂⟨Ψ_k| = -½ ∇_{Ψ_k} g_b`` with NO conjugation (torch's
+    gradient convention, see the module docstring).  Built on
+    ``torch.func.grad``, so it can be mapped over the grid points with
+    ``torch.func.vmap``."""
+
+    def xi(Psi, trajectories, tlist, n):
+        def scalar(P):
+            return torch.sum(g_b(P, trajectories, tlist, n))
+
+        return -0.5 * torch.func.grad(scalar)(Psi)
+
+    return xi
 
 
 def make_grad_J_a(J_a, tlist):

@@ -2,12 +2,12 @@
 
 from .tls import tls_problem
 from .transmon import (
-    transmon_ensemble_trajectories, two_transmon_cz_ensemble_problem,
+    transmon_ensemble_trajectories, transmon_qutrit_problem, two_transmon_cz_ensemble_problem,
     two_transmon_cz_problem, two_transmon_subspace_gate_problem,
 )
 
 __all__ = [
-    "tls_problem", "two_transmon_cz_problem",
+    "tls_problem", "transmon_qutrit_problem", "two_transmon_cz_problem",
     "two_transmon_subspace_gate_problem",
     "two_transmon_cz_ensemble_problem", "transmon_ensemble_trajectories",
 ]

@@ -1,10 +1,13 @@
-"""Transmon model family: the two-transmon CZ gate with multi-control
-pulses (BASELINE config 4), the flagship of the gate-optimization path,
+"""Transmon model family: the single-transmon qutrit gate with a
+guard-level running cost (BASELINE config 3), the two-transmon CZ gate with
+multi-control pulses (BASELINE config 4), the flagship of the
+gate-optimization path,
 unitary synthesis on a subspace of the same register (many basis states
 under one generator), and robust ensembles over Hamiltonian samples
 (BASELINE config 5)."""
 
 import numpy as np
+import torch
 
 from ..functionals import J_T_sm, make_ensemble_gate_functional
 from ..generators import hamiltonian
@@ -12,7 +15,7 @@ from ..shapes import flattop
 from ..trajectory import ControlProblem, Trajectory
 
 __all__ = [
-    "two_transmon_cz_problem", "two_transmon_subspace_gate_problem",
+    "transmon_qutrit_problem", "two_transmon_cz_problem", "two_transmon_subspace_gate_problem",
     "two_transmon_cz_ensemble_problem", "transmon_ensemble_trajectories",
 ]
 
@@ -21,6 +24,49 @@ def _ladder(d):
     a = np.diag(np.sqrt(np.arange(1, d)), 1).astype(complex)
     n = np.diag(np.arange(d)).astype(complex)
     return a, n
+
+
+def transmon_qutrit_problem(
+    d=3, delta=0.0, alpha=-0.3 * 2 * np.pi, T=20.0, n_steps=400,
+    E0=0.05, lambda_b=1.0, **kwargs
+):
+    """Single-transmon X-gate on the qubit subspace with a running-cost
+    penalty on the guard (|2⟩+) levels (BASELINE config 3): ``g_b`` is the
+    guard population, ``ξ = -P_guard·Ψ`` its analytic co-state source."""
+    a, n = _ladder(d)
+    H0 = delta * n + 0.5 * alpha * (n @ n - n)
+    Hx = 0.5 * (a + a.conj().T)
+    Hy = 0.5j * (a - a.conj().T)
+
+    def guess_x(t):
+        return E0 * float(flattop(t, T=T, t_rise=2.0, func="blackman"))
+
+    def guess_y(t):
+        return 0.0
+
+    H = hamiltonian(H0, (Hx, guess_x), (Hy, guess_y))
+    tlist = np.linspace(0, T, n_steps + 1)
+
+    # X gate on the qubit subspace; guard level maps to itself
+    e = np.eye(d, dtype=complex)
+    targets = {0: e[1], 1: e[0]}
+    trajectories = [
+        Trajectory(e[k], H, target_state=targets[k]) for k in (0, 1)
+    ]
+
+    def g_b(Psi, trajectories, tl, nn):
+        # population of the guard levels (index >= 2)
+        return torch.sum(torch.abs(Psi[..., 2:]) ** 2, dim=-1)
+
+    def xi(Psi, trajectories, tl, nn):
+        out = torch.zeros_like(Psi)
+        out[..., 2:] = -Psi[..., 2:]
+        return out
+
+    kwargs.setdefault("J_T", J_T_sm)
+    return ControlProblem(
+        trajectories, tlist, g_b=g_b, xi=xi, lambda_b=lambda_b, **kwargs
+    )
 
 
 def _two_transmon_hamiltonian(d, delta1, delta2, alpha1, alpha2, J):

@@ -1,7 +1,8 @@
 """Numerical building blocks: plain PyTorch matrix functions (``expm``,
 ``frechet``), the Chebyshev and Krylov series (``cheby``, ``newton``) and
 the hand-written CUDA kernels with their wrappers (``hopper_prop``,
-``hopper_frechet``, ``hopper_cheby``; built by ``_build``).
+``hopper_frechet``, ``hopper_cheby``, and the probe's ``hopper_matmul``;
+built by ``_build``).
 
 A kernel wrapper takes its plain PyTorch version only for a CPU tensor.
 :func:`plain_versions` is the one explicit exception, a switch for tests

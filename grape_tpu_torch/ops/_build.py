@@ -127,6 +127,8 @@ def _declare(lib):
     ]
     lib.grape_cheby_scan_layout.restype = i
     lib.grape_cheby_scan_layout.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.grape_karatsuba_chain.restype = i
+    lib.grape_karatsuba_chain.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.grape_propagator_scratch_matrices.restype = i
     lib.grape_propagator_scratch_matrices.argtypes = []
     lib.grape_frechet_scratch_matrices.restype = i

@@ -28,6 +28,13 @@ every grouping:
   forward scan of a large ensemble (one generator per trajectory) of tiny
   systems, ``d ≤ 4``, with the matrices in registers, one thread per
   (step, trajectory) exponential (``csrc/smalld_scan.cu``).
+- :func:`forward_scan_time` replaces ``forward_scan_pallas_time``: the
+  per-trajectory forward scan without the propagator stream.  Its TPU
+  layout (a sequential grid over the steps with the K trajectories
+  unrolled in each step, for small K) has no meaning on the card, where
+  the (step, trajectory) exponentials are independent: it runs the same
+  kernel pair as :func:`forward_scan_pertraj` (``csrc/prop_scan.cu``), or
+  the small-dimension pair under that kernel's gates.
 - :func:`taylor_order_for_bound` is the host helper that sizes the static
   order count of the time-vectorized Taylor backward pass.
 
@@ -48,8 +55,9 @@ __all__ = [
     "forward_scan_pertraj", "forward_scan_pertraj_plain",
     "chi_scan_shared", "chi_scan_shared_plain",
     "chi_scan_grouped", "chi_scan_grouped_plain",
-    "chi_scan_recompute", "chi_scan_recompute_plain",
+    "chi_scan_recompute", "chi_scan_recompute_plain", "chi_window_plain",
     "forward_scan_smalld", "forward_scan_smalld_plain",
+    "forward_scan_time", "forward_scan_time_plain",
     "taylor_order_for_bound",
     "propagators", "propagators_shared", "launches",
 ]
@@ -59,11 +67,15 @@ launches = {
     "forward_scan_shared": 0, "chi_scan_shared": 0,
     "forward_scan_grouped": 0, "forward_scan_pertraj": 0,
     "chi_scan_grouped": 0, "chi_scan_recompute": 0,
-    "forward_scan_smalld": 0,
+    "forward_scan_smalld": 0, "forward_scan_time": 0,
 }
 
 # largest dimension the small-dimension kernel holds in registers
 SMALLD_MAX_DIM = 4
+
+# trajectories from which forward_scan_time takes the small-dimension
+# kernel (the gate of the small-dimension route of fg)
+SMALLD_MIN_TRAJ = 128
 
 # blocks of the persistent propagator grid per multiprocessor
 _BLOCKS_PER_SM = 2
@@ -371,16 +383,25 @@ def forward_scan_pertraj(H0, ops, coeffs, dts, psi0, n_squarings,
 # Co-state chains
 # --------------------------------------------------------------------------
 
-def _chi_window_plain(Us, chi, chis):
-    """Run the chain over the window ``Us (C, G, d, d)`` into
-    ``chis (C, K, d)``; returns χ carried out of the window."""
-    G = Us.shape[1]
+def chi_window_plain(Us, chi, chis, src=None):
+    """The co-state chain over the window ``Us (C, G, d, d)`` into
+    ``chis (C, K, d)``, with the optional sources ``src (C, K, d)`` (ξ): in
+    reverse, ``chis[j] = χ`` (χ BEFORE the step-j update), then
+    ``χ ← χ·conj(U_j) + src_j``.  Returns χ carried out of the window.  The
+    chain is carried conjugated, ``c = χ*``, so that each step is one
+    product (and sum) ``c ← c·U_j + src*_j``: one launch a step, as the
+    chain is bound by launches, not arithmetic."""
+    C, G = Us.shape[0], Us.shape[1]
     K, d = chi.shape
-    chi = chi.reshape(G, K // G, d)
-    for n in range(Us.shape[0] - 1, -1, -1):
-        chis[n] = chi.reshape(K, d)  # χ BEFORE the step-n update
-        chi = chi @ Us[n].conj()
-    return chi.reshape(K, d)
+    c = chi.conj().resolve_conj().reshape(G, K // G, d)
+    srcc = (None if src is None
+            else src.conj().resolve_conj().reshape(C, G, K // G, d))
+    seen = []
+    for j in range(C - 1, -1, -1):
+        seen.append(c)
+        c = c @ Us[j] if srcc is None else torch.baddbmm(srcc[j], c, Us[j])
+    chis.copy_(torch.stack(seen[::-1]).reshape(C, K, d).conj())
+    return c.conj().resolve_conj().reshape(K, d)
 
 
 def _chi_window(lib, Us, chi, chis, carry):
@@ -406,7 +427,7 @@ def chi_scan_grouped_plain(Us, chi_hat):
     _group_size(K, Us.shape[1])
     chis = torch.empty((N_T, K, d), dtype=chi_hat.dtype,
                        device=chi_hat.device)
-    _chi_window_plain(Us, chi_hat, chis)
+    chi_window_plain(Us, chi_hat, chis)
     return chis
 
 
@@ -466,8 +487,8 @@ def chi_scan_recompute_plain(H0, ops, coeffs, dts, chi_hat, n_squarings):
         n0 = max(0, n1 - C)
         co, dt = _window(coeffs, dts, n0, n1)
         Uw = _propagators_plain(H0, ops, co, dt, n_squarings)
-        chi = _chi_window_plain(Uw, chi, chis[n0:n1])
-    return chis
+        chi = chi_window_plain(Uw, chi, chis[n0:n1])
+    return chis, chi
 
 
 def chi_scan_recompute(H0, ops, coeffs, dts, chi_hat, n_squarings):
@@ -476,7 +497,9 @@ def chi_scan_recompute(H0, ops, coeffs, dts, chi_hat, n_squarings):
     propagator kernel forms ``U_ng`` again and the χ-scan kernel runs the
     window and hands χ on to the next.  Generator arguments as
     :func:`forward_scan_grouped` (``K = G·gs``); returns
-    ``chis (N_T, K, d)`` with ``chis[n] = χ(t_{n+1})``."""
+    ``(chis (N_T, K, d), χ(t_0))`` with ``chis[n] = χ(t_{n+1})`` and χ
+    carried out of the first step (what a caller running the chain segment
+    by segment hands on)."""
     if chi_hat.device.type == "cpu" or plain_forced():
         return chi_scan_recompute_plain(H0, ops, coeffs, dts, chi_hat,
                                         n_squarings)
@@ -493,9 +516,9 @@ def chi_scan_recompute(H0, ops, coeffs, dts, chi_hat, n_squarings):
         n0 = max(0, n1 - C)
         co, dt = _window(coeffs, dts, n0, n1)
         Uw = propagators(H0, ops, co, dt, n_squarings)
-        chi = _chi_window(lib, Uw, chi, chis[n0:n1], carry=n0 > 0)
+        chi = _chi_window(lib, Uw, chi, chis[n0:n1], carry=True)
     launches["chi_scan_recompute"] += 1
-    return chis
+    return chis, chi
 
 
 # --------------------------------------------------------------------------
@@ -535,6 +558,14 @@ def forward_scan_smalld(H0, ops, coeffs, dts, psi0, n_squarings,
     if psi0.device.type == "cpu" or plain_forced():
         return forward_scan_smalld_plain(H0, ops, coeffs, dts, psi0,
                                          n_squarings, with_propagators)
+    return _smalld_scan("forward_scan_smalld", H0, ops, coeffs, dts, psi0,
+                        n_squarings, with_propagators)
+
+
+def _smalld_scan(name, H0, ops, coeffs, dts, psi0, n_squarings,
+                 with_propagators):
+    """The small-dimension kernel pair for wrapper ``name`` (CUDA tensors;
+    arguments as :func:`forward_scan_smalld`)."""
     _require(coeffs.ndim == 2, "coeffs must be (N_T, T)")
     K, T, d, N_T, _ = _check_group_args(H0, ops, coeffs, dts)
     _require(1 <= d <= SMALLD_MAX_DIM,
@@ -566,8 +597,63 @@ def forward_scan_smalld(H0, ops, coeffs, dts, psi0, n_squarings,
             # the next window starts from a copy of this one's last state
             # (the kernel writes its start state back to that row)
             psi_in = storage[n0 + C].clone()
-    launches["forward_scan_smalld"] += 1
+    launches[name] += 1
     return (storage, U) if with_propagators else storage
+
+
+# --------------------------------------------------------------------------
+# The time-grid forward scan
+# --------------------------------------------------------------------------
+
+def _time_args(H0, ops, coeffs, psi0, degree):
+    _require(int(degree) == 16,
+             f"forward_scan_time takes degree=16 (the kernels' Taylor "
+             f"degree), got {degree}")
+    _require(H0.ndim == 3 and ops.ndim == 4 and coeffs.ndim == 2,
+             "H0 must be (K, d, d), ops (K, T, d, d) and coeffs (N_T, T)")
+    _require(H0.shape[0] == psi0.shape[0], "one generator per trajectory")
+
+
+def forward_scan_time_plain(H0, ops, coeffs, dts, psi0, n_squarings,
+                            degree=16):
+    """Plain PyTorch version of :func:`forward_scan_time`."""
+    _time_args(H0, ops, coeffs, psi0, degree)
+    storage, _ = _forward_scan_plain(H0, ops, coeffs, dts, psi0,
+                                     n_squarings, with_propagators=False)
+    return storage
+
+
+def forward_scan_time(H0, ops, coeffs, dts, psi0, n_squarings, degree=16):
+    """Forward propagation with one generator PER TRAJECTORY and no
+    propagator stream (the reference's ``forward_scan_pallas_time``).
+
+    Args:
+      H0:   (K, d, d) complex64 drifts
+      ops:  (K, T, d, d) complex64 control-term operators
+      coeffs: (N_T, T) float32 per-step term coefficients
+      dts:  (N_T,) float32 time steps
+      psi0: (K, d) complex64 initial states
+      n_squarings: squaring count ``s`` (a runtime integer)
+      degree: the Taylor degree, 16 (the only one the kernels take)
+
+    Returns ``storage (N_T+1, K, d)`` complex64 with ``storage[0] = psi0``.
+    On the card the exponentials of all (step, trajectory) items are formed
+    in parallel and the ψ chain runs apart: the small-dimension kernel pair
+    for ``d ≤ 4`` and ``K ≥ 128``, else the large-d pair of
+    :func:`forward_scan_pertraj`, window by window (≤ 1 GiB of
+    propagators).
+    """
+    if psi0.device.type == "cpu" or plain_forced():
+        return forward_scan_time_plain(H0, ops, coeffs, dts, psi0,
+                                       n_squarings, degree)
+    _time_args(H0, ops, coeffs, psi0, degree)
+    K, d = psi0.shape
+    if d <= SMALLD_MAX_DIM and K >= SMALLD_MIN_TRAJ:
+        return _smalld_scan("forward_scan_time", H0, ops, coeffs, dts, psi0,
+                            n_squarings, with_propagators=False)
+    storage, _ = _forward_scan("forward_scan_time", H0, ops, coeffs, dts,
+                               psi0, n_squarings, with_propagators=False)
+    return storage
 
 
 def taylor_order_for_bound(bound, tolerance=1e-8, max_order=100,

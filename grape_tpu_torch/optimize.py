@@ -39,13 +39,19 @@ def optimize(trajectories, tlist, **kwargs):
     """Run a GRAPE optimization; returns a :class:`GrapeResult`.
 
     Keyword arguments: required ``J_T``; optional ``chi``, ``chi_min_norm``,
-    ``J_a``, ``grad_J_a``, ``lambda_a``, ``gradient_method`` (``"gradgen"``,
+    ``J_a``, ``grad_J_a``, ``lambda_a``, ``g_b``, ``xi``, ``lambda_b``
+    (the state running cost and its co-state source),
+    ``gradient_method`` (``"gradgen"``,
     ``"taylor"`` or ``"auto"``), ``taylor_grad_max_order``,
     ``taylor_grad_tolerance``, ``taylor_grad_check_convergence``,
     ``reuse_propagators``, ``vectorize_backward``, ``prop_method`` and
     ``fw_/bw_/grad_prop_method`` (``"expprop"``, ``"cheby"``,
     ``"newton"``), ``cheby_tol``, ``newton_m``, ``newton_substeps``,
-    ``dtype``, ``upper_bound``/``lower_bound``/``pulse_options``,
+    ``storage_mode`` (``"full"`` or ``"recompute"``) and
+    ``storage_segments``, ``fw_prop_callback`` (with optional
+    ``fw_prop_observables``, functions ``(Psi, tlist, n) -> array``; the
+    callback receives ``(values, tlist)`` after every evaluation, full
+    storage only), ``dtype``, ``upper_bound``/``lower_bound``/``pulse_options``,
     ``callback``, ``check_convergence``, ``iter_start``/``iter_stop``,
     ``continue_from``, ``verbose``, ``rethrow_exceptions``,
     ``print_iters``/``print_iter_info``/``store_iter_info``, optimizer
@@ -54,9 +60,8 @@ def optimize(trajectories, tlist, **kwargs):
 
     ``device=None`` means the CUDA device and raises if there is none;
     pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.
-    Options of ``grape_tpu.optimize`` that are not ported yet
-    (``storage_mode="recompute"``, ``g_b``/``xi``, ``mesh=``, an
-    ``optimizer=`` other than the native L-BFGS-B, ...) raise
+    Options of ``grape_tpu.optimize`` that are not ported yet (``mesh=``,
+    an ``optimizer=`` other than the native L-BFGS-B, ...) raise
     ``NotImplementedError`` naming the option.
     """
     if "update_hook" in kwargs or "info_hook" in kwargs:
@@ -203,7 +208,12 @@ def update_result(wrk, i):
         lambda_a = wrk.kwargs.get("lambda_a", 1.0)
         res.J_a /= lambda_a
     res.J_b_prev = res.J_b
-    res.J_b = 0.0  # state running costs are not ported
+    lambda_b = wrk.kwargs.get("lambda_b", 1.0)
+    g_b = wrk.kwargs.get("g_b", None)
+    if not (lambda_b == 0 and g_b is None):
+        res.J_b = wrk.J_parts[2] / lambda_b if lambda_b != 0 else 0.0
+    else:
+        res.J_b = 0.0
     if i > 0:
         res.iter = i
     if i >= res.iter_stop:

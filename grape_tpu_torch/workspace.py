@@ -11,10 +11,11 @@ The pulse vector is simply the argument of ``fg``; mutation by the optimizer
 (or by a callback) is honored because every evaluation passes the current
 vector to the device.
 
-Left out on purpose, as workarounds of the TPU platform the port does not
-have: background pre-warm threads (there is no compile step to hide),
-multi-call evaluations and device-argument builds.  ``mesh=`` sharding is
-not ported yet and raises.
+After each evaluation the ``fw_prop_callback`` (if any) receives the
+per-step observables.  Left out on purpose, as workarounds of the TPU
+platform the port does not have: background pre-warm threads (there is no
+compile step to hide), multi-call evaluations and device-argument builds.
+``mesh=`` sharding is not ported yet and raises.
 """
 
 import numpy as np
@@ -227,6 +228,18 @@ class GrapeWrk:
         self.tau_vals[:] = _to_numpy(aux["tau"])
         self.states = _to_numpy(aux["psi_T"])
 
+    def _dispatch_fw_prop_callback(self, aux):
+        """The per-step observables callback: the evaluation forms the
+        observables over the whole stored trajectory and the callback
+        receives all per-step values once per evaluation:
+        ``fw_prop_callback(values, tlist)`` with ``values`` a tuple of
+        complex ``(N_T+1, ...)`` numpy arrays (the states themselves when no
+        ``fw_prop_observables`` were given)."""
+        if self.cp.fw_prop_callback is None:
+            return
+        values = tuple(_to_numpy(v) for v in aux["fw_observables"])
+        self.cp.fw_prop_callback(values, self.tlist)
+
     def evaluate_functional(self, x, count_call=True):
         self._ensure_envelope(x)
         J, aux = self.f(np.asarray(x, dtype=np.float64))
@@ -234,6 +247,7 @@ class GrapeWrk:
             self.fg_count[1] += 1
             self.result.f_calls += 1
         self._store_common(aux)
+        self._dispatch_fw_prop_callback(aux)
         return float(J)
 
     def evaluate_gradient(self, x, G_out=None):
@@ -270,6 +284,7 @@ class GrapeWrk:
         self.gradient[:] = G
         self.grad_J_Tb[:] = _to_numpy(aux["grad_J_Tb"], np.float64)
         self.grad_J_a[:] = _to_numpy(aux["grad_J_a"], np.float64)
+        self._dispatch_fw_prop_callback(aux)
         return float(J), G
 
 

@@ -188,11 +188,16 @@ def test_windows_without_stored_propagators(steps_per_window, monkeypatch):
     )
     assert U_w is None
     assert _err(st_w, st) < 1e-6
-    chis_w = chi_scan_recompute_plain(H0, ops, coeffs, dts, chi0, s)
+    chis_w, chi_out = chi_scan_recompute_plain(H0, ops, coeffs, dts, chi0, s)
     assert _err(chis_w, chis) < 1e-6
+    # χ carried out of the first step: one more update of chis[0]
+    G_, gs_ = U.shape[1], chi0.shape[0] // U.shape[1]
+    chi_first = (chis[0].reshape(G_, gs_, -1) @ U[0].conj()).reshape(
+        chi0.shape)
+    assert _err(chi_out, chi_first) < 1e-6
     # and the wrapper on CPU tensors is that plain version
-    assert torch.equal(chi_scan_recompute(H0, ops, coeffs, dts, chi0, s),
-                       chis_w)
+    chis_c, chi_out_c = chi_scan_recompute(H0, ops, coeffs, dts, chi0, s)
+    assert torch.equal(chis_c, chis_w) and torch.equal(chi_out_c, chi_out)
 
 
 def test_identical_operators_reduce_to_the_shared_kernels():
@@ -257,7 +262,7 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
     assert set(hopper_prop.launches) == {
         "forward_scan_shared", "chi_scan_shared", "forward_scan_grouped",
         "forward_scan_pertraj", "chi_scan_grouped", "chi_scan_recompute",
-        "forward_scan_smalld",
+        "forward_scan_smalld", "forward_scan_time",
     }
     assert set(hopper_frechet.launches) == {
         "frechet_trace_shared", "frechet_trace_pertraj",

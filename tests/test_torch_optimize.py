@@ -283,13 +283,13 @@ def test_check_convergence_and_records():
     assert [r[0] for r in res.records] == [0, 1, 2]
 
 
+def _excited_population(Psi, trajectories, tlist, n):
+    return 1e-3 * Psi[..., 1].abs() ** 2
+
+
 UNPORTED = {
-    "storage_mode": "recompute",
-    "g_b": lambda Psi, trajectories, tlist, n: Psi.abs().sum(-1),
-    "xi": lambda Psi, trajectories, tlist, n: Psi,
     "mesh": object(),
     "optimizer": "scipy-lbfgsb",
-    "fw_prop_callback": lambda values, tlist: None,
     "eval_device_calls": 4,
 }
 
@@ -301,9 +301,16 @@ PORTED = {
     "taylor_grad_max_order": 50,
     "prop_method": "cheby",
     "fw_prop_method": "newton",
+    "storage_mode": "recompute",
+    "g_b": _excited_population,
+    "xi": lambda Psi, trajectories, tlist, n: -1e-3 * Psi * torch.tensor(
+        [0.0, 1.0], dtype=Psi.real.dtype),
+    "fw_prop_callback": lambda values, tlist: None,
 }
-# what a ported option's run also takes: a Krylov space that fits the TLS
-PORTED_WITH = {"fw_prop_method": {"newton_m": 6}}
+# what a ported option's run also takes: a Krylov space that fits the TLS;
+# the running cost that an xi belongs to
+PORTED_WITH = {"fw_prop_method": {"newton_m": 6},
+               "xi": {"g_b": _excited_population}}
 
 
 @pytest.mark.parametrize("option", sorted({**UNPORTED, **PORTED}))
@@ -332,8 +339,15 @@ def test_unported_option_raises(option):
 
 def test_unported_constructs_raise(monkeypatch):
     trajs, tlist = _tls_quickstart()
-    with pytest.raises(NotImplementedError, match="CustomAmplitude"):
-        gt.CustomAmplitude(lambda v, t: v[0] ** 2, lambda t: 0.1)
+    # nonlinear amplitudes construct and compile since they were ported
+    amp = gt.CustomAmplitude(lambda v, t: v[0] ** 2, lambda t: 0.1)
+    cp_c = gt.compile_problem(
+        [gt.Trajectory([1, 0], gt.hamiltonian(
+            np.diag([0.5, -0.5]).astype(complex),
+            (np.array([[0, 1], [1, 0]], dtype=complex), amp)),
+            target_state=[0, 1])],
+        tlist, J_T=J_T_sm, device="cpu")
+    assert [j for j, _, _ in cp_c.custom_terms] == [0]
     with pytest.raises(NotImplementedError, match="krotov"):
         optimize_problem(tls_problem(J_T=J_T_sm), method="krotov",
                          device="cpu")
