@@ -78,6 +78,10 @@ PEAK_BYTES = 3.35e12
 # N_T = 2000 compounding steps, and the traces relative to their scale
 TOL_STATE = 5e-5
 TOL_TRJ = 2e-5
+# the factored Frechet kernel against the dense one: two float32
+# evaluations of the same function by different sums, each held to TOL_TRJ
+# of the scale against its own plain version, so their sum of limits
+TOL_ROUTES = 2 * TOL_TRJ
 
 
 def emit(obj):
@@ -107,6 +111,16 @@ def median_ms(fn, reps=5, runs=None):
     if runs is not None:
         runs.extend(times)
     return float(np.median(times))
+
+
+def windowed_ms(call, N_T, steps):
+    """Median ms of ``call(n0, n1)`` over the time grid ``0..N_T`` in
+    windows of ``steps`` steps, one call each, as recompute's segments call
+    a wrapper on slices of its inputs."""
+    def run():
+        for n0 in range(0, N_T, steps):
+            call(n0, min(n0 + steps, N_T))
+    return median_ms(run, reps=3)
 
 
 def under_load(fn, n):
@@ -178,32 +192,42 @@ def bound(flops, byts):
 def frechet_needed_flops(d, K, T, N_T, s):
     """Float32 operations that ``trj[n,k,t] = tr(Op_t L(A_n, psi chi^+))``
     needs for the degree-16 Taylor polynomial at ``A / 2^s`` with ``s`` pair
-    doublings, counted for the cheapest evaluation known rather than for
-    the kernel's.
+    doublings, over ``N_T`` steps of one generator and ``K`` directions:
+    the cheaper of the two evaluations the kernels run.
 
     The direction has rank one, so
     ``L = sum_{i+j<=15} c_{i+j+1} (A^i psi)(chi^+ A^j)`` has rank <= 16 and
-    never needs a dense product: 15 + 15 matrix-vector products build the
-    two Krylov sets, ``16 T`` more give ``Op_t A^i psi`` and 136 ``T`` dot
-    products finish the traces.  Each doubling ``L <- E_j L + L E_j``
-    doubles the rank, multiplying every vector of both sets by ``E_j``;
-    only then is the dense base needed (the polynomial, 6 products, and
-    ``s - 1`` squarings for the ladder).  Where the factored count exceeds
-    the dense one (large ``s``) the dense one is taken.
+    needs no dense product: 15 + 15 matrix-vector products build the two
+    Krylov sets and 136 real-by-complex multiply-adds of vectors fold the
+    coefficients in.  Each doubling ``L <- E_j L + L E_j`` doubles the
+    rank: both sets are extended by ``E``, the degree-16 polynomial at
+    ``A / 2^s`` (six dense products, needed only then).  The traces are
+    ``sum_ab Op_t[a,b] Z[b,a]`` over ``Z = sum_r x_r w_r^+`` (``16 * 2^s``
+    outer products and ``T`` matrix-sized multiply-adds).  Where that count
+    exceeds the dense evaluation's (small d, large s), the dense one is
+    taken.  The count is held equal to the routing model of the wrappers
+    (``hopper_frechet.frechet_flops``), so that neither moves unseen.
     """
+    from grape_tpu_torch.ops.hopper_frechet import frechet_flops
+
     mv = 8.0 * d * d            # complex (d, d) by (d,) product
     cmm = 8.0 * d ** 3          # complex (d, d) by (d, d) product
     gen = (4.0 * T + 2.0) * d * d   # A_n = -i dt (H0 + sum_t c_t Op_t)
     rank = 16 * 2 ** s
-    factored = gen + (0 if s == 0 else (5 + s) * cmm) + K * (
-        30 * mv                     # A^i psi, chi^+ A^j, i, j = 1..15
-        + 2 * 16 * (2 ** s - 1) * mv    # the doublings, in factored form
-        + T * rank * mv             # Op_t u for every left vector u
-        + T * 136 * 2 ** s * 8.0 * d    # the dot products of the traces
+    factored = gen + (6 * cmm if s else 0.0) + K * (
+        30 * mv                     # A^i psi, (A^+)^j chi, i, j = 1..15
+        + 136 * 4.0 * d             # y_i = sum_j c_{i+j+1} v_j
+        + 2 * 16 * (2 ** s - 1) * mv    # E^p u_i, (E^+)^q y_i
+        + rank * mv                 # Z = sum_r x_r w_r^+
+        + T * mv                    # tr(Op_t Z)
     )
     dense = gen + (5 + s) * cmm + K * (
-        (12 + 2 * s) * cmm + 8.0 * T * d * d
+        (12 + 2 * s) * cmm + T * mv
     )
+    model = min(frechet_flops(d, T, K, s).values())
+    require(math.isclose(min(factored, dense), model, rel_tol=1e-12),
+            f"the Frechet operation count {min(factored, dense)} and the "
+            f"routing model {model} disagree at {(d, K, T, s)}")
     return N_T * min(factored, dense)
 
 
@@ -247,6 +271,33 @@ def random_group_inputs(rng, dev, d, G, gs, T, N_T, hscale, per_group):
             unit(G * gs), unit(G * gs))
 
 
+def frechet_inputs(rng, dev, d, G, gs, T, N_T, hscale, per_group):
+    """``random_group_inputs`` with states and co-states that differ from
+    step to step: ``(H0, ops, coeffs, dts, psis, chis)``, ``psis`` and
+    ``chis`` ``(N_T, G * gs, d)``."""
+    Hs, Os, cs, ts, p0, x0 = random_group_inputs(
+        rng, dev, d, G, gs, T, N_T, hscale, per_group)
+    psis = p0[None] * torch.exp(1j * torch.linspace(
+        0, 3, N_T, device=dev))[:, None, None]
+    chis = x0[None] * torch.exp(-0.5j * torch.linspace(
+        0, 3, N_T, device=dev))[:, None, None]
+    return Hs, Os, cs, ts, psis.contiguous(), chis.contiguous()
+
+
+def frechet_forced(route, H0, ops, coeffs, dts, psis, chis, s):
+    """The Frechet traces by the kernel of ``route`` (``"dense"`` or
+    ``"factored"``), forced, for shared (``H0 (d, d)``) or grouped
+    (``H0 (G, d, d)``) inputs, counted under the wrapper's key.  Checks and
+    times only: the wrappers take ``hopper_frechet.frechet_route``."""
+    from grape_tpu_torch.ops import hopper_frechet as hf
+
+    if H0.ndim == 2:
+        return hf._frechet_trace("frechet_trace_shared", H0[None], ops[None],
+                                 coeffs, dts, psis, chis, s, route=route)
+    return hf._frechet_trace("frechet_trace_pertraj", H0, ops, coeffs, dts,
+                             psis, chis, s, route=route)
+
+
 def ensemble_kernel_phases(cp, s_main, rng, dev):
     """Phases ``kernel_check_ensemble`` and ``kernel_shapes_ensemble`` and
     the times of the ensemble wrappers at the ensemble path's shapes.
@@ -277,10 +328,14 @@ def ensemble_kernel_phases(cp, s_main, rng, dev):
 
     names = ("forward_scan_grouped", "forward_scan_pertraj",
              "chi_scan_grouped", "chi_scan_recompute",
-             "frechet_trace_pertraj")
+             "frechet_trace_pertraj", "frechet_trace_pertraj_factored")
     out = {name: {"err": 0.0} for name in names}
     checks = []
     for s in sorted({s_main, 2}):
+        require(hf.frechet_route(d, T, gs, s) == "factored"
+                and hf.frechet_route(d, T, 1, s) == "factored",
+                f"the ensemble's Frechet traces must take the factored "
+                f"kernel at s={s}")
         st, U = hp.forward_scan_grouped(H0g, opsg, coeffs, dts, psi0, gs, s)
         st_k, U_k = hp.forward_scan_pertraj(H0k, opsk, coeffs, dts, psi0, s)
         st_w, U_w = hp.forward_scan_pertraj(H0k, opsk, coeffs, dts, psi0, s,
@@ -293,14 +348,22 @@ def ensemble_kernel_phases(cp, s_main, rng, dev):
         trj_k = hf.frechet_trace_pertraj(H0k, opsk, coeffs, dts, psis, chis,
                                          s)
         torch.cuda.synchronize()
+        trj_d = frechet_forced("dense", H0g, opsg, coeffs, dts, psis, chis,
+                               s)
+        trj_dk = frechet_forced("dense", H0k, opsk, coeffs, dts, psis, chis,
+                                s)
+        torch.cuda.synchronize()
         with plain_versions():
             st_p, U_p = hp.forward_scan_grouped(H0g, opsg, coeffs, dts, psi0,
                                                 gs, s)
             chis_p = hp.chi_scan_grouped(U, chi0)
             trj_p = hf.frechet_trace_pertraj(H0g, opsg, coeffs, dts, psis,
                                              chis, s, group_size=gs)
+            trj_dp = frechet_forced("dense", H0g, opsg, coeffs, dts, psis,
+                                    chis, s)
         torch.cuda.synchronize()
-        require(finite(st, U, st_k, U_k, st_w, chis, chis_r, trj, trj_k),
+        require(finite(st, U, st_k, U_k, st_w, chis, chis_r, trj, trj_k,
+                       trj_d, trj_dk),
                 f"an ensemble kernel output is not finite at s={s}")
         require(st.shape == (N_T + 1, K, d) and U.shape == (N_T, G, d, d)
                 and U_k.shape == (N_T, K, d, d) and U_w is None
@@ -317,21 +380,28 @@ def ensemble_kernel_phases(cp, s_main, rng, dev):
                                         max_abs(st_w, st_p)),
             "chi_scan_grouped": max_abs(chis, chis_p),
             "chi_scan_recompute": max_abs(chis_r, chis_p),
-            "frechet_trace_pertraj": max(max_abs(trj, trj_p),
-                                         max_abs(trj_k, trj_p)),
+            "frechet_trace_pertraj": max(max_abs(trj_d, trj_dp),
+                                         max_abs(trj_dk, trj_dp)),
+            "frechet_trace_pertraj_factored": max(max_abs(trj, trj_p),
+                                                  max_abs(trj_k, trj_p)),
         }
-        del U_k, U_pk, U_p
-        checks.append({"s": s, **e, "trj_scale": scale,
+        e_routes = max(max_abs(trj, trj_d), max_abs(trj_k, trj_dk))
+        del U_k, U_pk, U_p, trj_d, trj_dk, trj_dp
+        checks.append({"s": s, **e, "frechet_factored_vs_dense": e_routes,
+                       "trj_scale": scale,
                        "trj_max": float(trj_p.abs().max())})
         for name, val in e.items():
             tol = TOL_TRJ * scale if name.startswith("frechet") else TOL_STATE
             require(val < tol, f"{name} disagrees with its plain version "
                     f"at s={s}: {val} (tolerance {tol})")
             out[name]["err"] = max(out[name]["err"], val)
+        require(e_routes < TOL_ROUTES * scale, "the two Frechet kernels "
+                f"disagree at s={s}: {e_routes}")
     emit({"phase": "kernel_check_ensemble",
           "shape": {"d": d, "G": G, "gs": gs, "K": K, "T": T, "N_T": N_T},
           "s_main_path": s_main, "tol_state": TOL_STATE,
-          "tol_trj_of_scale": TOL_TRJ, "checks": checks})
+          "tol_trj_of_scale": TOL_TRJ, "tol_routes_of_scale": TOL_ROUTES,
+          "checks": checks})
 
     # ragged and edge shapes: group sizes that do not fill a scan block of
     # 4 or straddle two, one group, K not a multiple of 4, tiny and ragged
@@ -422,33 +492,57 @@ def ensemble_kernel_phases(cp, s_main, rng, dev):
         "chi_scan_grouped": lambda: hp.chi_scan_grouped(U, chi0),
         "chi_scan_recompute": lambda: hp.chi_scan_recompute(
             H0k, opsk, coeffs, dts, chi0, s),
-        "frechet_trace_pertraj": lambda: hf.frechet_trace_pertraj(
+        "frechet_trace_pertraj_factored": lambda: hf.frechet_trace_pertraj(
             H0g, opsg, coeffs, dts, psis, chis, s, group_size=gs),
+        "frechet_trace_pertraj": lambda: frechet_forced(
+            "dense", H0g, opsg, coeffs, dts, psis, chis, s),
     }
+    heavy = ("forward_scan_pertraj", "chi_scan_recompute",
+             "frechet_trace_pertraj")
     for name, fn in calls.items():
         out[name]["ms_runs"] = []
-        out[name]["ms"] = median_ms(fn, runs=out[name]["ms_runs"])
+        out[name]["ms"] = median_ms(fn, reps=3 if name in heavy else 5,
+                                    runs=out[name]["ms_runs"])
     with plain_versions():
         for name, fn in calls.items():
-            heavy = name in ("forward_scan_pertraj", "chi_scan_recompute")
-            out[name]["plain_ms"] = median_ms(fn, reps=1 if heavy else 3)
+            out[name]["plain_ms"] = median_ms(
+                fn, reps=1 if name in heavy else 3)
     out["forward_scan_grouped"]["propagators_only_ms"] = median_ms(
         lambda: hp.propagators(H0g, opsg, coeffs, dts, s))
     out["forward_scan_pertraj"]["with_propagators_ms"] = median_ms(
         lambda: hp.forward_scan_pertraj(H0k, opsk, coeffs, dts, psi0, s),
         reps=3)
-    out["frechet_trace_pertraj"]["under_load"] = under_load(
-        calls["frechet_trace_pertraj"], 3)
-    out["frechet_trace_pertraj"]["group_size_1_ms"] = median_ms(
+    fact = out["frechet_trace_pertraj_factored"]
+    fact["under_load"] = under_load(calls["frechet_trace_pertraj_factored"],
+                                    20)
+    # the time per item against the launch length: the wrapper on slices of
+    # the time grid, launches of 400 items (recompute's windows), 2048 and
+    # all 16000 at once
+    fact["ms_by_items_per_launch"] = {
+        ("all" if steps == N_T else str(steps * G)): windowed_ms(
+            lambda n0, n1: hf.frechet_trace_pertraj(
+                H0g, opsg, coeffs[n0:n1], dts[n0:n1], psis[n0:n1],
+                chis[n0:n1], s, group_size=gs), N_T, steps)
+        for steps in (400 // G, 2048 // G, N_T)}
+    fact["group_size_1_ms"] = median_ms(
         lambda: hf.frechet_trace_pertraj(H0k, opsk, coeffs, dts, psis, chis,
                                          s), reps=3)
+    out["frechet_trace_pertraj"]["group_size_1_ms"] = median_ms(
+        lambda: frechet_forced("dense", H0k, opsk, coeffs, dts, psis, chis,
+                               s), reps=1)
+    with plain_versions():
+        fact["group_size_1_plain_ms"] = median_ms(
+            lambda: hf.frechet_trace_pertraj(H0k, opsk, coeffs, dts, psis,
+                                             chis, s), reps=1)
     # the same launches with the cached device memory handed back first,
     # so that the kernel's scratch is a fresh allocation: fg evaluations
     # holding this kernel spread far more than its median alone does
     torch.cuda.empty_cache()
-    fresh = out["frechet_trace_pertraj"]["fresh_scratch_ms_runs"] = []
-    median_ms(calls["frechet_trace_pertraj"], reps=3, runs=fresh)
-    trj = calls["frechet_trace_pertraj"]()
+    fresh = fact["fresh_scratch_ms_runs"] = []
+    median_ms(calls["frechet_trace_pertraj_factored"], reps=3, runs=fresh)
+    trj = calls["frechet_trace_pertraj_factored"]()
+    factored_shapes_phase(hf, rng, dev)
+    frechet_routes_phase(hf, dev)
 
     cmm = 8.0 * d ** 3
     apply_flops = 8.0 * K * d * d
@@ -463,11 +557,13 @@ def ensemble_kernel_phases(cp, s_main, rng, dev):
     out["chi_scan_recompute"].update(
         flops=N_T * K * (6 + s) * cmm + (N_T - 1) * apply_flops,
         bytes=nbytes(H0k, opsk, coeffs, dts, chi0, chis))
-    out["frechet_trace_pertraj"].update(
-        flops=G * frechet_needed_flops(d, gs, T, N_T, s),
-        bytes=nbytes(H0g, opsg, coeffs, dts, psis, chis, trj),
-        algorithm_flops=N_T * G * (
-            (5 + s) * cmm + gs * ((12 + 2 * s) * cmm + 8.0 * T * d * d)))
+    # one function, one bound, whichever kernel computes it
+    for route, name in (("dense", "frechet_trace_pertraj"),
+                        ("factored", "frechet_trace_pertraj_factored")):
+        out[name].update(
+            flops=G * frechet_needed_flops(d, gs, T, N_T, s),
+            bytes=nbytes(H0g, opsg, coeffs, dts, psis, chis, trj),
+            algorithm_flops=N_T * G * hf.frechet_flops(d, T, gs, s)[route])
     del st, U, chis, psis, trj, calls
     torch.cuda.empty_cache()
 
@@ -495,9 +591,100 @@ def ensemble_kernel_phases(cp, s_main, rng, dev):
             f"torch.linalg.matrix_exp on {shape}, {parts} call(s) summed: "
             "the propagators only")
     for name in ("chi_scan_grouped", "chi_scan_recompute",
-                 "frechet_trace_pertraj"):
+                 "frechet_trace_pertraj", "frechet_trace_pertraj_factored"):
         out[name]["library_ms"] = None
     return out
+
+
+def factored_shapes_phase(hf, rng, dev):
+    """Phase ``kernel_shapes_factored``: the factored Frechet kernel against
+    its plain version and against the dense kernel at ragged shapes, each
+    forced onto the factored route: the matrix in global memory (d = 160,
+    and d = 200 with the sets too), the sets in global memory (d = 100,
+    s = 4), the chunk of directions cut to fit (gs = 7 at s = 3: chunks of
+    2, 2, 2 and 1), tiny d, one step, a table per group."""
+    from grape_tpu_torch.ops import plain_versions
+
+    checks = []
+    for (d_, G_, gs_, T_, N_, s_, h_, pg_) in [
+            (160, 2, 3, 2, 12, 0, 10.0, False),
+            (200, 1, 2, 1, 4, 3, 60.0, True),
+            (100, 2, 5, 3, 10, 4, 100.0, False),
+            (37, 1, 7, 1, 9, 3, 60.0, False),
+            (5, 3, 2, 2, 50, 1, 20.0, True),
+            (2, 1, 1, 1, 1, 0, 5.0, False),
+            (130, 3, 1, 4, 20, 2, 40.0, True)]:
+        Hs, Os, cs, ts, psis, chis = frechet_inputs(
+            rng, dev, d_, G_, gs_, T_, N_, h_, pg_)
+
+        def run(route):
+            return frechet_forced(route, Hs, Os, cs, ts, psis, chis, s_)
+
+        got = run("factored")
+        torch.cuda.synchronize()
+        dense = run("dense")
+        with plain_versions():
+            want = run("factored")
+        torch.cuda.synchronize()
+        scale = max(float(want.abs().max()), 1.0)
+        plan = hf.factored_plan(d_, T_, gs_, s_, N_ * G_)
+        e = max_abs(got, want) / scale
+        e_dense = max_abs(got, dense) / scale
+        checks.append({"d": d_, "G": G_, "gs": gs_, "T": T_, "N_T": N_,
+                       "s": s_, "table_per_group": pg_, "plan": plan,
+                       "max_abs_err": e, "vs_dense": e_dense})
+        require(finite(got) and e < TOL_TRJ and e_dense < TOL_ROUTES,
+                f"the factored Frechet kernel disagrees at {checks[-1]}")
+    require(any(not c["plan"]["matrix_shared"] for c in checks)
+            and any(not c["plan"]["sets_shared"] for c in checks)
+            and any(c["plan"]["chunk"] < min(c["gs"], 4) for c in checks),
+            "the ragged shapes must reach every layout of the working set")
+    emit({"phase": "kernel_shapes_factored", "tol": TOL_TRJ,
+          "tol_vs_dense": TOL_ROUTES, "checks": checks})
+
+
+def frechet_routes_phase(hf, dev):
+    """Phase ``frechet_routes``: both Frechet kernels, each forced, timed on
+    the same inputs at the shapes where ``frechet_route`` decides between
+    them: d = 100 with the CZ's T = 4 at s = 0..7 for a group of 4
+    directions (K3's shape, 2000 steps; the rule's crossing lies between
+    s = 5 and 6) and at s = 0, 3, 5 for 4 groups of one, and at d = 3 the shapes of config 3 (one generator, K = 2, T = 2,
+    400 steps) and of the qutrits' gradgen evaluation (1024 groups of one,
+    T = 2, 400 steps).  Beside each, the route the rule takes, the factored
+    kernel's layout and the two kernels' agreement (< ``TOL_ROUTES`` of the
+    traces' scale)."""
+    rng = np.random.default_rng(SEED + 6)
+    cases = ([(100, 1, 4, 4, 2000, s, 10.0) for s in range(8)]
+             + [(100, 4, 1, 4, 2000, s, 10.0) for s in (0, 3, 5)]
+             + [(3, 1, 2, 2, 400, 0, 5.0), (3, 1024, 1, 2, 400, 0, 5.0)])
+    rows = []
+    for (d, G, gs, T, N, s, h) in cases:
+        Hs, Os, cs, ts, psis, chis = frechet_inputs(
+            rng, dev, d, G, gs, T, N, h, False)
+        got, ms = {}, {}
+        for route in ("dense", "factored"):
+            fn = (lambda r=route: frechet_forced(r, Hs, Os, cs, ts, psis,
+                                                 chis, s))
+            got[route] = fn()
+            ms[route] = median_ms(fn, reps=3)
+        scale = max(float(got["dense"].abs().max()), 1.0)
+        e = max_abs(got["factored"], got["dense"]) / scale
+        rule = hf.frechet_route(d, T, gs, s)
+        faster = min(ms, key=ms.get)
+        rows.append({
+            "d": d, "G": G, "gs": gs, "T": T, "N_T": N, "s": s,
+            "dense_ms": ms["dense"], "factored_ms": ms["factored"],
+            "route": rule, "faster": faster,
+            "gflop": {r: N * G * f / 1e9 for r, f in
+                      hf.frechet_flops(d, T, gs, s).items()},
+            "plan": hf.factored_plan(d, T, gs, s, N * G),
+            "factored_vs_dense": e})
+        require(finite(got["dense"], got["factored"]) and e < TOL_ROUTES,
+                f"the two Frechet kernels disagree at {rows[-1]}")
+    emit({"phase": "frechet_routes", "tol_of_scale": TOL_ROUTES,
+          "rule_takes_the_faster": sum(r["route"] == r["faster"]
+                                       for r in rows),
+          "of": len(rows), "rows": rows})
 
 
 def fg_against_plain(fg, x0, what, tol_J=1e-5):
@@ -723,7 +910,8 @@ def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
     ``fg_taylor_cz`` (the CZ gate with the taylor gradient) and
     ``per_step_fallback``; each counted run with the launch counts set to 0
     just before and read just after.  Returns ``(K7's entry for the kernels
-    line, the qutrit path's counts, the CZ-taylor counts)``."""
+    line, the qutrit path's counts, the CZ-taylor counts, the counts of the
+    qutrits' one gradgen evaluation)``."""
     import grape_tpu_torch as gt
     from grape_tpu_torch.fg import (
         _reuse_U_enabled, _smalld_enabled, _static_squarings,
@@ -755,7 +943,8 @@ def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
 
     # ---- side checks, before the counted run ------------------------------
     # (a) the gradgen gradient of the same problem: K7 forward, the
-    # per-trajectory Frechet kernel backward
+    # per-trajectory Frechet kernel backward (the dense one: at d = 3 it
+    # needs fewer operations); the counted run of that kernel
     cp_gg = gt.compile_problem(trajs, tlist, gradient_method="gradgen", **kw)
     require(_smalld_enabled(cp_gg) and _vec_gradgen_enabled(cp_gg),
             "the gradgen cross-check must take the small-dimension route")
@@ -976,7 +1165,7 @@ def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
           "against_vectorized_taylor_complex128": worst,
           "step_function_calls_per_evaluation": 50,
           "seconds": time.perf_counter() - t0})
-    return k7, counts, counts_cz
+    return k7, counts, counts_cz, counts_gg
 
 
 def ensemble_paths(problem, cp, s_ens):
@@ -1077,7 +1266,8 @@ def ensemble_paths(problem, cp, s_ens):
             f"ensemble J_T does not fall monotonically: {series}")
     expect = dict.fromkeys(counts, 0)
     expect.update({"forward_scan_grouped": n_fg + res.f_calls,
-                   "chi_scan_grouped": n_fg, "frechet_trace_pertraj": n_fg})
+                   "chi_scan_grouped": n_fg,
+                   "frechet_trace_pertraj_factored": n_fg})
     require(counts == expect, f"ensemble launch counts {counts} do not "
             f"match the evaluations {expect}")
 
@@ -1103,7 +1293,7 @@ def ensemble_paths(problem, cp, s_ens):
     counts_k = read_counts(hopper_prop, hopper_frechet, hopper_cheby)
     expect = dict.fromkeys(counts_k, 0)
     expect.update({"forward_scan_pertraj": 8, "chi_scan_recompute": 7,
-                   "frechet_trace_pertraj": 7})
+                   "frechet_trace_pertraj_factored": 7})
     require(counts_k == expect, f"per-trajectory launch counts {counts_k} "
             f"do not match the evaluations {expect}")
 
@@ -1781,7 +1971,7 @@ def recompute_paths(problem, cp_full, ens_series):
     expect = dict.fromkeys(counts, 0)
     expect.update({"forward_scan_grouped": S * (2 * n_fg + res.f_calls),
                    "chi_scan_grouped": S * n_fg,
-                   "frechet_trace_pertraj": S * n_fg})
+                   "frechet_trace_pertraj_factored": S * n_fg})
     require(counts == expect, f"recompute launch counts {counts} do not "
             f"match the evaluations {expect}")
     dseries = max(abs(a - b) for a, b in zip(series, ens_series))
@@ -1896,7 +2086,8 @@ def running_cost_paths(cz_problem, dev):
     against ``make_xi``, complex64 against complex128, five iterations —
     and the CZ at dim 100 with the leakage population of either transmon as
     ``g_b`` (ξ by ``make_xi``): kernels against plain, the time with the ξ
-    chain's share.  Returns the counts of the CZ run."""
+    chain's share.  Returns the counts of the CZ run and of config 3's one
+    evaluation."""
     import grape_tpu_torch as gt
     from grape_tpu_torch.functionals import make_xi
     from grape_tpu_torch.models import transmon_qutrit_problem
@@ -1910,9 +2101,16 @@ def running_cost_paths(cz_problem, dev):
                                   **q.kwargs)
            for dt in (np.complex64, np.complex128)}
     xq = cps[np.complex64].guess_pulsevals.reshape(-1)
+    # config 3's one evaluation is the counted run of the dense Frechet
+    # kernel under one shared generator: at d = 3 it needs fewer operations
+    # than the factored one
     zero_counts(*mods)
-    J64, g64, aux64 = gt.build_fg(cps[np.complex64])(xq)
+    fg_q = gt.build_fg(cps[np.complex64])
+    J64, g64, aux64 = fg_q(xq)
     counts_q = read_counts(*mods)
+    expect_q = dict.fromkeys(counts_q, 0)
+    expect_q.update({"forward_scan_shared": 1, "frechet_trace_shared": 1})
+    require(counts_q == expect_q, f"config 3 launch counts {counts_q}")
     J128, g128, aux128 = gt.build_fg(cps[np.complex128])(xq)
     Jb = float(aux64["J_parts"][2])
     require(Jb > 0 and finite(g64.to(torch.complex64)),
@@ -1921,6 +2119,8 @@ def running_cost_paths(cz_problem, dev):
     dgq = float((g64.double() - g128).abs().max() / g128.abs().max())
     require(dJq < 1e-5 and dgq < 1e-3,
             f"config 3 complex64 against complex128: dJ {dJq}, dg {dgq}")
+    fg_q_ms = timed_ms(lambda: fg_q(xq), 3)
+    parts_q = fg_breakdown(fg_q, xq)
     rng = np.random.default_rng(SEED + 3)
     P = torch.tensor(rng.normal(size=(2, 3)) + 1j * rng.normal(size=(2, 3)),
                      dtype=torch.complex64, device=dev)
@@ -1967,13 +2167,14 @@ def running_cost_paths(cz_problem, dev):
     n_fg = 1 + 3 + 4
     expect = dict.fromkeys(counts, 0)
     expect.update({"forward_scan_shared": n_fg,
-                   "frechet_trace_shared": n_fg})
+                   "frechet_trace_shared_factored": n_fg})
     require(counts == expect, f"running-cost launch counts {counts}")
     emit({"phase": "fg_running_cost",
           "config3": {"J": float(J64), "J_b_times_lambda": Jb,
                       "J_complex128": float(J128), "J_abs_diff": dJq,
                       "grad_diff_of_max": dgq, "xi_make_xi_vs_analytic": dxi,
                       "J_series": series, "iterations": res.iter,
+                      "ms_per_eval": fg_q_ms, "device_ms_by_part": parts_q,
                       "launches_one_eval": counts_q},
           "cz_leakage": {"J": float(J), "J_b_times_lambda": Jb_cz,
                          "J_abs_diff_vs_plain": dJ,
@@ -1982,7 +2183,7 @@ def running_cost_paths(cz_problem, dev):
                          "xi_chain_ms": parts.get("chi_window_plain", 0.0)
                          + parts.get("_xi_sources", 0.0),
                          "J_limit": gap, "launches": counts}})
-    return counts
+    return counts, counts_q
 
 
 def custom_amplitude_path(cz_problem):
@@ -2021,7 +2222,7 @@ def custom_amplitude_path(cz_problem):
     counts = read_counts(*mods)
     expect = dict.fromkeys(counts, 0)
     expect.update({"forward_scan_shared": 4, "chi_scan_shared": 4,
-                   "frechet_trace_shared": 4})
+                   "frechet_trace_shared_factored": 4})
     require(counts == expect, f"custom-amplitude launch counts {counts}")
     fg128 = gt.build_fg(cps[np.complex128])
     J128, g128, aux128 = fg128(x0)
@@ -2106,7 +2307,7 @@ def observables_path(cz_problem, dev):
     expect = dict.fromkeys(counts, 0)
     expect.update({"forward_scan_shared": n_eval,
                    "chi_scan_shared": res.fg_calls,
-                   "frechet_trace_shared": res.fg_calls})
+                   "frechet_trace_shared_factored": res.fg_calls})
     require(counts == expect, f"observables launch counts {counts}")
     emit({"phase": "fg_observables", "callback_calls": len(seen),
           "evaluations": n_eval, "shapes": [list(v.shape) for v in first],
@@ -2196,9 +2397,12 @@ def main():
     chi0 = c64(chi0 / np.linalg.norm(chi0, axis=1, keepdims=True))
 
     err = {"forward_scan_shared": 0.0, "chi_scan_shared": 0.0,
-           "frechet_trace_shared": 0.0}
+           "frechet_trace_shared": 0.0, "frechet_trace_shared_factored": 0.0}
     checks = []
     for s in sorted({s_cz, 2}):
+        require(hopper_frechet.frechet_route(d, T, K, s) == "factored",
+                f"the CZ's Frechet traces must take the factored kernel "
+                f"at s={s}")
         st, U = hopper_prop.forward_scan_shared(H0, ops, coeffs, dts, psi0, s)
         torch.cuda.synchronize()
         chis = hopper_prop.chi_scan_shared(U, chi0)
@@ -2208,6 +2412,8 @@ def main():
             H0, ops, coeffs, dts, psis, chis, s
         )
         torch.cuda.synchronize()
+        trj_d = frechet_forced("dense", H0, ops, coeffs, dts, psis, chis, s)
+        torch.cuda.synchronize()
         with plain_versions():
             st_p, U_p = hopper_prop.forward_scan_shared(
                 H0, ops, coeffs, dts, psi0, s
@@ -2216,43 +2422,62 @@ def main():
             trj_p = hopper_frechet.frechet_trace_shared(
                 H0, ops, coeffs, dts, psis, chis, s
             )
+            trj_dp = frechet_forced("dense", H0, ops, coeffs, dts, psis,
+                                    chis, s)
         torch.cuda.synchronize()
-        for x in (st, U, chis, trj):
+        for x in (st, U, chis, trj, trj_d):
             require(bool(torch.isfinite(torch.view_as_real(x)).all()),
                     f"a kernel output is not finite at s={s}")
         require(st.shape == (N_T + 1, K, d) and U.shape == (N_T, d, d)
-                and chis.shape == (N_T, K, d) and trj.shape == (N_T, K, T),
+                and chis.shape == (N_T, K, d) and trj.shape == (N_T, K, T)
+                and trj_d.shape == (N_T, K, T),
                 "a kernel output has the wrong shape")
         e_fwd = max(max_abs(st, st_p), max_abs(U, U_p))
         e_chi = max_abs(chis, chis_p)
         scale = max(float(trj_p.abs().max()), 1.0)
         e_trj = max_abs(trj, trj_p)
+        e_dense = max_abs(trj_d, trj_dp)
+        e_routes = max_abs(trj, trj_d)
         checks.append({"s": s, "forward": e_fwd, "chi": e_chi,
-                       "trj": e_trj, "trj_scale": scale,
+                       "trj_factored": e_trj, "trj_dense": e_dense,
+                       "trj_factored_vs_dense": e_routes,
+                       "trj_scale": scale,
                        "trj_max": float(trj_p.abs().max())})
         require(e_fwd < TOL_STATE,
                 f"forward scan disagrees at s={s}: {e_fwd}")
         require(e_chi < TOL_STATE, f"chi scan disagrees at s={s}: {e_chi}")
         require(e_trj < TOL_TRJ * scale,
-                f"Frechet trace disagrees at s={s}: {e_trj}")
+                f"factored Frechet trace disagrees at s={s}: {e_trj}")
+        require(e_dense < TOL_TRJ * scale,
+                f"dense Frechet trace disagrees at s={s}: {e_dense}")
+        require(e_routes < TOL_ROUTES * scale,
+                f"the two Frechet kernels disagree at s={s}: {e_routes}")
         err["forward_scan_shared"] = max(err["forward_scan_shared"], e_fwd)
         err["chi_scan_shared"] = max(err["chi_scan_shared"], e_chi)
-        err["frechet_trace_shared"] = max(err["frechet_trace_shared"], e_trj)
+        err["frechet_trace_shared"] = max(err["frechet_trace_shared"],
+                                          e_dense)
+        err["frechet_trace_shared_factored"] = max(
+            err["frechet_trace_shared_factored"], e_trj)
+    del trj_d, trj_dp
     emit({"phase": "kernel_check", "shape": {"d": d, "K": K, "T": T,
                                              "N_T": N_T},
           "s_main_path": s_cz, "tol_state": TOL_STATE,
-          "tol_trj_of_scale": TOL_TRJ, "checks": checks})
+          "tol_trj_of_scale": TOL_TRJ, "tol_routes_of_scale": TOL_ROUTES,
+          "checks": checks})
 
     # other shapes than the main path's: ragged tiles (d not a multiple of
     # 64, d > 128), more trajectories than one scan block holds, one step,
     # tiny d.  The CPU tests cannot reach the CUDA code, so the general
-    # shape handling is held against the plain versions here.
+    # shape handling is held against the plain versions here.  At d = 130
+    # the dense Frechet kernel is forced (the rule takes the factored one
+    # there), so that its ragged third tile stays checked.
     shape_checks = []
-    for (d_, K_, T_, N_, s_, h_) in [(128, 8, 1, 5, 0, 10.0),
-                                     (5, 1, 3, 1, 4, 100.0),
-                                     (64, 9, 2, 300, 1, 20.0),
-                                     (130, 2, 2, 3, 1, 20.0),
-                                     (2, 1, 1, 500, 0, 5.0)]:
+    for (d_, K_, T_, N_, s_, h_, route_) in [
+            (128, 8, 1, 5, 0, 10.0, None),
+            (5, 1, 3, 1, 4, 100.0, None),
+            (64, 9, 2, 300, 1, 20.0, None),
+            (130, 2, 2, 3, 1, 20.0, "dense"),
+            (2, 1, 1, 500, 0, 5.0, None)]:
         Hs = rng.normal(size=(d_, d_)) + 1j * rng.normal(size=(d_, d_))
         Hs = c64(h_ * (Hs + Hs.conj().T) / np.sqrt(d_))
         Os = rng.normal(size=(T_, d_, d_)) + 1j * rng.normal(size=(T_, d_, d_))
@@ -2266,19 +2491,18 @@ def main():
         st, U = hopper_prop.forward_scan_shared(Hs, Os, cs, ts, p0, s_)
         chis = hopper_prop.chi_scan_shared(U, x0_)
         psis = st[:-1].contiguous()
-        trj = hopper_frechet.frechet_trace_shared(Hs, Os, cs, ts, psis, chis,
-                                                  s_)
+        route_ = route_ or hopper_frechet.frechet_route(d_, T_, K_, s_)
+        trj = frechet_forced(route_, Hs, Os, cs, ts, psis, chis, s_)
         torch.cuda.synchronize()
         with plain_versions():
             st_p, U_p = hopper_prop.forward_scan_shared(Hs, Os, cs, ts, p0, s_)
             chis_p = hopper_prop.chi_scan_shared(U, x0_)
-            trj_p = hopper_frechet.frechet_trace_shared(Hs, Os, cs, ts, psis,
-                                                        chis, s_)
+            trj_p = frechet_forced(route_, Hs, Os, cs, ts, psis, chis, s_)
         worst = max(max_abs(st, st_p), max_abs(U, U_p),
                     max_abs(chis, chis_p),
                     max_abs(trj, trj_p) / max(float(trj_p.abs().max()), 1.0))
         shape_checks.append({"d": d_, "K": K_, "T": T_, "N_T": N_, "s": s_,
-                             "max_abs_err": worst})
+                             "frechet_route": route_, "max_abs_err": worst})
         require(worst < TOL_TRJ, f"kernels disagree with their plain "
                 f"versions at shape {shape_checks[-1]}")
     emit({"phase": "kernel_shapes", "tol": TOL_TRJ, "checks": shape_checks})
@@ -2291,32 +2515,39 @@ def main():
     trj = hopper_frechet.frechet_trace_shared(
         H0, ops, coeffs, dts, psis, chis, s
     )
+    def frechet(route=None, co=coeffs, ts=dts, ps=psis, xs=chis):
+        if route is None:
+            return lambda: hopper_frechet.frechet_trace_shared(
+                H0, ops, co, ts, ps, xs, s)
+        return lambda: frechet_forced(route, H0, ops, co, ts, ps, xs, s)
+
     ms = {
         "forward_scan_shared": median_ms(
             lambda: hopper_prop.forward_scan_shared(
                 H0, ops, coeffs, dts, psi0, s)),
         "chi_scan_shared": median_ms(
             lambda: hopper_prop.chi_scan_shared(U, chi0)),
-        "frechet_trace_shared": median_ms(
-            lambda: hopper_frechet.frechet_trace_shared(
-                H0, ops, coeffs, dts, psis, chis, s)),
+        "frechet_trace_shared_factored": median_ms(frechet()),
+        "frechet_trace_shared": median_ms(frechet("dense"), reps=3),
     }
     propagators_ms = median_ms(
         lambda: hopper_prop.propagators_shared(H0, ops, coeffs, dts, s))
-    frechet_under_load = under_load(
-        lambda: hopper_frechet.frechet_trace_shared(
-            H0, ops, coeffs, dts, psis, chis, s), 20)
-    # is the Frechet kernel's time linear in the number of (step, group)
+    frechet_under_load = under_load(frechet(), 20)
+    # is the factored kernel's time linear in the number of (step, group)
     # items?  The same launch on the time grid repeated 2, 4 and 8 times
-    # (8 x 2000 steps is the ensemble path's item count)
+    # (8 x 2000 steps is the ensemble path's item count), and the 2000
+    # items in launches of 400
     frechet_ms_by_steps = {}
     for mult in (1, 2, 4, 8):
-        co_m, dts_m = coeffs.repeat(mult, 1), dts.repeat(mult)
-        psis_m, chis_m = psis.repeat(mult, 1, 1), chis.repeat(mult, 1, 1)
-        frechet_ms_by_steps[N_T * mult] = median_ms(
-            lambda: hopper_frechet.frechet_trace_shared(
-                H0, ops, co_m, dts_m, psis_m, chis_m, s), reps=3)
-    del co_m, dts_m, psis_m, chis_m
+        frechet_ms_by_steps[N_T * mult] = median_ms(frechet(
+            co=coeffs.repeat(mult, 1), ts=dts.repeat(mult),
+            ps=psis.repeat(mult, 1, 1), xs=chis.repeat(mult, 1, 1)), reps=3)
+    frechet_ms_by_launch = {
+        ("all" if steps == N_T else str(steps)): windowed_ms(
+            lambda n0, n1: hopper_frechet.frechet_trace_shared(
+                H0, ops, coeffs[n0:n1], dts[n0:n1], psis[n0:n1],
+                chis[n0:n1], s), N_T, steps)
+        for steps in (400, N_T)}
     with plain_versions():
         plain_ms = {
             "forward_scan_shared": median_ms(
@@ -2324,9 +2555,8 @@ def main():
                     H0, ops, coeffs, dts, psi0, s), reps=3),
             "chi_scan_shared": median_ms(
                 lambda: hopper_prop.chi_scan_shared(U, chi0), reps=3),
-            "frechet_trace_shared": median_ms(
-                lambda: hopper_frechet.frechet_trace_shared(
-                    H0, ops, coeffs, dts, psis, chis, s), reps=3),
+            "frechet_trace_shared_factored": median_ms(frechet(), reps=3),
+            "frechet_trace_shared": median_ms(frechet("dense"), reps=3),
         }
     # yardstick for the propagator half of the forward scan: one library
     # call that computes the same N_T exponentials (never used by the port)
@@ -2341,19 +2571,23 @@ def main():
     flops = {
         "forward_scan_shared": N_T * ((6 + s) * cmm + 8.0 * K * d * d),
         "chi_scan_shared": (N_T - 1) * 8.0 * K * d * d,
+        # one function, one bound, whichever kernel computes it
         "frechet_trace_shared": frechet_needed_flops(d, K, T, N_T, s),
+        "frechet_trace_shared_factored": frechet_needed_flops(d, K, T, N_T,
+                                                              s),
     }
-    # what the Frechet kernel's own algorithm does (every product dense);
-    # reported beside the bound, never used for it
-    frechet_algorithm_flops = N_T * (
-        (5 + s) * cmm + K * ((12 + 2 * s) * cmm + 8.0 * T * d * d)
-    )
+    # what each Frechet kernel's own algorithm does; reported beside the
+    # bound, never used for it
+    frechet_algorithm_flops = {
+        route: N_T * n for route, n in
+        hopper_frechet.frechet_flops(d, T, K, s).items()}
     byts = {
         "forward_scan_shared": nbytes(H0, ops, coeffs, dts, psi0, st, U),
         "chi_scan_shared": nbytes(U, chi0, chis),
         "frechet_trace_shared": nbytes(H0, ops, coeffs, dts, psis, chis,
                                        trj),
     }
+    byts["frechet_trace_shared_factored"] = byts["frechet_trace_shared"]
 
     # ---- the ensemble path's problem and its kernels ----------------------
     ens_problem = two_transmon_cz_ensemble_problem(
@@ -2400,9 +2634,10 @@ def main():
     counts_after_one = {
         name: n for name, n in read_counts(hopper_prop,
                                            hopper_frechet).items()
-        if name.endswith("_shared")
+        if name in ("forward_scan_shared", "chi_scan_shared",
+                    "frechet_trace_shared_factored")
     }
-    require(all(v >= 1 for v in counts_after_one.values()),
+    require(all(v == 1 for v in counts_after_one.values()),
             f"one fg evaluation did not launch every kernel: "
             f"{counts_after_one}")
     require(g.shape == (L * N_T,) and g.device.type == "cuda"
@@ -2466,7 +2701,8 @@ def main():
     n_f = res.f_calls
     expect = dict.fromkeys(counts, 0)
     expect.update({"forward_scan_shared": n_fg + n_f,
-                   "chi_scan_shared": n_fg, "frechet_trace_shared": n_fg})
+                   "chi_scan_shared": n_fg,
+                   "frechet_trace_shared_factored": n_fg})
     require(counts == expect,
             f"launch counts {counts} do not match the evaluations {expect}")
     # iteration 0 is the set-up (compile_problem, the guess's fg); the
@@ -2485,8 +2721,8 @@ def main():
         ens_problem, cp_ens, s_ens)
 
     # ---- the qutrit ensemble, the taylor gradient, the per-step pass ------
-    k7, counts_smalld, counts_cz_taylor = smalld_and_taylor_paths(
-        problem, fg_ms, g, rng, dev)
+    k7, counts_smalld, counts_cz_taylor, counts_qutrit_gradgen = (
+        smalld_and_taylor_paths(problem, fg_ms, g, rng, dev))
 
     # ---- the Chebyshev path at dim 1024 -----------------------------------
     k8, counts_cheby = cheby_paths(rng, dev)
@@ -2497,26 +2733,35 @@ def main():
 
     # ---- recompute, running costs, nonlinear amplitudes, observables ------
     counts_rec = recompute_paths(ens_problem, cp_ens, ens_series)
-    counts_rc = running_cost_paths(problem, dev)
+    counts_rc, counts_q3 = running_cost_paths(problem, dev)
     counts_ca = custom_amplitude_path(problem)
     counts_obs = observables_path(problem, dev)
 
     prop_cu = "grape_tpu_torch/csrc/prop_scan.cu"
     frechet_cu = "grape_tpu_torch/csrc/frechet_trace.cu"
-    # name -> (source, what it replaces, the counted run that drives it)
+    factored_cu = "grape_tpu_torch/csrc/frechet_factored.cu"
+    # name -> (source, what it replaces, the counted run that drives it).
+    # Each Frechet wrapper runs one of two kernels, by operation count: the
+    # factored one at d = 100 (the CZ and its ensembles), the dense one at
+    # d = 3 (config 3's one evaluation, the qutrits' gradgen evaluation)
     meta = {
         "forward_scan_shared": (
             prop_cu, "grape_tpu/ops/pallas_prop.py:373", counts),
         "chi_scan_shared": (
             prop_cu, "grape_tpu/ops/pallas_prop.py:607", counts),
+        "frechet_trace_shared_factored": (
+            factored_cu, "grape_tpu/ops/pallas_frechet.py:257", counts),
         "frechet_trace_shared": (
-            frechet_cu, "grape_tpu/ops/pallas_frechet.py:257", counts),
+            frechet_cu, "grape_tpu/ops/pallas_frechet.py:257", counts_q3),
         "forward_scan_grouped": (
             prop_cu, "grape_tpu/ops/pallas_prop.py:494", counts_ens),
         "forward_scan_pertraj": (
             prop_cu, "grape_tpu/ops/pallas_prop.py:144", counts_pertraj),
+        "frechet_trace_pertraj_factored": (
+            factored_cu, "grape_tpu/ops/pallas_frechet.py:350", counts_ens),
         "frechet_trace_pertraj": (
-            frechet_cu, "grape_tpu/ops/pallas_frechet.py:350", counts_ens),
+            frechet_cu, "grape_tpu/ops/pallas_frechet.py:350",
+            counts_qutrit_gradgen),
         # the grouped co-state chains: scans of small products in the
         # reference, the chi-scan kernel with a group axis here
         "chi_scan_grouped": (
@@ -2543,20 +2788,27 @@ def main():
                "flops": flops[name], "bytes": byts[name],
                "library_ms": None}
         for name in ("forward_scan_shared", "chi_scan_shared",
-                     "frechet_trace_shared")
+                     "frechet_trace_shared", "frechet_trace_shared_factored")
     }
     cz["forward_scan_shared"].update(
         library_ms=library_ms, propagators_only_ms=propagators_ms,
         library_call="torch.linalg.matrix_exp on (N_T, d, d): the "
                      "propagators only")
     cz["frechet_trace_shared"].update(
-        algorithm_flops=frechet_algorithm_flops,
-        under_load=frechet_under_load, ms_by_steps=frechet_ms_by_steps)
+        algorithm_flops=frechet_algorithm_flops["dense"])
+    cz["frechet_trace_shared_factored"].update(
+        algorithm_flops=frechet_algorithm_flops["factored"],
+        under_load=frechet_under_load, ms_by_steps=frechet_ms_by_steps,
+        ms_by_items_per_launch=frechet_ms_by_launch)
     measured = {**cz, **ens, "forward_scan_smalld": k7, "cheby_scan": k8,
                 "forward_scan_time": k10, "karatsuba_chain": k11}
     # launches on this slice's paths, beside the counted run of each kernel
     for name, m in measured.items():
-        for path, c in (("recompute", counts_rec),
+        for path, c in (("main_path", counts), ("ensemble", counts_ens),
+                        ("per_trajectory", counts_pertraj),
+                        ("config3", counts_q3),
+                        ("qutrit_gradgen", counts_qutrit_gradgen),
+                        ("recompute", counts_rec),
                         ("running_cost", counts_rc),
                         ("custom_amplitude", counts_ca),
                         ("observables", counts_obs)):

@@ -29,7 +29,8 @@
 // That is this algorithm's count, carried over from the Pallas kernel.  The
 // function needs far less: R has rank one, so L is a sum of outer products
 // (A^i psi)(chi^dagger A^j) and needs only matrix-vector products until the
-// doublings; a later version of kernel and plain version may use that.
+// doublings.  frechet_factored.cu computes it so, and the wrapper takes this
+// kernel only where it needs fewer operations (tiny d, many doublings).
 // Design: a persistent grid walks over the N_T * G items, one item per
 // block at a time; the (14 + s) matrix working set (about 1.2 MB at d = 100)
 // cannot live in the 227 KB of shared memory, so it sits in a per-block

@@ -220,11 +220,14 @@ class CompiledProblem:
         return np.diff(self.tlist)
 
 
-# keyword -> value that means "not asked for"; anything else is an option
-# the port does not support yet
+# keyword -> value that means "not asked for" (the reference's default);
+# anything else is an option the port does not support yet.  The Pallas
+# switches have no meaning here: the kernels run for CUDA tensors.
 _UNPORTED_DEFAULTS = {
     "mesh": None,
     "_controls": None,
+    "use_pallas": "auto",
+    "gradgen_pallas_precision": "high",
 }
 
 

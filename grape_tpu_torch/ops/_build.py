@@ -133,6 +133,15 @@ def _declare(lib):
     lib.grape_propagator_scratch_matrices.argtypes = []
     lib.grape_frechet_scratch_matrices.restype = i
     lib.grape_frechet_scratch_matrices.argtypes = [i]
+    lib.grape_frechet_factored_plan.restype = i
+    lib.grape_frechet_factored_plan.argtypes = [
+        i, i, i, i, ll, ctypes.POINTER(i), ctypes.POINTER(ll),
+    ]
+    lib.grape_frechet_factored.restype = i
+    lib.grape_frechet_factored.argtypes = [
+        p, p, p, p, p, p, i, i, i, i, i, i, ll, i, i, i, i, i, p, ll, i, p,
+        p,
+    ]
     lib.grape_error_string.restype = ctypes.c_char_p
     lib.grape_error_string.argtypes = [i]
 

@@ -41,10 +41,15 @@ _OPTIMIZE_KEYS = frozenset({
 
 # keywords of grape_tpu.optimize() whose feature is not ported yet
 _UNPORTED_OPTIMIZE_KEYS = frozenset({
-    "eval_device_calls", "prewarm_envelope", "atexit_filename",
-    "atexit_config_digest", "profile_dir", "device_loop_iters",
-    "max_embedded_constant_bytes", "use_pallas", "gradgen_pallas_precision",
+    "eval_device_calls", "atexit_filename", "atexit_config_digest",
+    "profile_dir", "device_loop_iters", "max_embedded_constant_bytes",
 })
+
+# keyword -> the reference's default, taken as "not asked for"; any other
+# value raises.  The prewarm threads hide the TPU's compile latency and the
+# port compiles nothing.  (``use_pallas`` and ``gradgen_pallas_precision``
+# go on to compile_problem, which takes their defaults alike.)
+_UNPORTED_OPTIMIZE_DEFAULTS = {"prewarm_envelope": True}
 
 
 def _compile_kwargs(kwargs):
@@ -54,7 +59,12 @@ def _compile_kwargs(kwargs):
     for key, val in kwargs.items():
         if key in _OPTIMIZE_KEYS:
             continue
-        if key in _UNPORTED_OPTIMIZE_KEYS:
+        if key in _UNPORTED_OPTIMIZE_DEFAULTS:
+            default = _UNPORTED_OPTIMIZE_DEFAULTS[key]
+            if val is default or val == default:
+                continue
+        if key in _UNPORTED_OPTIMIZE_KEYS or key in (
+                _UNPORTED_OPTIMIZE_DEFAULTS):
             raise NotImplementedError(
                 f"{key}= is not ported to grape_tpu_torch"
             )

@@ -164,11 +164,66 @@ def test_frechet_trace_pertraj_plain_matches_pallas(G, gs, s,
         jnp.asarray(chis), n_squarings=s, interpret=True,
         precision="highest", group_size=gs,
     ))
-    trj = frechet_trace_pertraj_plain(
-        *_t(H0, ops, coeffs, dts, psis, chis), s, group_size=gs
-    ).numpy()
-    assert trj.shape == (N_T, K, T)
-    assert _err(trj, ref) < 2e-5 * max(np.max(np.abs(ref)), 1.0)
+    args = _t(H0, ops, coeffs, dts, psis, chis)
+    assert torch.equal(
+        frechet_trace_pertraj_plain(*args, s, group_size=gs),
+        hopper_frechet._PLAIN[hopper_frechet.frechet_route(D, T, gs, s)](
+            *args, s))
+    # both algorithms against the same interpret-mode result
+    for route, plain in hopper_frechet._PLAIN.items():
+        trj = plain(*args, s).numpy()
+        assert trj.shape == (N_T, K, T)
+        assert _err(trj, ref) < 2e-5 * max(np.max(np.abs(ref)), 1.0), route
+
+
+@pytest.mark.parametrize("per_group_coeffs", [False, True],
+                         ids=["shared_table", "table_per_group"])
+@pytest.mark.parametrize("gs", [1, 4])
+@pytest.mark.parametrize("s", [0, 1, 2, 3])
+def test_frechet_factored_equals_dense_complex128(s, gs, per_group_coeffs):
+    """The rank-factored algorithm (Krylov sets, fold, extension by E) is
+    the dense one rearranged: in complex128 the two agree to 1e-12 of the
+    traces' scale, also after the doublings, where the pairing of E^p with
+    E^(2^s-1-p) and E being the polynomial, not the exponential, matter."""
+    G, d = 2, 10
+    H0, ops, coeffs, dts, psis, chis = _inputs(
+        G, gs, 1000 + 10 * s + gs, s, per_group_coeffs, d=d)
+    rng = np.random.default_rng(s + gs)
+    K = G * gs
+    psis = rng.normal(size=(N_T, K, d)) + 1j * rng.normal(size=(N_T, K, d))
+    chis = rng.normal(size=(N_T, K, d)) + 1j * rng.normal(size=(N_T, K, d))
+    args = [x.to(torch.complex128) if x.is_complex() else x.double()
+            for x in _t(H0, ops, coeffs, dts)] + _t(psis, chis)
+    dense = hopper_frechet._frechet_trace_plain(*args, s)
+    fact = hopper_frechet._frechet_trace_factored_plain(*args, s)
+    assert fact.dtype == torch.complex128
+    assert _err(fact, dense) < 1e-12 * float(dense.abs().max())
+
+
+def test_frechet_route_by_operation_count():
+    """The route is the algorithm with fewer operations for (d, T, gs, s):
+    the qutrits (d = 3) dense, the CZ and its ensemble (d = 100) factored
+    at s = 0 up to s = 5, dense from the rank 16·2^6 on; the CPU wrapper
+    runs the chosen route's plain version and launches nothing."""
+    route = hopper_frechet.frechet_route
+    assert route(3, 2, 2, 0) == "dense"
+    assert route(3, 4, 4, 0) == "dense"
+    for gs in (1, 4):
+        assert [route(100, 4, gs, s) for s in range(8)] == (
+            ["factored"] * 6 + ["dense"] * 2)
+    f = hopper_frechet.frechet_flops(100, 4, 4, 0)
+    assert f["dense"] > 10 * f["factored"]
+    G, gs, s = 2, 3, 0
+    H0, ops, coeffs, dts, psi0, chi0 = _t(*_inputs(G, gs, 1100, s))
+    psis = psi0[None].repeat(N_T, 1, 1)
+    chis = chi0[None].repeat(N_T, 1, 1)
+    before = dict(hopper_frechet.launches)
+    trj = frechet_trace_pertraj(H0, ops, coeffs, dts, psis, chis, s,
+                                group_size=gs)
+    assert route(D, T, gs, s) == "factored"
+    assert torch.equal(trj, hopper_frechet._frechet_trace_factored_plain(
+        H0, ops, coeffs, dts, psis, chis, s))
+    assert before == hopper_frechet.launches
 
 
 @pytest.mark.parametrize("steps_per_window", [1, 4])
@@ -266,6 +321,7 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
     }
     assert set(hopper_frechet.launches) == {
         "frechet_trace_shared", "frechet_trace_pertraj",
+        "frechet_trace_shared_factored", "frechet_trace_pertraj_factored",
     }
 
 

@@ -1,6 +1,7 @@
 """The plain PyTorch versions of the three main-path kernels against the
 Pallas kernels they replace, run in interpret mode on the CPU, on the same
-seeded inputs.
+seeded inputs; the Fréchet traces by both of their algorithms (dense and
+rank-factored) against the same interpret-mode result.
 
 The plain version repeats the CUDA kernel's arithmetic (degree-16 Taylor,
 static ``s``, pair doublings) and is what ``chip_smoke.py`` holds the CUDA
@@ -113,12 +114,20 @@ def test_frechet_trace_plain_matches_pallas(d, K, s, hscale, monkeypatch):
         jnp.asarray(chis), n_squarings=s, interpret=True,
         precision="highest",
     ))
-    trj = frechet_trace_shared_plain(
-        *_t(H0, ops, coeffs, dts, psis, chis), n_squarings=s
-    ).numpy()
-    assert trj.shape == (N_T, K, T)
     scale = max(np.max(np.abs(trj_ref)), 1.0)
-    assert np.max(np.abs(trj - trj_ref)) < 2e-5 * scale
+    H0_t, ops_t, coeffs_t, dts_t, psis_t, chis_t = _t(
+        H0, ops, coeffs, dts, psis, chis)
+    assert torch.equal(
+        frechet_trace_shared_plain(H0_t, ops_t, coeffs_t, dts_t, psis_t,
+                                   chis_t, n_squarings=s),
+        hopper_frechet._PLAIN[hopper_frechet.frechet_route(d, T, K, s)](
+            H0_t[None], ops_t[None], coeffs_t, dts_t, psis_t, chis_t, s))
+    # both algorithms against the same interpret-mode result
+    for route, plain in hopper_frechet._PLAIN.items():
+        trj = plain(H0_t[None], ops_t[None], coeffs_t, dts_t, psis_t,
+                    chis_t, s).numpy()
+        assert trj.shape == (N_T, K, T)
+        assert np.max(np.abs(trj - trj_ref)) < 2e-5 * scale, route
 
 
 def test_wrappers_take_the_plain_version_for_cpu_tensors():

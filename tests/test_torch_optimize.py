@@ -337,6 +337,47 @@ def test_unported_option_raises(option):
     assert seen[0].gradient_method == "taylor"
 
 
+REFERENCE_DEFAULTS = [
+    # (entry point, keyword, value, accepted): the reference's default of a
+    # TPU keyword means "not asked for"; any other value is refused by name
+    ("compile_problem", "use_pallas", "auto", True),
+    ("compile_problem", "use_pallas", False, False),
+    ("compile_problem", "use_pallas", True, False),
+    ("compile_problem", "gradgen_pallas_precision", "high", True),
+    ("compile_problem", "gradgen_pallas_precision", "highest", False),
+    ("optimize", "use_pallas", "auto", True),
+    ("optimize", "use_pallas", False, False),
+    ("optimize", "gradgen_pallas_precision", "high", True),
+    ("optimize", "gradgen_pallas_precision", "default", False),
+    ("optimize", "prewarm_envelope", True, True),
+    ("optimize", "prewarm_envelope", False, False),
+]
+
+
+@pytest.mark.parametrize("entry,option,value,accepted", REFERENCE_DEFAULTS)
+def test_reference_defaults_of_tpu_keywords(entry, option, value, accepted):
+    trajs, tlist = _tls_quickstart()
+    tlist = tlist[:51]
+
+    def run():
+        if entry == "compile_problem":
+            return gt.compile_problem(trajs, tlist, J_T=J_T_sm, device="cpu",
+                                      **{option: value})
+        return optimize(trajs, tlist, J_T=J_T_sm, device="cpu",
+                        iter_stop=1, print_iters=False,
+                        rethrow_exceptions=True, **{option: value})
+
+    if not accepted:
+        with pytest.raises(NotImplementedError, match=option):
+            run()
+        return
+    out = run()
+    if entry == "compile_problem":
+        assert out.n_timesteps == 50
+    else:
+        assert out.iter == 1 and np.isfinite(out.J_T)
+
+
 def test_unported_constructs_raise(monkeypatch):
     trajs, tlist = _tls_quickstart()
     # nonlinear amplitudes construct and compile since they were ported
