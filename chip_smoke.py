@@ -152,11 +152,15 @@ def ptxas_summary(log):
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            # _ZN5grape24smalld_propagator_kernelILi4EEE... -> name<4>
+            # _ZN5grape24smalld_propagator_kernelILi4EEE... -> name<4>,
+            # ...state_scan_kernelILb1ELi4EE... -> state_scan_kernel<1,4>
             mangled = m.group(1)
-            k = re.search(r"\d+([a-z_]+kernel)(?:ILi(\d+)E)?", mangled)
+            k = re.search(r"\d+([a-z_]+kernel)((?:I(?:L[a-z]+\d+E)+E)?)",
+                          mangled)
+            args = [] if k is None else re.findall(r"L[a-z]+(\d+)E",
+                                                   k.group(2))
             name = mangled if k is None else (
-                k.group(1) + (f"<{k.group(2)}>" if k.group(2) else ""))
+                k.group(1) + (f"<{','.join(args)}>" if args else ""))
             out[name] = {}
             continue
         if name is None:
@@ -231,16 +235,28 @@ def frechet_needed_flops(d, K, T, N_T, s):
     return N_T * min(factored, dense)
 
 
+# the route launches of the propagator kernel and the state scans read with
+# every count: [(the function that read them, {route: launches})]
+ROUTE_READS = []
+
+
 def zero_counts(*modules):
     for mod in modules:
         for key in mod.launches:
             mod.launches[key] = 0
+        for key in getattr(mod, "route_launches", {}):
+            mod.route_launches[key] = 0
 
 
 def read_counts(*modules):
+    """The wrappers' launch counts; the route launches beside them are kept
+    in ``ROUTE_READS`` under the calling function's name."""
     out = {}
     for mod in modules:
         out.update(mod.launches)
+        if hasattr(mod, "route_launches"):
+            ROUTE_READS.append((sys._getframe(1).f_code.co_name,
+                                dict(mod.route_launches)))
     return out
 
 
@@ -445,6 +461,7 @@ def ensemble_kernel_phases(cp, s_main, rng, dev):
         errs[5] /= scale
         shape_checks.append({"d": d_, "G": G_, "gs": gs_, "T": T_, "N_T": N_,
                              "s": s_, "table_per_group": pg_,
+                             "propagator_route": hp.propagator_route(d_),
                              "max_abs_err": max(errs)})
         require(max(errs) < TOL_TRJ, "ensemble kernels disagree with their "
                 f"plain versions at shape {shape_checks[-1]}: {errs}")
@@ -1168,6 +1185,352 @@ def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
     return k7, counts, counts_cz, counts_gg
 
 
+def prop_routes_phase(cp, cp_ens, s_main, dev):
+    """Phase ``prop_routes``: the propagator kernel on its two routes, each
+    forced, on the same inputs (the guess pulse plus seeded noise) at the
+    propagator shapes of K1 (the CZ's one generator, 2000 steps), K4 (the
+    ensemble's 8 groups), K5 (one generator per trajectory, 32 of them) at
+    s = 0..3 and K10 (4 generators) at the main paths' s, each against its
+    plain version (< TOL_STATE) and, at the main paths' s, against
+    ``torch.linalg.matrix_exp`` on the same exponentials (K5: four calls of
+    16000 matrices summed).  Returns the kernel line's numbers of the
+    cluster kernel (K1 at the main path's s)."""
+    from grape_tpu_torch.ops import hopper_prop as hp
+
+    rng = np.random.default_rng(SEED + 7)
+    c64 = lambda x: torch.tensor(x, dtype=torch.complex64, device=dev)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    d, N_T = cp.dim, cp.n_timesteps
+    require(hp.propagator_route(d) == "cluster",
+            f"d = {d} must take the cluster propagator kernel")
+
+    def table(c):
+        eps = c.guess_pulsevals + 0.02 * rng.normal(size=(c.n_controls, N_T))
+        return f32(np.einsum("ntl,ln->nt", c.M, eps) + c.Mfix)
+
+    dts = f32(np.diff(cp.tlist))
+    gs = cp_ens.n_traj // cp_ens.H0.shape[0]
+    H0g, opsg = c64(cp_ens.H0), c64(cp_ens.ops)
+    co_e = table(cp_ens)
+    shapes = {
+        "K1": (c64(cp.H0[:1]), c64(cp.ops[:1]), table(cp)),
+        "K4": (H0g, opsg, co_e),
+        "K5": (H0g.repeat_interleave(gs, dim=0).contiguous(),
+               opsg.repeat_interleave(gs, dim=0).contiguous(), co_e),
+        "K10": (H0g[:4].contiguous(), opsg[:4].contiguous(), co_e),
+    }
+    rows = []
+    k1 = {}
+    for name, (H0, ops, co) in shapes.items():
+        G = H0.shape[0]
+        items = N_T * G
+        reps = 2 if items > 20000 else 3
+        for s in (range(4) if name != "K10" else [s_main]):
+            U = {}
+            ms = {}
+            for route in ("cluster", "global"):
+                with hp._forced_routes(propagators=route):
+                    fn = (lambda: hp.propagators(H0, ops, co, dts, s))
+                    U[route] = fn()
+                    ms[route] = median_ms(fn, reps=reps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            U_p = hp._propagators_plain(H0, ops, co, dts, s)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = {r: max_abs(u, U_p) for r, u in U.items()}
+            require(finite(U["cluster"]) and max(err.values()) < TOL_STATE,
+                    f"propagators of {name} at s={s} disagree with their "
+                    f"plain version: {err}")
+            flops = items * (6 + s) * 8.0 * d ** 3
+            byts = nbytes(H0, ops, co, dts, U["cluster"])
+            b_ms, b_by = bound(flops, byts)
+            row = {"shape": name, "G": G, "N_T": N_T, "items": items, "s": s,
+                   "cluster_ms": ms["cluster"], "global_ms": ms["global"],
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "cluster_of_bound": b_ms / ms["cluster"],
+                   "err_cluster": err["cluster"], "err_global": err["global"]}
+            del U, U_p
+            if s == s_main:
+                # the library call on the same exponentials (no squarings:
+                # it scales by itself); one call on 64000 matrices faults
+                # (see ensemble_kernel_phases), so at most 16000 a call
+                a_c = (-1j * dts.to(torch.complex64))[:, None, None, None]
+                co_c = co.to(torch.complex64)
+                total = 0.0
+                n_parts = max(1, items // 16000)
+                for steps in torch.arange(N_T, device=dev).chunk(n_parts):
+                    A = (a_c[steps] * (H0[None] + torch.einsum(
+                        "nt,gtij->ngij", co_c[steps], ops))).reshape(-1, d, d)
+                    total += median_ms(lambda: torch.linalg.matrix_exp(A),
+                                       reps=reps)
+                    del A
+                    torch.cuda.empty_cache()
+                row["library_ms"] = total
+                row["library_calls"] = n_parts
+            torch.cuda.empty_cache()
+            rows.append(row)
+            if name == "K1" and s == s_main:
+                k1 = {"ms": row["cluster_ms"], "plain_ms": plain_ms,
+                      "flops": flops, "bytes": byts,
+                      "library_ms": row["library_ms"],
+                      "library_call": "torch.linalg.matrix_exp on (N_T, d, "
+                                      "d): the same exponentials",
+                      "err": err["cluster"],
+                      "global_route_ms": row["global_ms"]}
+    for r in rows:
+        require(r["cluster_ms"] < r["global_ms"], "the cluster propagator "
+                f"kernel is slower than the global one at {r}")
+    emit({"phase": "prop_routes", "tol": TOL_STATE,
+          "resident_clusters": hp.load_kernels()
+          .grape_propagators_cluster_resident(d), "rows": rows})
+    zero_counts(hp)
+    return k1
+
+
+def scan_routes_phase(dev):
+    """Phase ``scan_routes``: the state scans on their two routes, each
+    forced, on the same propagators (the kernel's, of seeded random
+    generators at d = 100 over 2000 steps) and states: one group of 4 (the
+    CZ), 8 groups of 4 and 32 groups of 1 (the ensembles), both directions,
+    against the plain chains (< TOL_STATE), with the time per step; beside
+    the rule's cluster size the neighbouring ones, timed forward.  Returns
+    the kernel line's numbers of the cluster scan (the CZ's shape)."""
+    from grape_tpu_torch.ops import _build
+    from grape_tpu_torch.ops import hopper_prop as hp
+
+    rng = np.random.default_rng(SEED + 8)
+    lib = _build.load_kernels()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    d, N_T = 100, 2000
+    rows = []
+    cz = {}
+    for (G, gs, sizes) in [(1, 4, (16, 8, 4)), (8, 4, (16, 8, 4)),
+                           (32, 1, (4, 2, 1))]:
+        K = G * gs
+        Hs, Os, cs, ts, p0, x0 = random_group_inputs(
+            rng, dev, d, G, gs, 4, N_T, 10.0, False)
+        U = hp.propagators(Hs, Os, cs, ts, 0)
+        st = torch.empty((N_T + 1, K, d), dtype=torch.complex64, device=dev)
+        chis = torch.empty((N_T, K, d), dtype=torch.complex64, device=dev)
+        carry = torch.empty_like(x0)
+        # the plain chains on the same propagators
+        Ut = U.transpose(-1, -2)
+        psi = p0.reshape(G, gs, d)
+        st_p = [p0]
+        for n in range(N_T):
+            psi = psi @ Ut[n]
+            st_p.append(psi.reshape(K, d))
+        st_p = torch.stack(st_p)
+        chis_p = torch.empty_like(chis)
+        carry_p = hp.chi_window_plain(U, x0, chis_p)
+        plan = hp.scan_route(d, G, gs, sms)
+        row = {"G": G, "gs": gs, "d": d, "N_T": N_T, "plan": plan}
+        for route in ("cluster", "legacy"):
+            with hp._forced_routes(scan=None if route == "cluster"
+                                   else "legacy"):
+                fwd = lambda: hp._state_scan(lib, U, p0, st, None, False)
+                chi = lambda: hp._state_scan(lib, U, x0, chis, carry, True)
+                fwd()
+                chi()
+                torch.cuda.synchronize()
+                e = max(max_abs(st, st_p), max_abs(chis, chis_p),
+                        max_abs(carry, carry_p))
+                require(finite(st, chis, carry) and e < TOL_STATE,
+                        f"the {route} state scans disagree with the plain "
+                        f"chains at G={G}, gs={gs}: {e}")
+                row[f"{route}_err"] = e
+                row[f"{route}_forward_ms"] = median_ms(fwd, reps=3)
+                row[f"{route}_chi_ms"] = median_ms(chi, reps=3)
+                row[f"{route}_forward_us_per_step"] = (
+                    row[f"{route}_forward_ms"] * 1e3 / N_T)
+                row[f"{route}_chi_us_per_step"] = (
+                    row[f"{route}_chi_ms"] * 1e3 / N_T)
+        row["forward_ms_by_cluster"] = {}
+        for c in sizes:
+            with hp._forced_routes(scan=c):
+                row["forward_ms_by_cluster"][c] = median_ms(
+                    lambda: hp._state_scan(lib, U, p0, st, None, False),
+                    reps=3)
+            row.setdefault("resident_clusters", {})[c] = (
+                lib.grape_state_scan_resident(
+                    0, d, G, gs, plan["kb"], c,
+                    hp.scan_route(d, G, gs, sms, cluster=c)["stages"]))
+        for direction in ("forward", "chi"):
+            require(row[f"cluster_{direction}_ms"]
+                    <= row[f"legacy_{direction}_ms"],
+                    f"the cluster scan ({direction}) is slower than the "
+                    f"one-block scan at G={G}, gs={gs}: {row}")
+        if G == 1:
+            require(2 * row["cluster_forward_ms"] <= row["legacy_forward_ms"]
+                    and 2 * row["cluster_chi_ms"] <= row["legacy_chi_ms"],
+                    f"at the CZ's shape the cluster scan is not twice as "
+                    f"fast as the one-block scan: {row}")
+            cz = {"ms": row["cluster_forward_ms"],
+                  "ms_chi": row["cluster_chi_ms"],
+                  "us_per_step": row["cluster_forward_us_per_step"],
+                  "us_per_step_chi": row["cluster_chi_us_per_step"],
+                  "legacy_ms": row["legacy_forward_ms"],
+                  "legacy_ms_chi": row["legacy_chi_ms"],
+                  "err": row["cluster_err"],
+                  "flops": N_T * 8.0 * K * d * d,
+                  "bytes": nbytes(U, p0, st)}
+            # the plain forward chain alone (the propagators given)
+            t0 = time.perf_counter()
+            psi = p0
+            for n in range(N_T):
+                psi = psi @ Ut[n, 0]
+            torch.cuda.synchronize()
+            cz["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        rows.append(row)
+        del U, Ut, st, chis, st_p, chis_p
+        torch.cuda.empty_cache()
+    emit({"phase": "scan_routes", "tol": TOL_STATE, "sm_count": sms,
+          "rows": rows})
+    zero_counts(hp)
+    return cz
+
+
+def cluster_shapes_phase(dev):
+    """Phase ``kernel_shapes_cluster``: the forward scans and co-state
+    chains against their plain versions where the two redesigned kernels
+    change layout: d = 37 (odd: element copies into the scan's ring, not
+    TMA), 100 (the paths' own) and 129 (past the cluster propagator kernel:
+    its global route), for one group of 4, 8 groups of 4 and 32 groups of
+    1, at s = 0..3, 40 steps (windows of 7 steps for the versions that keep
+    no U stream), to < TOL_TRJ; with the routes each shape took."""
+    from grape_tpu_torch.ops import hopper_prop as hp
+    from grape_tpu_torch.ops import plain_versions
+
+    rng = np.random.default_rng(SEED + 9)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    checks = []
+    window_bytes = hp._WINDOW_BYTES
+    for d in (37, 100, 129):
+        for (G, gs) in ((1, 4), (8, 4), (32, 1)):
+            for s in range(4):
+                N_ = 40
+                Hs, Os, cs, ts, p0, x0 = random_group_inputs(
+                    rng, dev, d, G, gs, 2, N_, 10.0 * 2 ** s, s % 2 == 1)
+
+                def run():
+                    out = hp.forward_scan_grouped(Hs, Os, cs, ts, p0, gs, s)
+                    chis = hp.chi_scan_grouped(out[1], x0)
+                    hp._WINDOW_BYTES = 7 * G * d * d * 8
+                    try:
+                        st_w, _ = hp.forward_scan_grouped(
+                            Hs, Os, cs, ts, p0, gs, s, with_propagators=False)
+                        chis_r, carry = hp.chi_scan_recompute(
+                            Hs, Os, cs, ts, x0, s)
+                    finally:
+                        hp._WINDOW_BYTES = window_bytes
+                    return out[0], out[1], chis, st_w, chis_r, carry
+
+                zero_counts(hp)
+                got = run()
+                torch.cuda.synchronize()
+                routes = {k: v for k, v in hp.route_launches.items() if v}
+                with plain_versions():
+                    want = run()
+                e = max(max_abs(a, b) for a, b in zip(got, want))
+                checks.append({"d": d, "G": G, "gs": gs, "s": s, "N_T": N_,
+                               "propagator_route": hp.propagator_route(d),
+                               "scan_plan": hp.scan_route(d, G, gs, sms),
+                               "route_launches": routes,
+                               "max_abs_err": e})
+                require(finite(*got) and e < TOL_TRJ, "the redesigned "
+                        f"kernels disagree at {checks[-1]}")
+    require(any(c["propagator_route"] == "global" for c in checks)
+            and {2, 8, 16} <= {c["scan_plan"]["cluster"] for c in checks},
+            "the shapes must reach both propagator routes and the cluster "
+            "sizes 2, 8 and 16")
+    emit({"phase": "kernel_shapes_cluster", "tol": TOL_TRJ,
+          "checks": checks})
+    zero_counts(hp)
+
+
+def phase_clock_phase(dev):
+    """Phase ``cluster_phase_clock``: where the time of the two cluster
+    kernels goes, from their phase clocks (a second build of their sources
+    with ``-DGRAPE_PHASE_CLOCK``; block 0's SM cycles per phase, per item
+    or per step, a phase that ends at a wait including the wait): the
+    propagator kernel at K1's shape (one generator, 2000 steps) at s = 0
+    and 2, the state scan at the CZ's shape both ways and at 8 x 4 and
+    32 x 1 forward, with the SM clock read under load."""
+    import ctypes
+
+    from grape_tpu_torch.ops import _build
+    from grape_tpu_torch.ops import hopper_prop as hp
+
+    t0 = time.perf_counter()
+    lib = _build.load_phase_clock()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 10)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    table = ctypes.c_ulonglong * 16
+    reps = 3
+
+    def run(launch, read):
+        buf = table()
+        check = lambda rc: require(rc == 0, f"clocked launch: error {rc}")
+        check(launch())
+        torch.cuda.synchronize()
+        check(read(buf))
+        for _ in range(reps):
+            check(launch())
+        torch.cuda.synchronize()
+        check(read(buf))
+        return list(buf)
+
+    d, N_T = 100, 2000
+    prop_names = {0: "A_and_its_exchange", 1: "A2_A3_A4", 2:
+                  "A4_exchange_and_E", 4: "horner", 5: "squarings"}
+    props = []
+    H1, O1, c1, t1, _, _ = random_group_inputs(rng, dev, d, 1, 4, 4, N_T,
+                                               10.0, False)
+    U = torch.empty((N_T, 1, d, d), dtype=torch.complex64, device=dev)
+
+    def launch_k1(s):
+        return lib.grape_propagators_cluster(
+            H1.data_ptr(), O1.data_ptr(), c1.data_ptr(), t1.data_ptr(), 4, d,
+            N_T, 1, 0, s, U.data_ptr(), stream)
+
+    resident = lib.grape_propagators_cluster_resident(d)
+    per_block = -(-N_T // min(N_T, resident))
+    for s in (0, 2):
+        t = run(lambda: launch_k1(s), lib.grape_propagators_cluster_clock)
+        props.append({"s": s, "items_of_block_0": per_block,
+                      "cycles_per_item": {name: t[i] / (reps * per_block)
+                                          for i, name in prop_names.items()}})
+    scan_names = {0: "waits", 3: "products_and_reduction", 4: "pushes",
+                  1: "emission_and_slot_release"}
+    scans = []
+    for (G, gs, chi) in [(1, 4, 0), (1, 4, 1), (8, 4, 0), (32, 1, 0)]:
+        Hs, Os, cs, ts, p0, x0 = random_group_inputs(
+            rng, dev, d, G, gs, 4, N_T, 10.0, False)
+        Ug = hp.propagators(Hs, Os, cs, ts, 0)
+        out = torch.empty((N_T + 1, G * gs, d), dtype=torch.complex64,
+                          device=dev)
+        plan = hp.scan_route(d, G, gs, sms)
+        t = run(lambda: lib.grape_state_scan(
+            Ug.data_ptr(), (x0 if chi else p0).data_ptr(), out.data_ptr(),
+            None, chi, N_T, G * gs, d, G, gs, plan["kb"], plan["cluster"],
+            plan["stages"], stream), lib.grape_state_scan_clock)
+        steps = reps * (N_T - chi)
+        scans.append({"G": G, "gs": gs, "direction": "chi" if chi else
+                      "forward", "plan": plan,
+                      "cycles_per_step": {name: t[i] / steps
+                                          for i, name in scan_names.items()}})
+        del Ug, out
+    emit({"phase": "cluster_phase_clock", "build_seconds": build_s,
+          "resident_clusters": resident, "propagators": props,
+          "state_scans": scans,
+          "under_load": under_load(lambda: launch_k1(0), 50)})
+    zero_counts(hp)
+    torch.cuda.synchronize()
+
+
 def ensemble_paths(problem, cp, s_ens):
     """Phases ``fg_ensemble`` and ``optimize_ensemble``: the grouped path
     (8 groups of 4) and the per-trajectory path (group size 1), each with
@@ -1732,7 +2095,10 @@ def time_grid_kernel_phase(cp_ens, s_ens, rng, dev):
         e = max_abs(out, ref)
         shape_checks.append({"d": d_, "K": K_, "T": T_, "N_T": N_, "s": s_,
                              "route": "small-d" if d_ <= 4 and K_ >= 128
-                             else "large-d", "max_abs_err": e})
+                             else "large-d",
+                             "propagator_route":
+                                 hopper_prop.propagator_route(d_),
+                             "max_abs_err": e})
         require(e < TOL_TRJ, f"forward_scan_time disagrees at "
                 f"{shape_checks[-1]}")
 
@@ -1770,10 +2136,9 @@ def time_grid_kernel_phase(cp_ens, s_ens, rng, dev):
             "library_call": f"torch.linalg.matrix_exp on ({N_T * K}, {d}, "
                             f"{d}): the propagators only",
             "forward_scan_pertraj_no_stream_ms": pertraj_ms,
-            "computed_by": "csrc/prop_scan.cu propagator_kernel + "
-                           "forward_apply_kernel (the K5 pair, no U "
-                           "stream); csrc/smalld_scan.cu for d <= 4, "
-                           "K >= 128"}, counts
+            "computed_by": "csrc/prop_cluster.cu + csrc/state_scan.cu "
+                           "(the K5 pair, no U stream); "
+                           "csrc/smalld_scan.cu for d <= 4, K >= 128"}, counts
 
 
 def _tf32_chain(ar, ai, br, bi, reps):
@@ -2502,7 +2867,10 @@ def main():
                     max_abs(chis, chis_p),
                     max_abs(trj, trj_p) / max(float(trj_p.abs().max()), 1.0))
         shape_checks.append({"d": d_, "K": K_, "T": T_, "N_T": N_, "s": s_,
-                             "frechet_route": route_, "max_abs_err": worst})
+                             "frechet_route": route_,
+                             "propagator_route":
+                                 hopper_prop.propagator_route(d_),
+                             "max_abs_err": worst})
         require(worst < TOL_TRJ, f"kernels disagree with their plain "
                 f"versions at shape {shape_checks[-1]}")
     emit({"phase": "kernel_shapes", "tol": TOL_TRJ, "checks": shape_checks})
@@ -2603,6 +2971,12 @@ def main():
             "unexpected ensemble-path shape")
     s_ens = _static_squarings(cp_ens)
     ens = ensemble_kernel_phases(cp_ens, s_ens, rng, dev)
+
+    # ---- the two redesigned kernels: routes forced, layouts ---------------
+    k_prop = prop_routes_phase(cp, cp_ens, s_cz, dev)
+    k_scan = scan_routes_phase(dev)
+    cluster_shapes_phase(dev)
+    phase_clock_phase(dev)
 
     # ---- small-input reference, before the main path is counted ----------
     # the kernel path in complex64 against the plain complex128 path
@@ -2705,6 +3079,16 @@ def main():
                    "frechet_trace_shared_factored": n_fg})
     require(counts == expect,
             f"launch counts {counts} do not match the evaluations {expect}")
+    # every propagator and state chain of the main path on the redesigned
+    # kernels: one propagator launch and one forward scan per forward pass,
+    # one co-state scan per gradient
+    routes_main = ROUTE_READS[-1][1]
+    expect_routes = dict.fromkeys(routes_main, 0)
+    expect_routes.update({"propagators_cluster": n_fg + n_f,
+                          "state_scan_forward": n_fg + n_f,
+                          "state_scan_chi": n_fg})
+    require(routes_main == expect_routes, f"main-path route launches "
+            f"{routes_main} do not match the evaluations {expect_routes}")
     # iteration 0 is the set-up (compile_problem, the guess's fg); the
     # steady rate is taken over iterations 1..ITER_STOP
     steady_s = sum(iter_secs[1:])
@@ -2714,7 +3098,8 @@ def main():
           "steady_ms_per_fg": steady_s / max(sum(iter_fg[1:]), 1) * 1e3,
           "steady_iters_per_second": ITER_STOP / steady_s,
           "fg_calls": res.fg_calls, "f_calls": res.f_calls,
-          "message": res.message, "launches": counts})
+          "message": res.message, "launches": counts,
+          "route_launches": routes_main})
 
     # ---- the ensemble paths, each with its own counted run ----------------
     counts_ens, counts_pertraj, ens_series = ensemble_paths(
@@ -2737,18 +3122,31 @@ def main():
     counts_ca = custom_amplitude_path(problem)
     counts_obs = observables_path(problem, dev)
 
-    prop_cu = "grape_tpu_torch/csrc/prop_scan.cu"
+    prop_cu = "grape_tpu_torch/csrc/prop_cluster.cu"
+    scan_cu = "grape_tpu_torch/csrc/state_scan.cu"
     frechet_cu = "grape_tpu_torch/csrc/frechet_trace.cu"
     factored_cu = "grape_tpu_torch/csrc/frechet_factored.cu"
     # name -> (source, what it replaces, the counted run that drives it).
     # Each Frechet wrapper runs one of two kernels, by operation count: the
     # factored one at d = 100 (the CZ and its ensembles), the dense one at
     # d = 3 (config 3's one evaluation, the qutrits' gradgen evaluation)
+    # the two redesigned kernels under their own names, counted per route
+    # in the main path's run (every wrapper below that forms propagators
+    # or runs a state chain launches them)
+    counts_routes = {
+        "propagator_kernel_cluster": routes_main["propagators_cluster"],
+        "state_scan_cluster": (routes_main["state_scan_forward"]
+                               + routes_main["state_scan_chi"]),
+    }
     meta = {
+        "propagator_kernel_cluster": (
+            prop_cu, "grape_tpu/ops/pallas_prop.py:373", counts_routes),
+        "state_scan_cluster": (
+            scan_cu, "grape_tpu/ops/pallas_prop.py:607", counts_routes),
         "forward_scan_shared": (
             prop_cu, "grape_tpu/ops/pallas_prop.py:373", counts),
         "chi_scan_shared": (
-            prop_cu, "grape_tpu/ops/pallas_prop.py:607", counts),
+            scan_cu, "grape_tpu/ops/pallas_prop.py:607", counts),
         "frechet_trace_shared_factored": (
             factored_cu, "grape_tpu/ops/pallas_frechet.py:257", counts),
         "frechet_trace_shared": (
@@ -2765,7 +3163,7 @@ def main():
         # the grouped co-state chains: scans of small products in the
         # reference, the chi-scan kernel with a group axis here
         "chi_scan_grouped": (
-            prop_cu, "grape_tpu/fg.py:1719", counts_ens),
+            scan_cu, "grape_tpu/fg.py:1719", counts_ens),
         "chi_scan_recompute": (
             prop_cu, "grape_tpu/fg.py:1745", counts_pertraj),
         "forward_scan_smalld": (
@@ -2775,8 +3173,8 @@ def main():
         "cheby_scan": (
             "grape_tpu_torch/csrc/cheby_scan.cu",
             "grape_tpu/ops/pallas_prop.py:956 and :1183", counts_cheby),
-        # the per-trajectory scan without the U stream: the K5 pair (or
-        # the small-d pair under its gates)
+        # the per-trajectory scan without the U stream: the K5 pair of
+        # kernels (or the small-d pair under its gates)
         "forward_scan_time": (
             prop_cu, "grape_tpu/ops/pallas_prop.py:275", counts_time),
         "karatsuba_chain": (
@@ -2800,8 +3198,21 @@ def main():
         algorithm_flops=frechet_algorithm_flops["factored"],
         under_load=frechet_under_load, ms_by_steps=frechet_ms_by_steps,
         ms_by_items_per_launch=frechet_ms_by_launch)
+    k_prop.update(
+        replaces_all="grape_tpu/ops/pallas_prop.py:144, :275, :373, :494 "
+                     "(the propagator half of K5, K10, K1, K4) and the "
+                     "re-formed propagators of chi_scan_recompute",
+        routes_main_path=routes_main)
+    k_scan.update(
+        library_ms=None,
+        replaces_all="grape_tpu/ops/pallas_prop.py:607 (K2) and the apply "
+                     "half of :373, :494, :144 (K1, K4, K5); the grouped "
+                     "and windowed co-state chains",
+        routes_main_path=routes_main)
     measured = {**cz, **ens, "forward_scan_smalld": k7, "cheby_scan": k8,
-                "forward_scan_time": k10, "karatsuba_chain": k11}
+                "forward_scan_time": k10, "karatsuba_chain": k11,
+                "propagator_kernel_cluster": k_prop,
+                "state_scan_cluster": k_scan}
     # launches on this slice's paths, beside the counted run of each kernel
     for name, m in measured.items():
         for path, c in (("main_path", counts), ("ensemble", counts_ens),
@@ -2834,6 +3245,16 @@ def main():
             "plain_ms": m.pop("plain_ms"), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": m.pop("library_ms"), **m,
         })
+    # every counted run took the redesigned kernels: no launch of the
+    # global-scratch propagator kernel or the one-block scans (those run
+    # only where a phase above forces them, or at d > 108)
+    for site, routes in ROUTE_READS:
+        require(routes["propagators_global"] == 0
+                and routes["state_scan_legacy_forward"] == 0
+                and routes["state_scan_legacy_chi"] == 0,
+                f"the counted run of {site} took an old kernel: {routes}")
+    emit({"phase": "route_launches", "counted_runs": [
+        {"run": site, **routes} for site, routes in ROUTE_READS]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": smi})
     emit({"kernels": kernels})

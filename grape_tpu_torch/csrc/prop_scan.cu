@@ -3,6 +3,12 @@
 // G = 1 is the shared generator (gate optimization), gs = 1 one generator
 // per trajectory (robust ensembles), anything between a gate ensemble.
 //
+// Since the cluster kernels of prop_cluster.cu and state_scan.cu took
+// over, these are the routes for the shapes those do not hold
+// (ops/hopper_prop.py propagator_route: d > 108; scan_route: a ring of two
+// slabs past shared memory, d above about 1200), and the reference the
+// checks force them as.
+//
 // Replaces four TPU Pallas kernels of grape_tpu/ops/pallas_prop.py:
 //
 //   forward_scan_pallas_shared   (G = 1)   \

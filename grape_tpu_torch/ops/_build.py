@@ -17,11 +17,15 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["build_dir", "load_kernels", "kernel_sources", "last_build"]
+__all__ = ["build_dir", "load_kernels", "load_phase_clock", "kernel_sources",
+           "last_build"]
 
 _PKG = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 _CSRC = os.path.join(_PKG, "csrc")
 _LIB = None
+_CLOCK_LIB = None
+# the kernels that carry phase clocks (csrc/phase_clock.cuh)
+_CLOCKED = ("prop_cluster.cu", "state_scan.cu")
 # {"seconds": float, "rebuilt": bool, "log": str} of the latest load
 last_build = {}
 
@@ -62,11 +66,13 @@ def _nvcc():
     return exe
 
 
-def _build(so, verbose):
+def _build(so, verbose, cu=None, defines=()):
     nvcc = _nvcc()
-    cu, _ = kernel_sources()
+    if cu is None:
+        cu, _ = kernel_sources()
     out = build_dir()
-    extra = ["-Xptxas", "-v"] if verbose else []
+    extra = (["-Xptxas", "-v"] if verbose else []) + [
+        f"-D{name}" for name in defines]
     procs = []
     objs = []
     for src in cu:
@@ -142,8 +148,32 @@ def _declare(lib):
         p, p, p, p, p, p, i, i, i, i, i, i, ll, i, i, i, i, i, p, ll, i, p,
         p,
     ]
+    lib.grape_propagators_cluster.restype = i
+    lib.grape_propagators_cluster.argtypes = [p, p, p, p, i, i, i, i, ll, i,
+                                              p, p]
+    lib.grape_propagators_cluster_resident.restype = i
+    lib.grape_propagators_cluster_resident.argtypes = [i]
+    lib.grape_state_scan.restype = i
+    lib.grape_state_scan.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.grape_state_scan_resident.restype = i
+    lib.grape_state_scan_resident.argtypes = [i, i, i, i, i, i, i]
     lib.grape_error_string.restype = ctypes.c_char_p
     lib.grape_error_string.argtypes = [i]
+
+
+def _declare_clocked(lib):
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.grape_propagators_cluster.restype = i
+    lib.grape_propagators_cluster.argtypes = [p, p, p, p, i, i, i, i, ll, i,
+                                              p, p]
+    lib.grape_state_scan.restype = i
+    lib.grape_state_scan.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.grape_propagators_cluster_resident.restype = i
+    lib.grape_propagators_cluster_resident.argtypes = [i]
+    for fn in (lib.grape_propagators_cluster_clock,
+               lib.grape_state_scan_clock):
+        fn.restype = i
+        fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
 
 
 def load_kernels(verbose=False):
@@ -166,6 +196,30 @@ def load_kernels(verbose=False):
     last_build.update(
         seconds=time.perf_counter() - t0, rebuilt=rebuilt, log=log
     )
+    return lib
+
+
+def load_phase_clock():
+    """The two cluster kernels (``csrc/prop_cluster.cu``,
+    ``csrc/state_scan.cu``) built again with their phase clocks
+    (``-DGRAPE_PHASE_CLOCK``) into a library of their own, for
+    measurements only: the same entry points, each launch also adding the
+    SM cycles of block 0 per phase to a table that
+    ``grape_propagators_cluster_clock`` / ``grape_state_scan_clock`` copy
+    out (16 counters) and clear.  Built at first use, like
+    :func:`load_kernels`."""
+    global _CLOCK_LIB
+    if _CLOCK_LIB is not None:
+        return _CLOCK_LIB
+    so = os.path.join(build_dir(), "libgrape_phase_clock.so")
+    cu = [os.path.join(_CSRC, n) for n in _CLOCKED]
+    _, hdr = kernel_sources()
+    newest = max(os.path.getmtime(f) for f in cu + hdr)
+    if not os.path.exists(so) or os.path.getmtime(so) < newest:
+        _build(so, False, cu=cu, defines=("GRAPE_PHASE_CLOCK",))
+    lib = ctypes.CDLL(so)
+    _declare_clocked(lib)
+    _CLOCK_LIB = lib
     return lib
 
 

@@ -18,6 +18,12 @@ every grouping:
   two device launches: a batched propagator kernel over the independent
   (step, group) items, then a sequential apply-scan.  The coefficient table
   may be one ``(N_T, T)`` for all groups or ``(G, N_T, T)``, one per group.
+  The propagators come from the cluster kernel of ``csrc/prop_cluster.cu``
+  where its working set fits (:func:`propagator_route`), else from the
+  global-scratch kernel of ``csrc/prop_scan.cu``; the state chains of both
+  directions from the cluster scan of ``csrc/state_scan.cu``
+  (:func:`scan_route`), or, where not even its two-stage ring fits, the
+  one-block scans of ``csrc/prop_scan.cu``.
 - :func:`chi_scan_shared` replaces ``chi_scan_pallas_shared``, and
   :func:`chi_scan_grouped` is the same chain over grouped or per-trajectory
   stored propagators (a scan of small products in the reference): in
@@ -40,8 +46,12 @@ every grouping:
 
 Each wrapper launches its kernels for a CUDA tensor (or raises) and runs the
 plain version only for a CPU tensor; ``launches`` counts, per wrapper, the
-calls that launched.  The kernels take complex64 only (full float32 FMAs).
+calls that launched, and ``route_launches`` the launches of each route of
+the propagator kernel and of the state scans.  The kernels take complex64
+only (full float32 FMAs).
 """
+
+import contextlib
 
 import torch
 
@@ -59,7 +69,8 @@ __all__ = [
     "forward_scan_smalld", "forward_scan_smalld_plain",
     "forward_scan_time", "forward_scan_time_plain",
     "taylor_order_for_bound",
-    "propagators", "propagators_shared", "launches",
+    "propagators", "propagators_shared", "propagator_route", "scan_route",
+    "launches", "route_launches",
 ]
 
 # wrapper calls that launched their kernels
@@ -69,6 +80,29 @@ launches = {
     "chi_scan_grouped": 0, "chi_scan_recompute": 0,
     "forward_scan_smalld": 0, "forward_scan_time": 0,
 }
+
+# kernel launches per route: the propagator kernel (cluster or global
+# scratch) and the state scans (cluster or one block, per direction)
+route_launches = {
+    "propagators_cluster": 0, "propagators_global": 0,
+    "state_scan_forward": 0, "state_scan_chi": 0,
+    "state_scan_legacy_forward": 0, "state_scan_legacy_chi": 0,
+}
+
+# shared memory one block may use on sm_90, in bytes
+_SMEM_MAX = 232448
+
+# CTAs of the propagator kernel's cluster and the output tiles one of its
+# blocks holds (csrc/prop_cluster.cu kCtas, kTileSlots)
+PROP_CLUSTER_CTAS = 4
+PROP_CLUSTER_TILES = 192
+
+# the state scans' largest cluster and deepest ring (csrc/state_scan.cu)
+SCAN_MAX_CLUSTER = 16
+SCAN_MAX_STAGES = 8
+
+# routes forced for checks and timings (see _forced_routes)
+_forced = {"propagators": None, "scan": None}
 
 # largest dimension the small-dimension kernel holds in registers
 SMALLD_MAX_DIM = 4
@@ -155,30 +189,159 @@ def _group_size(K, G):
 
 
 # --------------------------------------------------------------------------
+# Routes
+# --------------------------------------------------------------------------
+
+def _ceil_div(a, b):
+    return -(-int(a) // int(b))
+
+
+def _prop_cluster_smem(d):
+    """Shared-memory bytes of one CTA of the cluster propagator kernel: 128
+    bytes for its mbarrier, the right operand (two planes of depth ×
+    ⌈d/4⌉·4, the depth d padded to even), four row slabs (two planes of
+    depth × the slab's rows padded to 4) and a row-major export buffer
+    (two planes of padded rows × ⌈d/4⌉·4); the formula of
+    ``csrc/prop_cluster.cu`` ``smem_bytes``."""
+    rows = _ceil_div(d, PROP_CLUSTER_CTAS)
+    pitch = 4 * _ceil_div(rows, 4)
+    width = 4 * _ceil_div(d, 4)
+    depth = 2 * _ceil_div(d, 2)
+    return 128 + 4 * (2 * depth * width + 8 * depth * pitch
+                      + 2 * pitch * width)
+
+
+def _prop_cluster_tiles(d):
+    """4 × 4 output tiles of one CTA's row slab (at most 192: one per pair
+    of threads of the 384-thread block)."""
+    rows = _ceil_div(d, PROP_CLUSTER_CTAS)
+    return _ceil_div(rows, 4) * _ceil_div(d, 4)
+
+
+def propagator_route(d):
+    """The propagator kernel for dimension ``d``: ``"cluster"`` (the
+    working set of an exponential in the shared memory of a cluster of
+    four CTAs, ``csrc/prop_cluster.cu``) where it fits, d ≤ 108, else
+    ``"global"`` (the per-block global scratch of ``csrc/prop_scan.cu``).
+    The same rule on the CPU and on the card."""
+    d = int(d)
+    fits = (d >= 1 and _prop_cluster_smem(d) <= _SMEM_MAX
+            and _prop_cluster_tiles(d) <= PROP_CLUSTER_TILES)
+    return "cluster" if fits else "global"
+
+
+def _scan_slot(d, cluster):
+    """``float2`` per ring slot of the cluster scan: ``d`` rows of the
+    widest CTA's entries (pairs of entries where ``d`` is even) at a pitch
+    ≡ 2 mod 4, rounded up to 128 bytes (``csrc/state_scan.cu``
+    ``slot_elems``)."""
+    if d % 2 == 0:
+        n = 2 * _ceil_div(d // 2, cluster)
+    else:
+        n = _ceil_div(d, cluster)
+    pitch = n + (2 - n % 4) % 4
+    return 16 * _ceil_div(d * pitch, 16)
+
+
+def _scan_smem(d, kb, cluster, stages):
+    """Shared-memory bytes of one CTA of the cluster scan: 256 bytes of
+    mbarriers, three state buffers of ``kb`` states (rounded up to 128
+    bytes) and ``stages`` slots (``csrc/state_scan.cu`` ``smem_bytes``)."""
+    states = 16 * _ceil_div(3 * kb * d, 16)
+    return 256 + 8 * (states + stages * _scan_slot(d, cluster))
+
+
+def _scan_stages(d, kb, cluster):
+    free = _SMEM_MAX - _scan_smem(d, kb, cluster, 0)
+    return min(SCAN_MAX_STAGES, free // (8 * _scan_slot(d, cluster)))
+
+
+def scan_route(d, G, gs, sm_count, cluster=None):
+    """The launch plan of the state scans (both directions) for ``G``
+    groups of ``gs`` trajectories at dimension ``d`` on a card of
+    ``sm_count`` SMs: ``{"route", "kb", "chunks", "cluster", "stages"}``.
+
+    A chunk carries ``kb`` = 1, 2 or 4 states of one group (1 at ``gs`` = 1,
+    2 at ``gs`` = 2, else 4); the cluster size is the largest of 16, 8, 4,
+    2 whose clusters for all chunks take at most half the SMs
+    (``cluster · chunks ≤ sm_count / 2``: clusters are placed within one
+    GPC each, so at 132 SMs only 30 of 4 CTAs fit at once, not 33) and
+    give every CTA an output entry, else 1; grown while a ring of two slabs
+    of U does not fit; the ring as deep as shared memory allows, up to 8.
+    ``"legacy"`` (the one-block scans of ``csrc/prop_scan.cu``) where not
+    even 16 CTAs fit.  ``cluster`` forces a size (checks and timings)."""
+    d, G, gs = int(d), int(G), int(gs)
+    kb = 1 if gs == 1 else 2 if gs == 2 else 4
+    chunks = G * _ceil_div(gs, kb)
+    if cluster is None:
+        cluster = 1
+        for c in (16, 8, 4, 2):
+            if c <= d and 2 * c * chunks <= int(sm_count):
+                cluster = c
+                break
+        while (_scan_stages(d, kb, cluster) < 2 and cluster < SCAN_MAX_CLUSTER
+               and 2 * cluster <= d):
+            cluster *= 2
+    cluster = int(cluster)
+    stages = _scan_stages(d, kb, cluster)
+    fits = 1 <= cluster <= min(SCAN_MAX_CLUSTER, d) and stages >= 2
+    return {"route": "cluster" if fits else "legacy", "kb": kb,
+            "chunks": chunks, "cluster": cluster, "stages": stages}
+
+
+@contextlib.contextmanager
+def _forced_routes(propagators=None, scan=None):
+    """Within the block the wrappers take the forced routes: ``propagators``
+    ``"cluster"`` or ``"global"``, ``scan`` ``"legacy"`` or a cluster size
+    (checks and timings of ``chip_smoke.py``; nothing in the package uses
+    it)."""
+    old = dict(_forced)
+    _forced.update(propagators=propagators, scan=scan)
+    try:
+        yield
+    finally:
+        _forced.update(old)
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# --------------------------------------------------------------------------
 # Propagators
 # --------------------------------------------------------------------------
 
 def propagators(H0, ops, coeffs, dts, n_squarings):
     """``U (N_T, G, d, d)`` by the batched propagator kernel (CUDA tensors
-    only; the first of the two launches of the forward scans).  Arguments
-    as :func:`_check_group_args`."""
+    only; the first of the two launches of the forward scans), on the route
+    of :func:`propagator_route`.  Arguments as :func:`_check_group_args`."""
     G, T, d, N_T, stride = _check_group_args(H0, ops, coeffs, dts)
     device = H0.device
     _require(device.type == "cuda", "propagators needs CUDA tensors")
     s = _squarings(n_squarings)
     lib = load_kernels()
-    n_blocks = _grid_blocks(device, N_T * G)
-    n_mat = lib.grape_propagator_scratch_matrices()
+    route = _forced["propagators"] or propagator_route(d)
     U = torch.empty((N_T, G, d, d), dtype=torch.complex64, device=device)
-    scratch = torch.empty(
-        (n_blocks * n_mat, d, d), dtype=torch.complex64, device=device
-    )
     with torch.cuda.device(device):
-        check(lib, lib.grape_propagators(
-            H0.data_ptr(), ops.data_ptr(), coeffs.data_ptr(), dts.data_ptr(),
-            T, d, N_T, G, stride, s, scratch.data_ptr(), n_blocks,
-            U.data_ptr(), _stream(device),
-        ), "propagator kernel launch")
+        if route == "cluster":
+            check(lib, lib.grape_propagators_cluster(
+                H0.data_ptr(), ops.data_ptr(), coeffs.data_ptr(),
+                dts.data_ptr(), T, d, N_T, G, stride, s, U.data_ptr(),
+                _stream(device),
+            ), "cluster propagator kernel launch")
+        else:
+            n_blocks = _grid_blocks(device, N_T * G)
+            n_mat = lib.grape_propagator_scratch_matrices()
+            scratch = torch.empty(
+                (n_blocks * n_mat, d, d), dtype=torch.complex64,
+                device=device
+            )
+            check(lib, lib.grape_propagators(
+                H0.data_ptr(), ops.data_ptr(), coeffs.data_ptr(),
+                dts.data_ptr(), T, d, N_T, G, stride, s, scratch.data_ptr(),
+                n_blocks, U.data_ptr(), _stream(device),
+            ), "propagator kernel launch")
+    route_launches[f"propagators_{route}"] += 1
     return U
 
 
@@ -269,7 +432,7 @@ def _forward_scan(name, H0, ops, coeffs, dts, psi0, n_squarings,
     G, _, d, N_T, _ = _check_group_args(H0, ops, coeffs, dts)
     device = H0.device
     K = psi0.shape[0]
-    gs = _group_size(K, G)
+    _group_size(K, G)
     _check_tensor("psi0", psi0, torch.complex64, (K, d), device)
     lib = load_kernels()
     storage = torch.empty((N_T + 1, K, d), dtype=torch.complex64,
@@ -280,11 +443,7 @@ def _forward_scan(name, H0, ops, coeffs, dts, psi0, n_squarings,
     for n0 in range(0, N_T, C):
         co, dt = _window(coeffs, dts, n0, n0 + C)
         U = propagators(H0, ops, co, dt, n_squarings)
-        with torch.cuda.device(device):
-            check(lib, lib.grape_forward_apply(
-                U.data_ptr(), psi_in.data_ptr(), storage[n0:].data_ptr(),
-                U.shape[0], K, d, G, gs, _stream(device),
-            ), "forward apply-scan kernel launch")
+        _state_scan(lib, U, psi_in, storage[n0:], None, chi=False)
         if n0 + C < N_T:
             # the next window starts from a copy of this one's last state
             # (the kernel writes its start state back to that row)
@@ -404,19 +563,51 @@ def chi_window_plain(Us, chi, chis, src=None):
     return c.conj().resolve_conj().reshape(K, d)
 
 
-def _chi_window(lib, Us, chi, chis, carry):
-    """Launch the χ-scan kernel over the window ``Us (C, G, d, d)``, writing
-    ``chis (C, K, d)``; with ``carry`` returns χ carried out of the window."""
-    device = chi.device
-    C, G = Us.shape[0], Us.shape[1]
-    K, d = chi.shape
-    out = torch.empty_like(chi) if carry else None
+def _state_scan(lib, U, x0, out, x_out, chi):
+    """Launch a state scan over ``U (C, G, d, d)`` from ``x0 (K, d)``: the
+    forward apply-scan into ``out`` (C+1, K, d) or, with ``chi``, the χ
+    scan into ``out`` (C, K, d) and, where ``x_out`` is given, χ carried
+    out of the window into it; on the route of :func:`scan_route`."""
+    device = x0.device
+    C, G = U.shape[0], U.shape[1]
+    K, d = x0.shape
+    gs = K // G
+    forced = _forced["scan"]
+    if forced == "legacy":
+        plan = {"route": "legacy"}
+    else:
+        plan = scan_route(d, G, gs, _sm_count(device),
+                          cluster=None if forced is None else int(forced))
+    direction = "chi" if chi else "forward"
     with torch.cuda.device(device):
-        check(lib, lib.grape_chi_scan(
-            Us.data_ptr(), chi.data_ptr(), chis.data_ptr(),
-            out.data_ptr() if carry else None, C, K, d, G, K // G,
-            _stream(device),
-        ), "chi scan kernel launch")
+        if plan["route"] == "cluster":
+            check(lib, lib.grape_state_scan(
+                U.data_ptr(), x0.data_ptr(), out.data_ptr(),
+                None if x_out is None else x_out.data_ptr(), int(chi), C, K,
+                d, G, gs, plan["kb"], plan["cluster"], plan["stages"],
+                _stream(device),
+            ), f"cluster state scan ({direction}) launch")
+            route_launches[f"state_scan_{direction}"] += 1
+        elif chi:
+            check(lib, lib.grape_chi_scan(
+                U.data_ptr(), x0.data_ptr(), out.data_ptr(),
+                None if x_out is None else x_out.data_ptr(), C, K, d, G, gs,
+                _stream(device),
+            ), "chi scan kernel launch")
+            route_launches["state_scan_legacy_chi"] += 1
+        else:
+            check(lib, lib.grape_forward_apply(
+                U.data_ptr(), x0.data_ptr(), out.data_ptr(), C, K, d, G, gs,
+                _stream(device),
+            ), "forward apply-scan kernel launch")
+            route_launches["state_scan_legacy_forward"] += 1
+
+
+def _chi_window(lib, Us, chi, chis, carry):
+    """Launch the χ scan over the window ``Us (C, G, d, d)``, writing
+    ``chis (C, K, d)``; with ``carry`` returns χ carried out of the window."""
+    out = torch.empty_like(chi) if carry else None
+    _state_scan(lib, Us, chi, chis, out, chi=True)
     return out
 
 
