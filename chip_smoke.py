@@ -249,14 +249,16 @@ def zero_counts(*modules):
 
 
 def read_counts(*modules):
-    """The wrappers' launch counts; the route launches beside them are kept
-    in ``ROUTE_READS`` under the calling function's name."""
+    """The wrappers' launch counts; the route launches beside them (of all
+    the modules, in one dict) are kept in ``ROUTE_READS`` under the calling
+    function's name."""
     out = {}
+    routes = {}
     for mod in modules:
         out.update(mod.launches)
-        if hasattr(mod, "route_launches"):
-            ROUTE_READS.append((sys._getframe(1).f_code.co_name,
-                                dict(mod.route_launches)))
+        routes.update(getattr(mod, "route_launches", {}))
+    if routes:
+        ROUTE_READS.append((sys._getframe(1).f_code.co_name, routes))
     return out
 
 
@@ -818,10 +820,15 @@ def smalld_kernel_phase(cp, s_main, rng, dev):
     dts = f32(np.diff(cp.tlist))
     err = 0.0
     checks = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for s in sorted({s_main, 2}):
         st, U = hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s,
                                        with_propagators=True)
         st_only = hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s)
+        with hp._forced_smalld_route("pair"):
+            st_2, U_2 = hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s,
+                                               with_propagators=True)
+            st_2only = hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s)
         torch.cuda.synchronize()
         with plain_versions():
             st_p, U_p = hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s,
@@ -832,9 +839,18 @@ def smalld_kernel_phase(cp, s_main, rng, dev):
                 "smalld output has the wrong shape")
         e = {"states": max_abs(st, st_p), "U": max_abs(U, U_p),
              "states_without_U": max_abs(st_only, st_p)}
-        checks.append({"s": s, **e})
-        require(max(e.values()) < TOL_STATE, "forward_scan_smalld disagrees "
-                f"with its plain version at s={s}: {e}")
+        e_pair = {"states": max_abs(st_2, st_p), "U": max_abs(U_2, U_p),
+                  "states_without_U": max_abs(st_2only, st_p)}
+        # the same arithmetic (csrc/smalld_expm.cuh) in both kernels
+        fused_vs_pair = max(max_abs(st, st_2), max_abs(U, U_2),
+                            max_abs(st_only, st_2only))
+        checks.append({"s": s, **e, "pair_kernels": e_pair,
+                       "fused_vs_pair_max_abs_diff": fused_vs_pair})
+        require(max(*e.values(), *e_pair.values()) < TOL_STATE,
+                "forward_scan_smalld disagrees with its plain version at "
+                f"s={s}: fused {e}, pair {e_pair}")
+        require(fused_vs_pair < TOL_TRJ, "the fused and two-launch small-d "
+                f"kernels disagree by {fused_vs_pair} at s={s}")
         err = max(err, *e.values())
 
     def herm(*shape):
@@ -870,14 +886,20 @@ def smalld_kernel_phase(cp, s_main, rng, dev):
             return st, U, st_w
 
         got = run()
+        with hp._forced_smalld_route("pair"):
+            got_pair = run()
         torch.cuda.synchronize()
         with plain_versions():
             want = run()
         worst = max(max_abs(a, b) for a, b in zip(got, want))
+        worst_pair = max(max_abs(a, b) for a, b in zip(got_pair, want))
         shape_checks.append({"d": d_, "K": K_, "T": T_, "N_T": N_, "s": s_,
-                             "max_abs_err": worst})
-        require(worst < TOL_TRJ, "forward_scan_smalld disagrees with its "
-                f"plain version at shape {shape_checks[-1]}")
+                             "max_abs_err": worst,
+                             "pair_max_abs_err": worst_pair,
+                             "plan": hp.smalld_route(d_, K_, N_, sms)})
+        require(max(worst, worst_pair) < TOL_TRJ, "forward_scan_smalld "
+                "disagrees with its plain version at shape "
+                f"{shape_checks[-1]}")
     emit({"phase": "kernel_check_smalld",
           "shape": {"d": d, "K": K, "T": T, "N_T": N_T},
           "s_main_path": s_main, "tol_state": TOL_STATE, "checks": checks,
@@ -894,6 +916,14 @@ def smalld_kernel_phase(cp, s_main, rng, dev):
     out["without_propagators_ms"] = median_ms(
         lambda: hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s),
         reps=20)
+    with hp._forced_smalld_route("pair"):
+        out["pair_ms"] = median_ms(
+            lambda: hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s,
+                                           with_propagators=True), reps=20)
+        out["pair_without_propagators_ms"] = median_ms(
+            lambda: hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s),
+            reps=20)
+    out["plan"] = hp.smalld_route(d, K, N_T, sms)
     with plain_versions():
         out["plain_ms"] = median_ms(
             lambda: hp.forward_scan_smalld(H0, ops, coeffs, dts, psi0, s,
@@ -919,6 +949,73 @@ def smalld_kernel_phase(cp, s_main, rng, dev):
                               + (4.0 * T + 2.0) * d * d + 8.0 * d * d)
     out["bytes"] = nbytes(H0, ops, coeffs, dts, psi0, st, U)
     return out
+
+
+def smalld_routes_phase(cp, dev):
+    """Phase ``smalld_routes``: the fused small-dimension kernel
+    (``csrc/smalld_fused.cu``) and the two-launch pair
+    (``csrc/smalld_scan.cu``) forced in turn on the same inputs, with and
+    without the propagator stream: the qutrit ensemble's shape (d = 3,
+    K = 1024, N_T = 400) and four others (d 2..4, K 128..4096).  Each
+    shape names the faster kernel beside the rule's, which must be it."""
+    from grape_tpu_torch.ops import hopper_prop as hp
+
+    rng = np.random.default_rng(SEED + 11)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    c64 = lambda x: torch.tensor(np.ascontiguousarray(x),
+                                 dtype=torch.complex64, device=dev)
+    f32 = lambda x: torch.tensor(np.ascontiguousarray(x),
+                                 dtype=torch.float32, device=dev)
+
+    def herm(*shape):
+        A = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+        return 0.5 * (A + A.conj().swapaxes(-1, -2))
+
+    L = cp.n_controls
+    qutrits = (c64(cp.H0), c64(cp.ops), f32(
+        np.einsum("ntl,ln->nt", cp.M, cp.guess_pulsevals) + cp.Mfix),
+        f32(np.diff(cp.tlist)), c64(cp.psi0))
+    rows = []
+    for name, d, K, N_T in [("qutrits", cp.dim, cp.n_traj, cp.n_timesteps),
+                            ("d2_K128", 2, 128, 400),
+                            ("d3_K130", 3, 130, 400),
+                            ("d4_K1000", 4, 1000, 400),
+                            ("d4_K4096", 4, 4096, 100)]:
+        if name == "qutrits":
+            args = qutrits
+        else:
+            p0 = rng.normal(size=(K, d)) + 1j * rng.normal(size=(K, d))
+            args = (c64(2.0 * herm(K, d, d)), c64(herm(K, L, d, d)),
+                    f32(0.3 * rng.normal(size=(N_T, L))),
+                    f32(0.05 * (1 + 0.2 * rng.uniform(size=N_T))),
+                    c64(p0 / np.linalg.norm(p0, axis=1, keepdims=True)))
+        plan = hp.smalld_route(d, K, N_T, sms)
+        row = {"shape": name, "d": d, "K": K, "N_T": N_T,
+               "rule": plan["route"], "plan": plan}
+        outs = {}
+        for route in ("fused", "pair"):
+            with hp._forced_smalld_route(route):
+                for keep in (True, False):
+                    call = lambda: hp.forward_scan_smalld(
+                        *args, 0, with_propagators=keep)
+                    outs[route, keep] = call()
+                    torch.cuda.synchronize()
+                    row[f"{route}_ms" + ("" if keep else "_without_U")] = (
+                        median_ms(call, reps=10))
+        diff = max(max_abs(outs["fused", True][0], outs["pair", True][0]),
+                   max_abs(outs["fused", True][1], outs["pair", True][1]),
+                   max_abs(outs["fused", False], outs["pair", False]))
+        row["fused_vs_pair_max_abs_diff"] = diff
+        require(diff < TOL_TRJ, f"smalld_routes: the kernels disagree at "
+                f"{name} by {diff}")
+        row["faster"] = min(("fused", "pair"), key=lambda r: row[f"{r}_ms"]
+                            + row[f"{r}_ms_without_U"])
+        require(row["faster"] == plan["route"], f"smalld_routes: the rule "
+                f"takes {plan['route']} at {name}, the faster is "
+                f"{row['faster']}")
+        rows.append(row)
+    emit({"phase": "smalld_routes", "tol": TOL_TRJ, "sm_count": sms,
+          "shapes": rows})
 
 
 def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
@@ -956,6 +1053,7 @@ def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
     n_orders = _vectorized_taylor_orders(cp)
     require(n_orders is not None, "no static Taylor order for the qutrits")
     k7 = smalld_kernel_phase(cp, s_q, rng, dev)
+    smalld_routes_phase(cp, dev)
     x0 = cp.guess_pulsevals.reshape(-1)
 
     # ---- side checks, before the counted run ------------------------------
@@ -1059,10 +1157,15 @@ def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
     torch.cuda.synchronize()
     opt_s = time.perf_counter() - t0
     counts = read_counts(hopper_prop, hopper_frechet, hopper_cheby)
+    routes_q = ROUTE_READS[-1][1]
     n_fg += res.fg_calls
     n_f += res.f_calls
     require(len(series) == ITER_STOP + 1 and res.iter == ITER_STOP,
             f"optimize_smalld: {res.message}, series {series}")
+    require(routes_q["smalld_fused"] == n_fg + n_f
+            and routes_q["smalld_pair"] == 0,
+            f"the qutrits' forward passes took {routes_q}")
+    k7["launches_fused_qutrit_run"] = routes_q["smalld_fused"]
     require(all(math.isfinite(v) for v in series)
             and all(b < a for a, b in zip(series, series[1:])),
             f"qutrit J_T does not fall monotonically: {series}")
@@ -1079,7 +1182,9 @@ def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
           "steady_ms_per_fg": steady_s / max(sum(iter_fg[1:]), 1) * 1e3,
           "steady_iters_per_second": ITER_STOP / steady_s,
           "fg_calls": res.fg_calls, "f_calls": res.f_calls,
-          "message": res.message, "launches": counts})
+          "message": res.message, "launches": counts,
+          "route_launches": {k: routes_q[k]
+                             for k in ("smalld_fused", "smalld_pair")}})
 
     # ---- the CZ gate with the taylor gradient -----------------------------
     cp_t = gt.compile_problem(
@@ -1451,12 +1556,14 @@ def cluster_shapes_phase(dev):
 
 def phase_clock_phase(dev):
     """Phase ``cluster_phase_clock``: where the time of the two cluster
-    kernels goes, from their phase clocks (a second build of their sources
-    with ``-DGRAPE_PHASE_CLOCK``; block 0's SM cycles per phase, per item
-    or per step, a phase that ends at a wait including the wait): the
-    propagator kernel at K1's shape (one generator, 2000 steps) at s = 0
-    and 2, the state scan at the CZ's shape both ways and at 8 x 4 and
-    32 x 1 forward, with the SM clock read under load."""
+    kernels and the Chebyshev ring kernel goes, from their phase clocks (a
+    second build of their sources with ``-DGRAPE_PHASE_CLOCK``; block 0's
+    SM cycles per phase, per item, step or term, a phase that ends at a
+    wait including the wait): the propagator kernel at K1's shape (one
+    generator, 2000 steps) at s = 0 and 2, the state scan at the CZ's shape
+    both ways and at 8 x 4 and 32 x 1 forward, the ring kernel forward at
+    dim 1024 (K = 4 and 64) and dim 256 (K = 4), with the SM clock read
+    under load."""
     import ctypes
 
     from grape_tpu_torch.ops import _build
@@ -1523,9 +1630,56 @@ def phase_clock_phase(dev):
                       "cycles_per_step": {name: t[i] / steps
                                           for i, name in scan_names.items()}})
         del Ug, out
+    # the Chebyshev ring kernel: compute warp 0 (it also owns the slab) per
+    # term, the row-forming warp per step
+    from grape_tpu_torch.ops import hopper_cheby as hc
+
+    ring_names = {5: "step_start_and_loop", 0: "flag_waits",
+                  1: "loads_and_fmas", 2: "fold_across_lanes_and_warps",
+                  3: "update_publish_release"}
+    rings = []
+    for (d_c, K_c, N_c, nc) in [(1024, 4, 100, 27), (1024, 64, 100, 27),
+                                (256, 4, 200, 22)]:
+        A = rng.normal(size=(d_c, d_c)) + 1j * rng.normal(size=(d_c, d_c))
+        c64 = lambda x: torch.tensor(np.ascontiguousarray(x),
+                                     dtype=torch.complex64, device=dev)
+        planes = c64(np.broadcast_to(0.5 * (A + A.conj().T) / np.sqrt(d_c),
+                                     (3, d_c, d_c)))
+        co = torch.tensor(0.3 * rng.normal(size=(N_c, 2)),
+                          dtype=torch.float32, device=dev)
+        tab = c64(0.2 * (rng.normal(size=(N_c, nc))
+                         + 1j * rng.normal(size=(N_c, nc))))
+        ph = c64(np.exp(0.3j * rng.uniform(size=N_c)))
+        psi = c64(rng.normal(size=(K_c, d_c)) / np.sqrt(2 * d_c))
+        plan = hc.cheby_route(d_c, K_c, sms)
+        ring = torch.empty((2, K_c, d_c), dtype=torch.complex64, device=dev)
+        flags = torch.zeros(plan["blocks"] * plan["wk"] * hc.RING_FLAG_STRIDE,
+                            dtype=torch.int32, device=dev)
+        out_c = torch.empty((N_c, K_c, d_c), dtype=torch.complex64,
+                            device=dev)
+
+        def launch_ring():
+            flags.zero_()
+            return lib.grape_cheby_ring(
+                planes.data_ptr(), co.data_ptr(), tab.data_ptr(),
+                ph.data_ptr(), 0.1, 0.2, psi.data_ptr(), 2, d_c, K_c, N_c,
+                nc, 0, plan["rows"], plan["tr"], plan["tk"], plan["wk"],
+                plan["chunks"], plan["smem"], ring.data_ptr(),
+                flags.data_ptr(), out_c.data_ptr(), stream)
+
+        t = run(launch_ring, lib.grape_cheby_ring_clock)
+        terms = reps * N_c * (nc - 1) * plan["chunks"]
+        per_term = {name: t[i] / terms for i, name in ring_names.items()}
+        rings.append({
+            "d": d_c, "K": K_c, "N_T": N_c, "n_cheby": nc, "plan": plan,
+            "cycles_per_term_and_chunk": per_term,
+            "cycles_per_term_total": sum(per_term.values()),
+            "row_forming_cycles_per_step": t[6] / (reps * N_c),
+            "forming_warp_waits_per_step": t[4] / (reps * N_c)})
+        del ring, flags, out_c, planes
     emit({"phase": "cluster_phase_clock", "build_seconds": build_s,
           "resident_clusters": resident, "propagators": props,
-          "state_scans": scans,
+          "state_scans": scans, "cheby_ring": rings,
           "under_load": under_load(lambda: launch_k1(0), 50)})
     zero_counts(hp)
     torch.cuda.synchronize()
@@ -1732,10 +1886,14 @@ def cheby_inputs(cp, rng, dev, noise=0.02):
 def cheby_kernel_phase(cp_cz, cp_sub, cp_256, rng, dev):
     """Phase ``kernel_check_cheby``: ``cheby_scan`` against its plain version
     on the card, forward and adjoint, at the three shapes of the Chebyshev
-    paths and at ragged ones, then its times at the main path's shape.
+    paths (the ring kernel its rule takes, and the grid kernel forced) and
+    at ragged ones (the rule's kernel), then its times at the main path's
+    shape.
     Returns its entry for the kernels line (without the launch count)."""
     from grape_tpu_torch.ops import hopper_cheby as hc
     from grape_tpu_torch.ops import plain_versions
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def both(args, psi0, chi0):
         H0, ops, coeffs, pd = args
@@ -1758,44 +1916,60 @@ def cheby_kernel_phase(cp_cz, cp_sub, cp_256, rng, dev):
                             dtype=torch.complex64, device=dev)
         got = both(args, psi0, chi0)
         torch.cuda.synchronize()
+        with hc._forced_route("grid"):
+            old = both(args, psi0, chi0)
+        torch.cuda.synchronize()
         with plain_versions():
             want = both(args, psi0, chi0)
         torch.cuda.synchronize()
         require(finite(*got), f"cheby_scan output not finite at {name}")
         require(all(g.shape == (cp.n_timesteps, K, d) for g in got),
                 f"cheby_scan output has the wrong shape at {name}")
+        plan = hc.cheby_route(d, K, sms)
+        require(plan["route"] == "ring", f"{name} must take the ring kernel")
         e = {"forward": max_abs(got[0], want[0]),
              "adjoint": max_abs(got[1], want[1])}
+        e_grid = {"forward": max_abs(old[0], want[0]),
+                  "adjoint": max_abs(old[1], want[1])}
         n_cheby = int(args[3]["tab_fw_t"].shape[1])
         checks.append({"shape": name, "d": d, "K": K,
                        "N_T": cp.n_timesteps, "n_cheby": n_cheby,
-                       "layout": hc.cheby_scan_layout(d, K), **e})
-        require(max(e.values()) < TOL_STATE, f"cheby_scan disagrees with "
-                f"its plain version at {name}: {e}")
+                       "ring_plan": plan, **e,
+                       "grid_kernel": {"layout": hc.cheby_scan_layout(d, K),
+                                       **e_grid}})
+        require(max(*e.values(), *e_grid.values()) < TOL_STATE,
+                f"cheby_scan disagrees with its plain version at {name}: "
+                f"ring {e}, grid {e_grid}")
         err = max(err, *e.values())
         if name == "cz_dim1024":
             main = {"args": args, "psi0": psi0, "chi0": chi0,
                     "n_cheby": n_cheby}
     # ragged shapes: d not a multiple of the rows per block, K below and
     # above one shared tile, one step, two or three terms with the last
-    # column of the table a zero pad
+    # column of the table a zero pad; then three steps where the ring
+    # kernel splits K over k-groups (wk 2, 8) and chunks (K = 100), a row
+    # per CTA (d = 129), the last d of the ring (1056) and the first past
+    # it (1100, the grid kernel)
     shape_checks = []
-    for (d_, K_, nc_) in [(257, 3, 2), (300, 1, 3), (1000, 5, 3),
-                          (300, 3, 2), (257, 5, 3), (1000, 1, 2)]:
+    for (d_, K_, nc_, N_) in [(257, 3, 2, 1), (300, 1, 3, 1), (1000, 5, 3, 1),
+                              (300, 3, 2, 1), (257, 5, 3, 1), (1000, 1, 2, 1),
+                              (1024, 16, 3, 3), (1024, 100, 2, 3),
+                              (129, 9, 3, 3), (1056, 4, 3, 3),
+                              (1100, 3, 2, 3)]:
         A = rng.normal(size=(d_, d_)) + 1j * rng.normal(size=(d_, d_))
         B = rng.normal(size=(2, d_, d_)) + 1j * rng.normal(size=(2, d_, d_))
         c64 = lambda x: torch.tensor(np.ascontiguousarray(x),
                                      dtype=torch.complex64, device=dev)
         H0_ = c64((A + A.conj().T) / np.sqrt(d_))
         ops_ = c64(0.3 * (B + B.conj().transpose(0, 2, 1)) / np.sqrt(d_))
-        co_ = torch.tensor(0.3 * rng.normal(size=(1, 2)),
+        co_ = torch.tensor(0.3 * rng.normal(size=(N_, 2)),
                            dtype=torch.float32, device=dev)
-        tab_ = np.zeros((1, nc_), dtype=complex)
-        tab_[0, :nc_ - 1] = rng.normal(size=nc_ - 1) \
-            + 1j * rng.normal(size=nc_ - 1)
+        tab_ = np.zeros((N_, nc_), dtype=complex)
+        tab_[:, :nc_ - 1] = rng.normal(size=(N_, nc_ - 1)) \
+            + 1j * rng.normal(size=(N_, nc_ - 1))
         p0 = rng.normal(size=(K_, d_)) + 1j * rng.normal(size=(K_, d_))
         p0 = c64(p0 / np.linalg.norm(p0, axis=1, keepdims=True))
-        ph_ = c64([np.exp(0.3j)])
+        ph_ = c64(np.exp(0.3j * np.arange(1, N_ + 1)))
         worst = 0.0
         for adj in (False, True):
             call = lambda: hc.cheby_scan(H0_, ops_, co_, c64(tab_), ph_, 0.2,
@@ -1805,8 +1979,9 @@ def cheby_kernel_phase(cp_cz, cp_sub, cp_256, rng, dev):
             with plain_versions():
                 w = call()
             worst = max(worst, max_abs(g, w))
-        shape_checks.append({"d": d_, "K": K_, "N_T": 1, "n_cheby": nc_,
-                             "padded": True, "max_abs_err": worst})
+        shape_checks.append({"d": d_, "K": K_, "N_T": N_, "n_cheby": nc_,
+                             "padded": True, "max_abs_err": worst,
+                             "route": hc.cheby_route(d_, K_, sms)["route"]})
         require(worst < TOL_TRJ, "cheby_scan disagrees with its plain "
                 f"version at {shape_checks[-1]}")
     emit({"phase": "kernel_check_cheby", "tol": TOL_STATE,
@@ -1845,6 +2020,112 @@ def cheby_kernel_phase(cp_cz, cp_sub, cp_256, rng, dev):
     out["library_ms"] = None
     out["library_call"] = "none: no single PyTorch call computes the scan"
     return out
+
+
+def cheby_routes_phase(cp_cz, cp_sub, cp_256, rng, dev):
+    """Phase ``cheby_routes``: the ring kernel (``csrc/cheby_ring.cu``) and
+    the grid-barrier kernel (``csrc/cheby_scan.cu``) forced in turn on the
+    same inputs, both directions: dim 1024 at K = 1, 4, 8 and 64 (the CZ's
+    and the subspace gate's operators, the first K of its basis states),
+    dim 256, the last d of the ring (1056) and the first past it (1100:
+    the grid kernel only).  Each shape names the faster kernel beside the
+    rule's; the ring kernel must win at dim 1024, K = 4 both ways and the
+    rule must pick the faster kernel everywhere.  Returns the main shape's
+    grid times and the per-term times for the kernels line."""
+    from grape_tpu_torch.ops import hopper_cheby as hc
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def unit(K, d):
+        v = rng.normal(size=(K, d)) + 1j * rng.normal(size=(K, d))
+        return torch.tensor(v / np.linalg.norm(v, axis=1, keepdims=True),
+                            dtype=torch.complex64, device=dev)
+
+    def random_inputs(d, K, N_T=CHEBY_STEPS, n_cheby=27):
+        A = rng.normal(size=(d, d)) + 1j * rng.normal(size=(d, d))
+        B = rng.normal(size=(2, d, d)) + 1j * rng.normal(size=(2, d, d))
+        c64 = lambda x: torch.tensor(np.ascontiguousarray(x),
+                                     dtype=torch.complex64, device=dev)
+        tab = 0.2 * (rng.normal(size=(N_T, n_cheby))
+                     + 1j * rng.normal(size=(N_T, n_cheby)))
+        ph = c64(np.exp(0.3j * rng.uniform(size=N_T)))
+        pd = {"tab_fw_t": c64(tab), "ph_fw_t": ph, "tab_bw_t": c64(tab),
+              "ph_bw_t": ph, "shift": 0.1, "dE": 5.0}
+        return (c64(0.5 * (A + A.conj().T) / np.sqrt(d)),
+                c64(0.15 * (B + B.conj().transpose(0, 2, 1)) / np.sqrt(d)),
+                torch.tensor(0.3 * rng.normal(size=(N_T, 2)),
+                             dtype=torch.float32, device=dev), pd)
+
+    args_cz, psi_cz = cheby_inputs(cp_cz, rng, dev)
+    args_sub, psi_sub = cheby_inputs(cp_sub, rng, dev)
+    args_256, psi_256 = cheby_inputs(cp_256, rng, dev)
+    shapes = [
+        ("dim1024_K1", args_sub, psi_sub[:1].contiguous()),
+        ("dim1024_K4_cz", args_cz, psi_cz),
+        ("dim1024_K8", args_sub, psi_sub[:8].contiguous()),
+        ("dim1024_K64_subspace", args_sub, psi_sub),
+        ("dim256_K4_cz", args_256, psi_256),
+        ("edge_d1056_K4", random_inputs(1056, 4), unit(4, 1056)),
+        ("past_edge_d1100_K4", random_inputs(1100, 4), unit(4, 1100)),
+    ]
+    rows = []
+    main = {}
+    for name, args, psi0 in shapes:
+        H0, ops, coeffs, pd = args
+        K, d = psi0.shape
+        N_T, n_cheby = coeffs.shape[0], int(pd["tab_fw_t"].shape[1])
+        chi0 = unit(K, d)
+        plan = hc.cheby_route(d, K, sms)
+        calls = {
+            "forward": lambda: hc.cheby_scan(
+                H0, ops, coeffs, pd["tab_fw_t"], pd["ph_fw_t"], pd["shift"],
+                pd["dE"], psi0),
+            "adjoint": lambda: hc.cheby_scan(
+                H0, ops, coeffs, pd["tab_bw_t"], pd["ph_bw_t"], pd["shift"],
+                pd["dE"], chi0, adjoint=True),
+        }
+        routes = ["ring", "grid"] if plan["route"] == "ring" else ["grid"]
+        row = {"shape": name, "d": d, "K": K, "N_T": N_T,
+               "n_cheby": n_cheby, "rule": plan["route"], "plan": plan,
+               "bound_ms": bound(*cheby_flops_bytes(
+                   d, K, ops.shape[0], N_T, n_cheby))[0]}
+        outs = {}
+        for route in routes:
+            with hc._forced_route(route):
+                for direction, call in calls.items():
+                    outs[route, direction] = call()
+                    torch.cuda.synchronize()
+                    ms = median_ms(call, reps=3)
+                    row[f"{route}_ms_{direction}"] = ms
+                    row[f"{route}_us_per_term_{direction}"] = (
+                        ms * 1e3 / (N_T * (n_cheby - 1)))
+        if len(routes) == 2:
+            diff = max(max_abs(outs["ring", k], outs["grid", k])
+                       for k in calls)
+            row["ring_vs_grid_max_abs_diff"] = diff
+            require(diff < 2 * TOL_STATE, f"cheby_routes: the two kernels "
+                    f"disagree at {name} by {diff}")
+        faster = min(routes, key=lambda r: row[f"{r}_ms_forward"]
+                     + row[f"{r}_ms_adjoint"])
+        row["faster"] = faster
+        require(plan["route"] == faster, f"cheby_routes: the rule takes "
+                f"{plan['route']} at {name}, the faster kernel is {faster}")
+        rows.append(row)
+        if name == "dim1024_K4_cz":
+            require(all(row[f"ring_ms_{k}"] < row[f"grid_ms_{k}"]
+                        for k in calls),
+                    f"the ring kernel is not faster at dim 1024, K = 4: {row}")
+            main = {"grid_ms": row["grid_ms_forward"],
+                    "grid_ms_adjoint": row["grid_ms_adjoint"],
+                    "us_per_term": row["ring_us_per_term_forward"],
+                    "grid_us_per_term": row["grid_us_per_term_forward"]}
+        if name == "dim1024_K64_subspace":
+            main.update(ms_subspace_dim1024_grid=row["grid_ms_forward"])
+        if name == "dim256_K4_cz":
+            main.update(ms_cz_dim256_grid=row["grid_ms_forward"])
+    emit({"phase": "cheby_routes", "tol_ring_vs_grid": 2 * TOL_STATE,
+          "sm_count": sms, "shapes": rows})
+    return main
 
 
 def cheby_paths(rng, dev):
@@ -1897,6 +2178,7 @@ def cheby_paths(rng, dev):
             f"n_cheby {pds['fw']['tab_fw'].shape[1]}, Taylor orders "
             f"{n_orders}: expected 27 and 44")
     k8 = cheby_kernel_phase(cp, cp_sub, cp_256, rng, dev)
+    k8.update(cheby_routes_phase(cp, cp_sub, cp_256, rng, dev))
     x0 = cp.guess_pulsevals.reshape(-1)
 
     # ---- side check before the counted run: complex64 against complex128
@@ -1959,6 +2241,7 @@ def cheby_paths(rng, dev):
     torch.cuda.synchronize()
     opt_s = time.perf_counter() - t0
     counts = read_counts(*modules)
+    routes_cheby = ROUTE_READS[-1][1]
     by_dir = dict(hopper_cheby.launches_by_direction)
     n_fg += res.fg_calls
     n_f += res.f_calls
@@ -1976,9 +2259,11 @@ def cheby_paths(rng, dev):
     expect = dict.fromkeys(counts, 0)
     expect["cheby_scan"] = 2 * n_fg + n_f
     require(counts == expect and by_dir == {"forward": n_fg + n_f,
-                                            "adjoint": n_fg},
-            f"dim-1024 launch counts {counts} {by_dir} do not match the "
-            f"evaluations: {n_fg} fg, {n_f} f")
+                                            "adjoint": n_fg}
+            and routes_cheby["cheby_ring"] == expect["cheby_scan"]
+            and routes_cheby["cheby_grid"] == 0,
+            f"dim-1024 launch counts {counts} {by_dir} {routes_cheby} do "
+            f"not match the evaluations: {n_fg} fg, {n_f} f")
     steady_s = sum(iter_secs[1:])
     emit({"phase": "optimize_cheby", "J_T_series": series,
           "iterations": res.iter, "seconds": opt_s,
@@ -1992,10 +2277,23 @@ def cheby_paths(rng, dev):
           "envelope_bucket_growths": len(wrks[0]._program_cache) - 1,
           "envelope_bucket": [float(a) for a in wrks[0]._amp_bucket],
           "message": res.message, "launches": counts,
-          "launches_by_direction": by_dir})
+          "launches_by_direction": by_dir,
+          "route_launches": {k: routes_cheby[k]
+                             for k in ("cheby_ring", "cheby_grid")}})
+
+    def ring_run(what):
+        """The counted run's launches, which must all have taken the ring
+        kernel (route counts read with them)."""
+        c = read_counts(*modules)
+        routes = ROUTE_READS[-1][1]
+        require(routes["cheby_ring"] == c["cheby_scan"] >= 1
+                and routes["cheby_grid"] == 0,
+                f"{what}: {c['cheby_scan']} scans, routes {routes}")
+        return {k: routes[k] for k in ("cheby_ring", "cheby_grid")}
 
     # ---- K = 64 basis states under the same generator ---------------------
     x_sub = cp_sub.guess_pulsevals.reshape(-1)
+    zero_counts(*modules)
     fg_sub = gt.build_fg(cp_sub)
     J_s, g_s, aux_s, dJ_s, dg_s = fg_against_plain(fg_sub, x_sub,
                                                    "fg_cheby_subspace")
@@ -2004,7 +2302,9 @@ def cheby_paths(rng, dev):
             f"fg_cheby_subspace: J = {float(J_s)}, expected 0.999756")
     sub_ms = timed_ms(lambda: fg_sub(x_sub), 2)
     parts_sub = fg_breakdown(fg_sub, x_sub, reps=2)
+    routes_sub = ring_run("fg_cheby_subspace")
     emit({"phase": "fg_cheby_subspace", "K": cp_sub.n_traj, "J": float(J_s),
+          "route_launches": routes_sub,
           "taylor_orders": F._vectorized_taylor_orders(cp_sub),
           "ms_per_eval": sub_ms, "device_ms_by_part": parts_sub,
           "J_abs_diff_vs_plain": dJ_s, "grad_diff_of_max_vs_plain": dg_s,
@@ -2018,6 +2318,7 @@ def cheby_paths(rng, dev):
             "the dim-256 gradgen problem must take the forward kernel and "
             "the per-step extended-state pass")
     x256 = cp_gg.guess_pulsevals.reshape(-1)
+    zero_counts(*modules)
     fg_gg, fg_tl = gt.build_fg(cp_gg), gt.build_fg(cp_256)
     J_gg, g_gg, aux_gg, dJ_gg, dg_gg = fg_against_plain(fg_gg, x256,
                                                         "fg_cheby_gradgen")
@@ -2026,14 +2327,19 @@ def cheby_paths(rng, dev):
     require(abs(float(J_gg) - float(J_tl)) < 1e-5 and d_gt < 1e-3,
             f"dim 256: gradgen and taylor gradients differ by {d_gt} of the "
             "max")
+    gg_ms = timed_ms(lambda: fg_gg(x256), 2)
+    tl_ms = timed_ms(lambda: fg_tl(x256), 3)
+    routes_256 = ring_run("fg_cheby_gradgen")
     emit({"phase": "fg_cheby_gradgen", "dim": cp_gg.dim,
           "N_T": cp_gg.n_timesteps,
           "n_cheby": int(F._prop_data(cp_gg)["fw"]["tab_fw"].shape[1]),
-          "J": float(J_gg), "gradgen_ms_per_eval": timed_ms(
-              lambda: fg_gg(x256), 2),
-          "taylor_ms_per_eval": timed_ms(lambda: fg_tl(x256), 3),
+          "J": float(J_gg), "gradgen_ms_per_eval": gg_ms,
+          "taylor_ms_per_eval": tl_ms, "route_launches": routes_256,
           "grad_diff_of_max_vs_taylor": d_gt,
           "J_abs_diff_vs_plain": dJ_gg, "grad_diff_of_max_vs_plain": dg_gg})
+    k8["routes_counted_runs"] = {"optimize_cheby": routes_cheby["cheby_ring"],
+                                 "fg_cheby_subspace": routes_sub["cheby_ring"],
+                                 "fg_cheby_gradgen": routes_256["cheby_ring"]}
     return k8, counts
 
 
@@ -2138,7 +2444,7 @@ def time_grid_kernel_phase(cp_ens, s_ens, rng, dev):
             "forward_scan_pertraj_no_stream_ms": pertraj_ms,
             "computed_by": "csrc/prop_cluster.cu + csrc/state_scan.cu "
                            "(the K5 pair, no U stream); "
-                           "csrc/smalld_scan.cu for d <= 4, K >= 128"}, counts
+                           "csrc/smalld_fused.cu for d <= 4, K >= 128"}, counts
 
 
 def _tf32_chain(ar, ai, br, bi, reps):
@@ -3123,6 +3429,12 @@ def main():
     counts_obs = observables_path(problem, dev)
 
     prop_cu = "grape_tpu_torch/csrc/prop_cluster.cu"
+    smalld_cu = "grape_tpu_torch/csrc/smalld_fused.cu"
+    cheby_cu = "grape_tpu_torch/csrc/cheby_ring.cu"
+    counts_new = {
+        "smalld_fused_kernel": k7["launches_fused_qutrit_run"],
+        "cheby_ring_kernel": k8["routes_counted_runs"]["optimize_cheby"],
+    }
     scan_cu = "grape_tpu_torch/csrc/state_scan.cu"
     frechet_cu = "grape_tpu_torch/csrc/frechet_trace.cu"
     factored_cu = "grape_tpu_torch/csrc/frechet_factored.cu"
@@ -3167,14 +3479,20 @@ def main():
         "chi_scan_recompute": (
             prop_cu, "grape_tpu/fg.py:1745", counts_pertraj),
         "forward_scan_smalld": (
-            "grape_tpu_torch/csrc/smalld_scan.cu",
-            "grape_tpu/ops/pallas_prop.py:766", counts_smalld),
+            smalld_cu, "grape_tpu/ops/pallas_prop.py:766", counts_smalld),
         # one kernel for both TPU kernels of the Chebyshev regime
         "cheby_scan": (
-            "grape_tpu_torch/csrc/cheby_scan.cu",
-            "grape_tpu/ops/pallas_prop.py:956 and :1183", counts_cheby),
+            cheby_cu, "grape_tpu/ops/pallas_prop.py:956 and :1183",
+            counts_cheby),
+        # the two redesigned kernels of this slice under their own names,
+        # counted per route in the qutrits' and the dim-1024 runs
+        "smalld_fused_kernel": (
+            smalld_cu, "grape_tpu/ops/pallas_prop.py:766", counts_new),
+        "cheby_ring_kernel": (
+            cheby_cu, "grape_tpu/ops/pallas_prop.py:956 and :1183",
+            counts_new),
         # the per-trajectory scan without the U stream: the K5 pair of
-        # kernels (or the small-d pair under its gates)
+        # kernels (or the fused small-d kernel under its gates)
         "forward_scan_time": (
             prop_cu, "grape_tpu/ops/pallas_prop.py:275", counts_time),
         "karatsuba_chain": (
@@ -3210,6 +3528,11 @@ def main():
                      "and windowed co-state chains",
         routes_main_path=routes_main)
     measured = {**cz, **ens, "forward_scan_smalld": k7, "cheby_scan": k8,
+                "smalld_fused_kernel": dict(k7, replaces_route=(
+                    "the two-launch pair of csrc/smalld_scan.cu (pair_ms)")),
+                "cheby_ring_kernel": dict(k8, replaces_route=(
+                    "the grid-barrier kernel of csrc/cheby_scan.cu "
+                    "(grid_ms)")),
                 "forward_scan_time": k10, "karatsuba_chain": k11,
                 "propagator_kernel_cluster": k_prop,
                 "state_scan_cluster": k_scan}
@@ -3246,12 +3569,13 @@ def main():
             "bound_by": b_by, "library_ms": m.pop("library_ms"), **m,
         })
     # every counted run took the redesigned kernels: no launch of the
-    # global-scratch propagator kernel or the one-block scans (those run
-    # only where a phase above forces them, or at d > 108)
+    # global-scratch propagator kernel, the one-block scans, the two-launch
+    # small-d pair or the grid-barrier Chebyshev kernel (those run only
+    # where a phase above forces them, or past the new kernels' limits)
+    old_routes = ("propagators_global", "state_scan_legacy_forward",
+                  "state_scan_legacy_chi", "smalld_pair", "cheby_grid")
     for site, routes in ROUTE_READS:
-        require(routes["propagators_global"] == 0
-                and routes["state_scan_legacy_forward"] == 0
-                and routes["state_scan_legacy_chi"] == 0,
+        require(all(routes.get(k, 0) == 0 for k in old_routes),
                 f"the counted run of {site} took an old kernel: {routes}")
     emit({"phase": "route_launches", "counted_runs": [
         {"run": site, **routes} for site, routes in ROUTE_READS]})

@@ -1,5 +1,9 @@
 // Chebyshev-series propagation scan for ONE generator shared by K
-// trajectories, forward (psi) or adjoint (the co-state chi).
+// trajectories, forward (psi) or adjoint (the co-state chi), with a
+// grid-wide barrier per term.  The ring kernel of cheby_ring.cu replaces
+// it wherever its layout fits (hopper_cheby.cheby_route: up to 8 rows per
+// SM, d <= 1056 on 132 SMs); this one takes the rest, up to the gate's
+// CHEBY_MAX_DIM.
 //
 // Replaces the two TPU Pallas kernels of grape_tpu/ops/pallas_prop.py
 //

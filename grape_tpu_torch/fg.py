@@ -63,7 +63,7 @@ the adjoint series step by step, and ``gradient_method="gradgen"`` takes the
 per-step pass with the series of the extended state ``(χ'_1..χ'_L, χ)``
 under the gradient generator.  For a shared generator in complex64 at
 ``256 ≤ dim ≤ CHEBY_MAX_DIM`` the Chebyshev forward scan and co-state chain
-run in the hand-written kernel of ``ops.hopper_cheby``; every other
+run in the hand-written kernels of ``ops.hopper_cheby``; every other
 Chebyshev or Krylov step is plain PyTorch, as in the reference.
 
 ``fw_prop_callback`` receives per-step observables (or the states) of

@@ -25,7 +25,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 _LIB = None
 _CLOCK_LIB = None
 # the kernels that carry phase clocks (csrc/phase_clock.cuh)
-_CLOCKED = ("prop_cluster.cu", "state_scan.cu")
+_CLOCKED = ("prop_cluster.cu", "state_scan.cu", "cheby_ring.cu")
 # {"seconds": float, "rebuilt": bool, "log": str} of the latest load
 last_build = {}
 
@@ -126,6 +126,14 @@ def _declare(lib):
     lib.grape_smalld_propagators.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
     lib.grape_smalld_apply.restype = i
     lib.grape_smalld_apply.argtypes = [p, p, p, i, i, i, p]
+    lib.grape_smalld_fused.restype = i
+    lib.grape_smalld_fused.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p,
+                                       p, p]
+    lib.grape_cheby_ring.restype = i
+    lib.grape_cheby_ring.argtypes = [
+        p, p, p, p, ctypes.c_float, ctypes.c_float, p, i, i, i, i, i, i, i,
+        i, i, i, i, i, p, p, p, p,
+    ]
     lib.grape_cheby_scan.restype = i
     lib.grape_cheby_scan.argtypes = [
         p, p, p, p, ctypes.c_float, ctypes.c_float, p, i, i, i, i, i, i, p,
@@ -170,8 +178,13 @@ def _declare_clocked(lib):
     lib.grape_state_scan.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.grape_propagators_cluster_resident.restype = i
     lib.grape_propagators_cluster_resident.argtypes = [i]
+    lib.grape_cheby_ring.restype = i
+    lib.grape_cheby_ring.argtypes = [
+        p, p, p, p, ctypes.c_float, ctypes.c_float, p, i, i, i, i, i, i, i,
+        i, i, i, i, i, p, p, p, p,
+    ]
     for fn in (lib.grape_propagators_cluster_clock,
-               lib.grape_state_scan_clock):
+               lib.grape_state_scan_clock, lib.grape_cheby_ring_clock):
         fn.restype = i
         fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
 
@@ -201,13 +214,14 @@ def load_kernels(verbose=False):
 
 def load_phase_clock():
     """The two cluster kernels (``csrc/prop_cluster.cu``,
-    ``csrc/state_scan.cu``) built again with their phase clocks
+    ``csrc/state_scan.cu``) and the Chebyshev ring kernel
+    (``csrc/cheby_ring.cu``) built again with their phase clocks
     (``-DGRAPE_PHASE_CLOCK``) into a library of their own, for
     measurements only: the same entry points, each launch also adding the
     SM cycles of block 0 per phase to a table that
-    ``grape_propagators_cluster_clock`` / ``grape_state_scan_clock`` copy
-    out (16 counters) and clear.  Built at first use, like
-    :func:`load_kernels`."""
+    ``grape_propagators_cluster_clock`` / ``grape_state_scan_clock`` /
+    ``grape_cheby_ring_clock`` copy out (16 counters) and clear.  Built at
+    first use, like :func:`load_kernels`."""
     global _CLOCK_LIB
     if _CLOCK_LIB is not None:
         return _CLOCK_LIB

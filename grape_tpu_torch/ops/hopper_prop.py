@@ -33,14 +33,18 @@ every grouping:
 - :func:`forward_scan_smalld` replaces ``forward_scan_pallas_smalld``: the
   forward scan of a large ensemble (one generator per trajectory) of tiny
   systems, ``d ≤ 4``, with the matrices in registers, one thread per
-  (step, trajectory) exponential (``csrc/smalld_scan.cu``).
+  (step, trajectory) exponential: one fused launch
+  (``csrc/smalld_fused.cu``, :func:`smalld_route`) whose CTAs form the
+  propagators of a tile of trajectories window by window in shared memory
+  while their chain warp walks the previous window; the two-launch pair of
+  ``csrc/smalld_scan.cu`` stays for comparison only (forced).
 - :func:`forward_scan_time` replaces ``forward_scan_pallas_time``: the
   per-trajectory forward scan without the propagator stream.  Its TPU
   layout (a sequential grid over the steps with the K trajectories
   unrolled in each step, for small K) has no meaning on the card, where
   the (step, trajectory) exponentials are independent: it runs the same
   kernel pair as :func:`forward_scan_pertraj` (``csrc/prop_scan.cu``), or
-  the small-dimension pair under that kernel's gates.
+  the fused small-dimension kernel under its gates.
 - :func:`taylor_order_for_bound` is the host helper that sizes the static
   order count of the time-vectorized Taylor backward pass.
 
@@ -70,7 +74,7 @@ __all__ = [
     "forward_scan_time", "forward_scan_time_plain",
     "taylor_order_for_bound",
     "propagators", "propagators_shared", "propagator_route", "scan_route",
-    "launches", "route_launches",
+    "smalld_route", "launches", "route_launches",
 ]
 
 # wrapper calls that launched their kernels
@@ -87,6 +91,7 @@ route_launches = {
     "propagators_cluster": 0, "propagators_global": 0,
     "state_scan_forward": 0, "state_scan_chi": 0,
     "state_scan_legacy_forward": 0, "state_scan_legacy_chi": 0,
+    "smalld_fused": 0, "smalld_pair": 0,
 }
 
 # shared memory one block may use on sm_90, in bytes
@@ -103,6 +108,9 @@ SCAN_MAX_STAGES = 8
 
 # routes forced for checks and timings (see _forced_routes)
 _forced = {"propagators": None, "scan": None}
+# the small-dimension route forced for checks and timings (see
+# _forced_smalld_route)
+_forced_smalld = {"route": None}
 
 # largest dimension the small-dimension kernel holds in registers
 SMALLD_MAX_DIM = 4
@@ -110,6 +118,13 @@ SMALLD_MAX_DIM = 4
 # trajectories from which forward_scan_time takes the small-dimension
 # kernel (the gate of the small-dimension route of fg)
 SMALLD_MIN_TRAJ = 128
+
+# the fused small-dimension kernel (csrc/smalld_fused.cu): most
+# trajectories per CTA, propagator items per window (one per producer
+# thread), most steps per window
+SMALLD_MAX_TILE = 32
+SMALLD_WINDOW_ITEMS = 256
+SMALLD_MAX_WINDOW = 64
 
 # blocks of the persistent propagator grid per multiprocessor
 _BLOCKS_PER_SM = 2
@@ -287,6 +302,42 @@ def scan_route(d, G, gs, sm_count, cluster=None):
     fits = 1 <= cluster <= min(SCAN_MAX_CLUSTER, d) and stages >= 2
     return {"route": "cluster" if fits else "legacy", "kb": kb,
             "chunks": chunks, "cluster": cluster, "stages": stages}
+
+
+def smalld_route(d, K, N_T, sm_count):
+    """The launch plan of the small-dimension forward scan for ``K``
+    trajectories of dimension ``d ≤ 4`` over ``N_T`` steps on a card of
+    ``sm_count`` SMs: ``{"route", "tile", "window", "ctas", "smem"}``.
+
+    The fused kernel (``csrc/smalld_fused.cu``) takes every shape: one CTA
+    per tile of trajectories, the tile the smallest power of two up to 32
+    whose CTAs fit one wave (8 at K = 1024 on 132 SMs: 128 CTAs); windows
+    of ``window`` steps, one propagator item per producer thread (``window
+    · tile ≤ 256``, at most 64 steps, at most ``N_T``); two shared buffers
+    of ``window · tile`` propagators at an odd pitch of ``d² | 1``
+    ``float2``.  The two-launch pair (``"pair"``, ``csrc/smalld_scan.cu``)
+    is taken only where a check forces it."""
+    d, K, N_T = int(d), int(K), int(N_T)
+    tile = 1
+    while tile < SMALLD_MAX_TILE and _ceil_div(K, tile) > int(sm_count):
+        tile *= 2
+    window = min(N_T, SMALLD_MAX_WINDOW, SMALLD_WINDOW_ITEMS // tile)
+    smem = 2 * window * tile * ((d * d) | 1) * 8
+    return {"route": "fused", "tile": tile, "window": window,
+            "ctas": _ceil_div(K, tile), "smem": smem}
+
+
+@contextlib.contextmanager
+def _forced_smalld_route(route):
+    """Within the block the small-dimension scan takes ``route``,
+    ``"fused"`` or ``"pair"`` (checks and timings of ``chip_smoke.py``;
+    nothing in the package uses it)."""
+    old = _forced_smalld["route"]
+    _forced_smalld["route"] = route
+    try:
+        yield
+    finally:
+        _forced_smalld["route"] = old
 
 
 @contextlib.contextmanager
@@ -740,8 +791,8 @@ def forward_scan_smalld(H0, ops, coeffs, dts, psi0, n_squarings,
       dts:  (N_T,) float32 time steps
       psi0: (K, d) complex64 initial states
       n_squarings: squaring count ``s`` (a runtime integer)
-      with_propagators: also return the propagator stream; without it the
-        propagators are formed one window of steps at a time
+      with_propagators: also return the propagator stream; without it no
+        propagator leaves the kernel
 
     Returns ``storage (N_T+1, K, d)`` complex64 with ``storage[0] = psi0``,
     and with ``with_propagators`` the pair ``(storage, U (N_T, K, d, d))``.
@@ -755,8 +806,10 @@ def forward_scan_smalld(H0, ops, coeffs, dts, psi0, n_squarings,
 
 def _smalld_scan(name, H0, ops, coeffs, dts, psi0, n_squarings,
                  with_propagators):
-    """The small-dimension kernel pair for wrapper ``name`` (CUDA tensors;
-    arguments as :func:`forward_scan_smalld`)."""
+    """The small-dimension kernels for wrapper ``name`` (CUDA tensors;
+    arguments as :func:`forward_scan_smalld`), on the route of
+    :func:`smalld_route`: one launch of the fused kernel, which writes the
+    propagators only where they are kept, or the forced two-launch pair."""
     _require(coeffs.ndim == 2, "coeffs must be (N_T, T)")
     K, T, d, N_T, _ = _check_group_args(H0, ops, coeffs, dts)
     _require(1 <= d <= SMALLD_MAX_DIM,
@@ -767,6 +820,22 @@ def _smalld_scan(name, H0, ops, coeffs, dts, psi0, n_squarings,
     lib = load_kernels()
     storage = torch.empty((N_T + 1, K, d), dtype=torch.complex64,
                           device=device)
+    plan = smalld_route(d, K, N_T, _sm_count(device))
+    route = _forced_smalld["route"] or plan["route"]
+    if route == "fused":
+        U = (torch.empty((N_T, K, d, d), dtype=torch.complex64,
+                         device=device) if with_propagators else None)
+        with torch.cuda.device(device):
+            check(lib, lib.grape_smalld_fused(
+                H0.data_ptr(), ops.data_ptr(), coeffs.data_ptr(),
+                dts.data_ptr(), psi0.data_ptr(), T, d, N_T, K, s,
+                plan["tile"], plan["window"], storage.data_ptr(),
+                None if U is None else U.data_ptr(), _stream(device),
+            ), "fused small-dimension kernel launch")
+        route_launches["smalld_fused"] += 1
+        launches[name] += 1
+        return (storage, U) if with_propagators else storage
+    _require(route == "pair", f"unknown small-dimension route {route!r}")
     C = N_T if with_propagators else _window_steps(K, d, N_T)
     U = None
     psi_in = psi0
@@ -784,6 +853,7 @@ def _smalld_scan(name, H0, ops, coeffs, dts, psi0, n_squarings,
                 U.data_ptr(), psi_in.data_ptr(), storage[n0:].data_ptr(),
                 n_steps, K, d, _stream(device),
             ), "small-dimension apply-scan kernel launch")
+        route_launches["smalld_pair"] += 1
         if n0 + C < N_T:
             # the next window starts from a copy of this one's last state
             # (the kernel writes its start state back to that row)
@@ -829,8 +899,8 @@ def forward_scan_time(H0, ops, coeffs, dts, psi0, n_squarings, degree=16):
 
     Returns ``storage (N_T+1, K, d)`` complex64 with ``storage[0] = psi0``.
     On the card the exponentials of all (step, trajectory) items are formed
-    in parallel and the ψ chain runs apart: the small-dimension kernel pair
-    for ``d ≤ 4`` and ``K ≥ 128``, else the large-d pair of
+    in parallel and the ψ chain runs apart: the fused small-dimension
+    kernel for ``d ≤ 4`` and ``K ≥ 128``, else the large-d pair of
     :func:`forward_scan_pertraj`, window by window (≤ 1 GiB of
     propagators).
     """

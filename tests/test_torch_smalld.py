@@ -258,3 +258,91 @@ def test_kernel_source_is_part_of_the_build():
         src = f.read()
     for entry in ("grape_smalld_propagators", "grape_smalld_apply"):
         assert f"int {entry}(" in src
+
+
+# ---- the fused kernel's launch plan (hopper_prop.smalld_route) ------------
+
+SMALLD_PLANS = [
+    # (d, K, N_T): (tile, window, ctas, smem) on 132 SMs
+    # the qutrit ensemble (kernel_check_smalld, smalld_routes)
+    ((3, 1024, 400), (8, 32, 128, 36864)),
+    # kernel_check_smalld's ragged shapes
+    ((2, 128, 1), (1, 1, 128, 80)),
+    ((3, 129, 7), (1, 7, 129, 1008)),
+    ((4, 1000, 33), (8, 32, 125, 69632)),
+    ((4, 4096, 20), (32, 8, 128, 69632)),
+    ((2, 4096, 1), (32, 1, 128, 2560)),
+    ((3, 1000, 1), (8, 1, 125, 1152)),
+    ((4, 129, 50), (1, 50, 129, 13600)),
+    # smalld_routes
+    ((2, 128, 400), (1, 64, 128, 5120)),
+    ((3, 130, 400), (1, 64, 130, 9216)),
+    ((4, 1000, 400), (8, 32, 125, 69632)),
+    ((4, 4096, 100), (32, 8, 128, 69632)),
+    # kernel_check_time's small-d shape (forward_scan_time, K >= 128)
+    ((3, 256, 50), (2, 50, 128, 14400)),
+    # past one wave at the largest tile: more CTAs than SMs
+    ((3, 8192, 400), (32, 8, 256, 36864)),
+]
+
+
+@pytest.mark.parametrize("shape,plan", SMALLD_PLANS,
+                         ids=[f"d{d}-K{K}-N{n}" for (d, K, n), _ in
+                              SMALLD_PLANS])
+def test_smalld_route(shape, plan):
+    got = hopper_prop.smalld_route(*shape, 132)
+    assert got["route"] == "fused"
+    assert (got["tile"], got["window"], got["ctas"], got["smem"]) == plan
+
+
+def test_smalld_route_invariants():
+    """The tile is the smallest power of two up to 32 whose CTAs fit one
+    wave; one propagator item per producer thread a window (window · tile
+    ≤ 256, at most 64 steps and N_T); two buffers at an odd pitch of
+    d² | 1 float2 within one CTA's shared memory."""
+    rng = np.random.default_rng(5)
+    for _ in range(300):
+        d = int(rng.integers(1, 5))
+        K = int(rng.integers(1, 20000))
+        n = int(rng.integers(1, 2000))
+        sms = int(rng.choice([66, 114, 132]))
+        p = hopper_prop.smalld_route(d, K, n, sms)
+        tile = p["tile"]
+        assert tile in (1, 2, 4, 8, 16, 32)
+        assert p["ctas"] == -(-K // tile)
+        assert p["ctas"] <= sms or tile == 32
+        assert tile == 1 or -(-K // (tile // 2)) > sms
+        assert 1 <= p["window"] <= min(64, n)
+        assert p["window"] * tile <= 256
+        assert p["window"] == min(n, 64, 256 // tile)
+        pitch = (d * d) | 1
+        assert pitch % 2 == 1
+        assert p["smem"] == 2 * p["window"] * tile * pitch * 8 <= 232448
+
+
+def test_forced_smalld_route_restores():
+    assert hopper_prop._forced_smalld == {"route": None}
+    with hopper_prop._forced_smalld_route("pair"):
+        assert hopper_prop._forced_smalld == {"route": "pair"}
+    assert hopper_prop._forced_smalld == {"route": None}
+
+
+def test_fused_kernel_source_is_part_of_the_build():
+    """The fused kernel's source is built with the others, declares the
+    entry point the wrapper calls, and shares the propagator arithmetic
+    with the two-launch pair through one header."""
+    import os
+
+    from grape_tpu_torch.ops._build import kernel_sources
+
+    cu, hdr = kernel_sources()
+    names = [os.path.basename(f) for f in cu]
+    assert "smalld_fused.cu" in names
+    assert "smalld_expm.cuh" in [os.path.basename(f) for f in hdr]
+    for name in ("smalld_fused.cu", "smalld_scan.cu"):
+        with open(cu[names.index(name)]) as f:
+            src = f.read()
+        assert '#include "smalld_expm.cuh"' in src
+        assert "smalld_propagator<D>(" in src
+    with open(cu[names.index("smalld_fused.cu")]) as f:
+        assert "int grape_smalld_fused(" in f.read()
