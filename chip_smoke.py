@@ -39,7 +39,18 @@ every evaluation went through the kernels:
   qutrit gate with its guard running cost (BASELINE config 3) and the CZ
   with a leakage running cost (the ξ co-state chain); the CZ with its
   drives as nonlinear amplitudes ``A·sin(ε)``; the CZ with per-step
-  observables handed to ``fw_prop_callback``.
+  observables handed to ``fw_prop_callback``;
+- the kernels on non-Hermitian generators (Liouvillians: the dissipative
+  two-level system, dim 4; the CZ at d = 3 with decay on both transmons,
+  dim 81, alone, in 8 groups of 4 and as 32 distinct ones; 128 dissipative
+  two-level systems) against their plain versions; the dissipative
+  two-level system optimized through ``optimize`` against its golden J_T
+  series and the dim-81 open CZ evaluated; the host modules around
+  ``optimize`` (the X-gate, STIRAP, seeded dummy and subspace-gate
+  problems with their golden series, ``optimize_or_load`` and
+  ``propagate`` on the CZ); and ``optimize(..., profile_dir=...)`` on the
+  CZ and the qutrits, with the card's busy share read from the trace.
+  Every evaluation phase prints ``flops.fg_flops`` and the rate it implies.
 
 Each phase prints one JSON line and raises on failure; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -1130,12 +1141,14 @@ def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
     require(abs(float(Jf) - float(J)) < 1e-6,
             "build_f disagrees with build_fg on the qutrits")
     emit({"phase": "fg_smalld", "J": float(J), "grad_norm": float(g.norm()),
-          "ms_per_eval": fg_ms, "device_ms_by_part": parts,
+          "ms_per_eval": fg_ms, "flop_rate": flop_rate(cp, fg_ms),
+          "device_ms_by_part": parts,
           "taylor_pass_ms_by_product_form": taylor_pass_ms,
           "J_abs_diff_vs_plain": dJ, "grad_diff_of_max_vs_plain": dg,
           "squarings": s_q, "taylor_orders": n_orders,
           "taylor_ok": bool(aux["taylor_ok"]), "dtype": "complex64",
           "gradgen": {"J": float(J_gg), "ms_per_eval": gg_ms,
+                      "flop_rate": flop_rate(cp_gg, gg_ms),
                       "grad_diff_of_max_vs_taylor": d_gg,
                       "launches_one_eval": counts_gg},
           "cut_vs_complex128": {"samples": cut, "J_complex64": float(Js),
@@ -1212,6 +1225,7 @@ def smalld_and_taylor_paths(cz_problem, cz_fg_ms, g_cz_gradgen, rng, dev):
             f"not match the evaluations {expect}")
     emit({"phase": "fg_taylor_cz", "J": float(J_t),
           "taylor_ms_per_eval": taylor_ms, "gradgen_ms_per_eval": cz_fg_ms,
+          "taylor_flop_rate": flop_rate(cp_t, taylor_ms),
           "device_ms_by_part": parts_cz, "taylor_orders": orders_cz,
           "taylor_ok": bool(aux_t["taylor_ok"]),
           "J_abs_diff_vs_plain": dJ_t, "grad_diff_of_max_vs_plain": dg_t,
@@ -1816,7 +1830,7 @@ def ensemble_paths(problem, cp, s_ens):
 
     emit({"phase": "fg_ensemble", "J": float(J),
           "grad_norm": float(g.norm()), "ms_per_eval": fg_ms,
-          "device_ms_by_part": parts,
+          "flop_rate": flop_rate(cp, fg_ms), "device_ms_by_part": parts,
           "J_abs_diff_vs_plain": dJ, "grad_diff_of_max_vs_plain": dg,
           "squarings": s_ens, "dtype": "complex64",
           "small_d3": {"J_complex64_kernels": float(Js),
@@ -1826,6 +1840,7 @@ def ensemble_paths(problem, cp, s_ens):
               "same_operators_J_abs_diff_vs_grouped": dJ_same,
               "same_operators_grad_diff_of_max_vs_grouped": dg_same,
               "distinct_J": float(J_d), "distinct_ms_per_eval": fg_diff_ms,
+              "distinct_flop_rate": flop_rate(cp_diff, fg_diff_ms),
               "distinct_device_ms_by_part": parts_diff,
               "distinct_J_abs_diff_vs_plain": dJ_d,
               "distinct_grad_diff_of_max_vs_plain": dg_d,
@@ -2217,7 +2232,8 @@ def cheby_paths(rng, dev):
     require(abs(float(Jf) - float(J)) < 1e-6,
             "build_f disagrees with build_fg on the dim-1024 CZ")
     emit({"phase": "fg_cheby", "J": float(J), "grad_norm": float(g.norm()),
-          "ms_per_eval": fg_ms, "device_ms_by_part": parts,
+          "ms_per_eval": fg_ms, "flop_rate": flop_rate(cp, fg_ms),
+          "device_ms_by_part": parts,
           "J_abs_diff_vs_plain": dJ, "grad_diff_of_max_vs_plain": dg,
           "n_cheby": int(pds["fw"]["tab_fw"].shape[1]),
           "dE": pds["fw"]["dE"], "shift": pds["fw"]["shift"],
@@ -2306,7 +2322,8 @@ def cheby_paths(rng, dev):
     emit({"phase": "fg_cheby_subspace", "K": cp_sub.n_traj, "J": float(J_s),
           "route_launches": routes_sub,
           "taylor_orders": F._vectorized_taylor_orders(cp_sub),
-          "ms_per_eval": sub_ms, "device_ms_by_part": parts_sub,
+          "ms_per_eval": sub_ms, "flop_rate": flop_rate(cp_sub, sub_ms),
+          "device_ms_by_part": parts_sub,
           "J_abs_diff_vs_plain": dJ_s, "grad_diff_of_max_vs_plain": dg_s,
           "taylor_ok": bool(aux_s["taylor_ok"])})
 
@@ -2334,7 +2351,10 @@ def cheby_paths(rng, dev):
           "N_T": cp_gg.n_timesteps,
           "n_cheby": int(F._prop_data(cp_gg)["fw"]["tab_fw"].shape[1]),
           "J": float(J_gg), "gradgen_ms_per_eval": gg_ms,
-          "taylor_ms_per_eval": tl_ms, "route_launches": routes_256,
+          "taylor_ms_per_eval": tl_ms,
+          "gradgen_flop_rate": flop_rate(cp_gg, gg_ms),
+          "taylor_flop_rate": flop_rate(cp_256, tl_ms),
+          "route_launches": routes_256,
           "grad_diff_of_max_vs_taylor": d_gt,
           "J_abs_diff_vs_plain": dJ_gg, "grad_diff_of_max_vs_plain": dg_gg})
     k8["routes_counted_runs"] = {"optimize_cheby": routes_cheby["cheby_ring"],
@@ -2680,6 +2700,8 @@ def recompute_paths(problem, cp_full, ens_series):
           "J_abs_diff_vs_full": dJ, "grad_diff_of_max_vs_full": dg,
           "J_abs_diff_vs_plain": dJ_p, "grad_diff_of_max_vs_plain": dg_p,
           "ms_per_eval": fg_ms, "full_storage_ms_per_eval": fg_full_ms,
+          "flop_rate": flop_rate(cp, fg_ms),
+          "full_storage_flop_rate": flop_rate(cp_full, fg_full_ms),
           "device_ms_by_part": parts, "peak_bytes": peak_rec,
           "full_storage_peak_bytes": peak_full,
           "wide_128_samples": {"K": RECOMPUTE_WIDE_SAMPLES * N_BASIS,
@@ -2845,12 +2867,16 @@ def running_cost_paths(cz_problem, dev):
                       "J_complex128": float(J128), "J_abs_diff": dJq,
                       "grad_diff_of_max": dgq, "xi_make_xi_vs_analytic": dxi,
                       "J_series": series, "iterations": res.iter,
-                      "ms_per_eval": fg_q_ms, "device_ms_by_part": parts_q,
+                      "ms_per_eval": fg_q_ms,
+                      "flop_rate": flop_rate(cps[np.complex64], fg_q_ms),
+                      "device_ms_by_part": parts_q,
                       "launches_one_eval": counts_q},
           "cz_leakage": {"J": float(J), "J_b_times_lambda": Jb_cz,
                          "J_abs_diff_vs_plain": dJ,
                          "grad_diff_of_max_vs_plain": dg,
-                         "ms_per_eval": fg_ms, "device_ms_by_part": parts,
+                         "ms_per_eval": fg_ms,
+                         "flop_rate": flop_rate(cpl, fg_ms),
+                         "device_ms_by_part": parts,
                          "xi_chain_ms": parts.get("chi_window_plain", 0.0)
                          + parts.get("_xi_sources", 0.0),
                          "J_limit": gap, "launches": counts}})
@@ -2911,6 +2937,7 @@ def custom_amplitude_path(cz_problem):
             f"(limit {TOL_J_CUSTOM_C128}, control {control}), dgrad {dg128}")
     emit({"phase": "fg_custom_amplitude", "J": float(J),
           "grad_norm": float(g.norm()), "ms_per_eval": fg_ms,
+          "flop_rate": flop_rate(cp, fg_ms),
           "J_abs_diff_vs_plain": dJ, "grad_diff_of_max_vs_plain": dg,
           "J_complex128": float(J128), "J_abs_diff_vs_complex128": dJ128,
           "final_state_distance_vs_complex128": e_T,
@@ -2985,6 +3012,678 @@ def observables_path(cz_problem, dev):
           "leakage_max": float(np.abs(first[1]).max()),
           "observable_vs_states_max_abs": dobs, "launches": counts})
     return counts
+
+
+# ---- this slice: the host modules and the kernels' non-Hermitian inputs ---
+
+# the CPU's complex64 runs of the golden problems (the kernels' plain
+# versions) deviate from the complex128 golden series by at most these
+# shares of each entry (tests/golden/traces.json; PERF.md section 6): the
+# card's limit is ten times that, fixed before the card's first run
+GOLDEN_CPU_C64_REL_DEV = {
+    "lindblad_tls": 0.027898336473076345,
+    "stirap_running_cost": 0.06798927557215392,
+    "dummy_seeded": 0.05251003609558167,
+    "subspace_gate": 7.640763286407417e-06,
+}
+GOLDEN_CARD_FACTOR = 10.0
+# the open-system CZ: decay rate of each transmon's ladder operator
+OPEN_CZ_GAMMA = 0.01
+
+
+def flop_rate(cp, ms):
+    """``fg_flops`` of one evaluation of ``cp`` (``grape_tpu_torch.flops``:
+    the algorithmic work, whatever implements it) and the rate it implies
+    at ``ms`` per evaluation."""
+    from grape_tpu_torch.flops import fg_flops
+
+    flops = fg_flops(cp)
+    return {"fg_flops": flops, "tflops_per_s": flops / (ms * 1e-3) / 1e12}
+
+
+def golden_check(name, series, res):
+    """The card's complex64 J_T series against the complex128 golden one:
+    the largest relative deviation, held to ten times the CPU complex64
+    run's; the iteration count and ``converged`` beside the golden ones."""
+    with open(os.path.join(HERE, "tests", "golden", "traces.json")) as fh:
+        ref = json.load(fh)[name]
+    n = min(len(series), len(ref["J_T_trace"]))
+    rel = np.abs(np.asarray(series[:n]) - ref["J_T_trace"][:n]) / np.abs(
+        ref["J_T_trace"][:n])
+    limit = GOLDEN_CARD_FACTOR * GOLDEN_CPU_C64_REL_DEV[name]
+    out = {"max_rel_dev": float(rel.max()), "limit": limit,
+           "cpu_complex64_max_rel_dev": GOLDEN_CPU_C64_REL_DEV[name],
+           "iter": res.iter, "golden_iter": ref["iter"],
+           "converged": bool(res.converged),
+           "golden_converged": ref["converged"], "message": res.message,
+           "golden_message": ref["message"]}
+    require(all(math.isfinite(v) for v in series),
+            f"{name}: J_T series not finite: {series}")
+    require(out["max_rel_dev"] < limit,
+            f"{name}: J_T series deviates from the golden one: {out}")
+    return out
+
+
+def _lindblad_cz_generators(d, n_steps, gammas, detunings):
+    """Liouvillians of ``two_transmon_cz_problem(d)``'s generator, one per
+    (decay rate, detuning of the second transmon), with the decay of both
+    transmons' ladder operators (dim d⁴): ``(problem, [Generator])``."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.models import two_transmon_cz_problem
+
+    a = np.diag(np.sqrt(np.arange(1, d)), 1).astype(complex)
+    eye = np.eye(d, dtype=complex)
+    gens = []
+    for gamma, delta2 in zip(gammas, detunings):
+        p = two_transmon_cz_problem(d=d, n_steps=n_steps, delta2=delta2)
+        c_ops = [np.sqrt(gamma) * np.kron(a, eye),
+                 np.sqrt(gamma) * np.kron(eye, a)]
+        gens.append(gt.liouvillian(p.trajectories[0].generator, c_ops))
+    return p, gens
+
+
+def open_cz_problem(n_steps=N_STEPS, **kwargs):
+    """The CZ gate at d = 3 as an open system: its Liouvillian (dim 81)
+    with decay rate ``OPEN_CZ_GAMMA`` on both transmons, four vectorized
+    density matrices (two logical populations, two coherences) toward their
+    images under CZ, ``J_T_re``."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.functionals import J_T_re
+
+    d = 3
+    p, (L,) = _lindblad_cz_generators(d, n_steps, [OPEN_CZ_GAMMA], [0.5])
+    dim = d * d
+
+    def ket(i, j):
+        v = np.zeros(dim, dtype=complex)
+        v[i * d + j] = 1.0
+        return v
+
+    def vec(rho):
+        return np.asarray(rho).T.reshape(-1)
+
+    cz = np.ones(dim, dtype=complex)
+    cz[1 * d + 1] = -1.0
+    pairs = [(ket(0, 0), ket(0, 0)), (ket(1, 1), ket(1, 1)),
+             (ket(0, 0), ket(1, 1)), (ket(0, 1), ket(1, 0))]
+    trajs = []
+    for u, v in pairs:
+        rho = np.outer(u, v.conj())
+        target = (cz[:, None] * rho) * cz.conj()[None, :]
+        trajs.append(gt.Trajectory(vec(rho), L, target_state=vec(target)))
+    kwargs.setdefault("J_T", J_T_re)
+    return gt.ControlProblem(trajs, p.tlist, **kwargs)
+
+
+def nonhermitian_kernel_phase(rng, dev):
+    """Phase ``nonhermitian_kernels``: every kernel of the paths that take
+    Liouvillians, launched on seeded non-Hermitian, non-normal generators
+    and held against its plain version on the card: the dissipative TLS
+    (dim 4) and the open CZ (dim 81, N_T = 2000) under K1, K2 and both
+    Fréchet kernels forced; eight groups of four and 32 distinct dim-81
+    Liouvillians under K4, K5 (with and without the U stream), the grouped
+    and re-formed χ chains, K6 (both kernels) and K10; 128 dissipative TLSs
+    with spread decay rates under K7 (with and without U) and K10's small-d
+    route.  The limits are the Hermitian checks' (``TOL_STATE`` for the
+    propagators and the co-state chains over given propagators,
+    ``TOL_TRJ`` of the scale for the traces, ``TOL_ROUTES`` between the
+    two Fréchet kernels), each relative to max(1, the scale of the plain
+    result), except the state chains: a chain of 2000 non-unitary float32
+    steps drifts from the exact one by more than a unitary chain does, so
+    the kernel's chain is held to the larger of ``TOL_STATE`` and twice the
+    plain float32 chain's own distance from a complex128 chain on the same
+    inputs (two float32 evaluations, each that far from the exact one).
+    The phase line is printed before a failed limit raises.  The route
+    counts show which kernels the inputs took."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.fg import _static_squarings
+    from grape_tpu_torch.models import dissipative_tls_problem
+    from grape_tpu_torch.ops import hopper_cheby, hopper_frechet as hf
+    from grape_tpu_torch.ops import hopper_prop as hp, plain_versions
+
+    c64 = lambda x: torch.tensor(np.ascontiguousarray(x),
+                                 dtype=torch.complex64, device=dev)
+    f32 = lambda x: torch.tensor(np.ascontiguousarray(x),
+                                 dtype=torch.float32, device=dev)
+    c128 = lambda x: x.to(torch.complex128 if x.is_complex()
+                          else torch.float64)
+
+    def unit(K, d):
+        v = rng.normal(size=(K, d)) + 1j * rng.normal(size=(K, d))
+        return c64(v / np.linalg.norm(v, axis=1, keepdims=True))
+
+    def coeff_table(cp):
+        L, N_T = cp.n_controls, cp.n_timesteps
+        eps = cp.guess_pulsevals + 0.02 * rng.normal(size=(L, N_T))
+        return f32(np.einsum("ntl,ln->nt", cp.M, eps) + cp.Mfix)
+
+    def rel(a, b):
+        return max_abs(a, b) / max(float(b.abs().max()), 1.0)
+
+    def state_limit(H0, ops, co, dts, psi0, gs, s, st_p):
+        """``TOL_STATE`` or twice the plain chain's distance from the
+        complex128 chain (``st_p`` the plain float32 states)."""
+        st_x, _ = hp.forward_scan_grouped_plain(
+            c128(H0), c128(ops), c128(co), c128(dts), c128(psi0), gs, s,
+            with_propagators=False)
+        drift = rel(st_p.to(torch.complex128), st_x)
+        return max(TOL_STATE, 2 * drift), drift
+
+    zero_counts(hp, hf, hopper_cheby)
+    rows, failed = [], []
+
+    def check(name, errs, limits, **info):
+        rows.append({"case": name, **info, **errs,
+                     "limits": {k: limits[k] for k in errs}})
+        for key, val in errs.items():
+            if not (math.isfinite(val) and val < limits[key]):
+                failed.append(f"{name}: {key} {val} (limit {limits[key]})")
+
+    lim = {"U": TOL_STATE, "chi": TOL_STATE, "chi_recompute": TOL_STATE,
+           "trj_dense": TOL_TRJ, "trj_factored": TOL_TRJ,
+           "factored_vs_dense": TOL_ROUTES}
+
+    # ---- one shared Liouvillian: K1, K2, K3 --------------------------------
+    shared = {
+        "dissipative_tls_d4": dissipative_tls_problem(gamma=0.05,
+                                                      n_steps=200),
+        "open_cz_d81": open_cz_problem(),
+    }
+    for case, problem in shared.items():
+        cp = gt.compile_problem(problem.trajectories, problem.tlist,
+                                dtype=np.complex64, **problem.kwargs)
+        H0, ops = c64(cp.H0[0]), c64(cp.ops[0])
+        A = cp.H0[0]
+        require(np.abs(A - A.conj().T).max() > 1e-3 and np.abs(
+            A @ A.conj().T - A.conj().T @ A).max() > 1e-6,
+            f"{case}: the generator must be neither Hermitian nor normal")
+        co, dts = coeff_table(cp), f32(np.diff(cp.tlist))
+        K, d, T = cp.n_traj, cp.dim, cp.ops.shape[1]
+        psi0, chi0 = c64(cp.psi0), unit(K, d)
+        for s in sorted({_static_squarings(cp), 2}):
+            st, U = hp.forward_scan_shared(H0, ops, co, dts, psi0, s)
+            chis = hp.chi_scan_shared(U, chi0)
+            psis = st[:-1].contiguous()
+            trj = {r: frechet_forced(r, H0, ops, co, dts, psis, chis, s)
+                   for r in ("dense", "factored")}
+            torch.cuda.synchronize()
+            with plain_versions():
+                st_p, U_p = hp.forward_scan_shared(H0, ops, co, dts, psi0, s)
+                chis_p = hp.chi_scan_shared(U, chi0)
+                trj_p = {r: frechet_forced(r, H0, ops, co, dts, psis, chis,
+                                           s) for r in trj}
+            require(finite(st, U, chis, *trj.values()),
+                    f"{case}: a kernel output is not finite")
+            lim["states"], drift = state_limit(H0[None], ops[None], co, dts,
+                                               psi0, K, s, st_p)
+            check(f"{case}_s{s}", {
+                "states": rel(st, st_p), "U": rel(U, U_p),
+                "chi": rel(chis, chis_p),
+                "trj_dense": rel(trj["dense"], trj_p["dense"]),
+                "trj_factored": rel(trj["factored"], trj_p["factored"]),
+                "factored_vs_dense": rel(trj["factored"], trj_p["dense"]),
+            }, lim, d=d, K=K, T=T, N_T=cp.n_timesteps, s=s,
+                frechet_route=hf.frechet_route(d, T, K, s),
+                plain_states_vs_complex128=drift)
+        del st, U, st_p, U_p
+
+    # ---- stacks of dim-81 Liouvillians: K4, K5, K6, K10 --------------------
+    G, gs = N_SAMPLES, N_BASIS
+    p_open = open_cz_problem()
+    cp_open = gt.compile_problem(p_open.trajectories, p_open.tlist,
+                                 dtype=np.complex64, **p_open.kwargs)
+    s_open = _static_squarings(cp_open)
+    co, dts = coeff_table(cp_open), f32(np.diff(cp_open.tlist))
+    N_T, d = cp_open.n_timesteps, cp_open.dim
+
+    def stack(n):
+        gammas = OPEN_CZ_GAMMA * np.linspace(0.5, 2.0, n)
+        _, gens = _lindblad_cz_generators(3, N_T, gammas,
+                                          0.5 + 0.01 * np.arange(n))
+        return (c64(np.stack([g.drift for g in gens])),
+                c64(np.stack([np.stack([op for op, _ in g.terms])
+                              for g in gens])))
+
+    H0g, opsg = stack(G)
+    psi0 = c64(np.tile(cp_open.psi0, (G, 1)))
+    chi0 = unit(G * gs, d)
+    st, U = hp.forward_scan_grouped(H0g, opsg, co, dts, psi0, gs, s_open)
+    chis = hp.chi_scan_grouped(U, chi0)
+    psis = st[:-1].contiguous()
+    trj = {r: frechet_forced(r, H0g, opsg, co, dts, psis, chis, s_open)
+           for r in ("dense", "factored")}
+    torch.cuda.synchronize()
+    with plain_versions():
+        st_p, U_p = hp.forward_scan_grouped(H0g, opsg, co, dts, psi0, gs,
+                                            s_open)
+        chis_p = hp.chi_scan_grouped(U, chi0)
+        trj_p = {r: frechet_forced(r, H0g, opsg, co, dts, psis, chis,
+                                   s_open) for r in trj}
+    require(finite(st, U, chis, *trj.values()),
+            "grouped Liouvillians: a kernel output is not finite")
+    lim["states"], drift = state_limit(H0g, opsg, co, dts, psi0, gs, s_open,
+                                       st_p)
+    check("grouped_8x4_d81", {
+        "states": rel(st, st_p), "U": rel(U, U_p), "chi": rel(chis, chis_p),
+        "trj_dense": rel(trj["dense"], trj_p["dense"]),
+        "trj_factored": rel(trj["factored"], trj_p["factored"]),
+        "factored_vs_dense": rel(trj["factored"], trj_p["dense"]),
+    }, lim, d=d, G=G, gs=gs, N_T=N_T, s=s_open,
+        frechet_route=hf.frechet_route(d, opsg.shape[1], gs, s_open),
+        plain_states_vs_complex128=drift)
+    del st, U, st_p, U_p
+
+    K = G * gs
+    H0k, opsk = stack(K)
+    chi0 = unit(K, d)
+    st, U = hp.forward_scan_pertraj(H0k, opsk, co, dts, psi0, s_open)
+    st_w, _ = hp.forward_scan_pertraj(H0k, opsk, co, dts, psi0, s_open,
+                                      with_propagators=False)
+    st_t = hp.forward_scan_time(H0k, opsk, co, dts, psi0, s_open)
+    chis = hp.chi_scan_grouped(U, chi0)
+    chis_r, _ = hp.chi_scan_recompute(H0k, opsk, co, dts, chi0, s_open)
+    psis = st[:-1].contiguous()
+    trj = {r: frechet_forced(r, H0k, opsk, co, dts, psis, chis, s_open)
+           for r in ("dense", "factored")}
+    torch.cuda.synchronize()
+    with plain_versions():
+        st_p, U_p = hp.forward_scan_pertraj(H0k, opsk, co, dts, psi0,
+                                            s_open)
+        chis_p = hp.chi_scan_grouped(U, chi0)
+        trj_p = {r: frechet_forced(r, H0k, opsk, co, dts, psis, chis,
+                                   s_open) for r in trj}
+    require(finite(st, U, st_w, st_t, chis, chis_r, *trj.values()),
+            "per-trajectory Liouvillians: a kernel output is not finite")
+    del U_p
+    lim["states"], drift = state_limit(H0k, opsk, co, dts, psi0, 1, s_open,
+                                       st_p)
+    lim["states_no_U"] = lim["time"] = lim["states"]
+    check("pertraj_32_d81", {
+        "states": rel(st, st_p), "states_no_U": rel(st_w, st_p),
+        "time": rel(st_t, st_p), "chi": rel(chis, chis_p),
+        "chi_recompute": rel(chis_r, chis_p),
+        "trj_dense": rel(trj["dense"], trj_p["dense"]),
+        "trj_factored": rel(trj["factored"], trj_p["factored"]),
+        "factored_vs_dense": rel(trj["factored"], trj_p["dense"]),
+    }, lim, d=d, K=K, gs=1, N_T=N_T, s=s_open,
+        frechet_route=hf.frechet_route(d, opsk.shape[1], 1, s_open),
+        plain_states_vs_complex128=drift)
+    del st, U, st_w, st_t, st_p, chis_r, trj, trj_p
+    torch.cuda.empty_cache()
+
+    # ---- 128 dissipative TLSs: K7 and K10's small-d route ------------------
+    n_tls = 128
+    tls = [dissipative_tls_problem(gamma=g, n_steps=QUTRIT_STEPS)
+           for g in np.linspace(0.01, 0.2, n_tls)]
+    cp_t = gt.compile_problem(tls[0].trajectories, tls[0].tlist,
+                              dtype=np.complex64, **tls[0].kwargs)
+    H0t = c64(np.stack([p.trajectories[0].generator.drift for p in tls]))
+    opst = c64(np.stack([np.stack([op for op, _ in
+                                   p.trajectories[0].generator.terms])
+                         for p in tls]))
+    co_t, dts_t = coeff_table(cp_t), f32(np.diff(cp_t.tlist))
+    psi0_t = c64(np.tile(cp_t.psi0, (n_tls, 1)))
+    for s in sorted({_static_squarings(cp_t), 2}):
+        st, U = hp.forward_scan_smalld(H0t, opst, co_t, dts_t, psi0_t, s,
+                                       with_propagators=True)
+        st_w = hp.forward_scan_smalld(H0t, opst, co_t, dts_t, psi0_t, s)
+        st_t = hp.forward_scan_time(H0t, opst, co_t, dts_t, psi0_t, s)
+        torch.cuda.synchronize()
+        with plain_versions():
+            st_p, U_p = hp.forward_scan_smalld(H0t, opst, co_t, dts_t,
+                                               psi0_t, s,
+                                               with_propagators=True)
+        require(finite(st, U, st_w, st_t),
+                "128 dissipative TLSs: a kernel output is not finite")
+        lim["states"], drift = state_limit(H0t, opst, co_t, dts_t, psi0_t, 1,
+                                           s, st_p)
+        lim["states_no_U"] = lim["time"] = lim["states"]
+        check(f"smalld_128_tls_d4_s{s}", {
+            "states": rel(st, st_p), "U": rel(U, U_p),
+            "states_no_U": rel(st_w, st_p), "time": rel(st_t, st_p),
+        }, lim, d=4, K=n_tls, N_T=cp_t.n_timesteps, s=s,
+            plain_states_vs_complex128=drift)
+
+    counts = read_counts(hp, hf, hopper_cheby)
+    routes = ROUTE_READS[-1][1]
+    emit({"phase": "nonhermitian_kernels", "tol_state": TOL_STATE,
+          "tol_trj_of_scale": TOL_TRJ, "tol_routes_of_scale": TOL_ROUTES,
+          "limits_relative_to": "max(1, max|plain result|)",
+          "checks": rows, "failed": failed, "launches": counts,
+          "route_launches": routes})
+    require(not failed, f"non-Hermitian kernels against their plain "
+            f"versions: {failed}")
+    for key in ("forward_scan_shared", "chi_scan_shared",
+                "frechet_trace_shared", "frechet_trace_shared_factored",
+                "forward_scan_grouped", "forward_scan_pertraj",
+                "chi_scan_grouped", "chi_scan_recompute",
+                "frechet_trace_pertraj", "frechet_trace_pertraj_factored",
+                "forward_scan_smalld", "forward_scan_time"):
+        require(counts.get(key, 0) >= 1,
+                f"non-Hermitian phase: {key} was never launched")
+    for key in ("propagators_cluster", "state_scan_forward",
+                "state_scan_chi", "smalld_fused"):
+        require(routes.get(key, 0) >= 1,
+                f"non-Hermitian phase: route {key} was never taken")
+    return cp_open
+
+
+def open_system_paths(cp_open, dev):
+    """Phase ``open_system``: the dissipative TLS (``gamma=0.05``,
+    200 steps) optimized for 15 iterations on the card through the kernels,
+    its fg at the guess held against the plain versions and its J_T series
+    against the golden ``lindblad_tls`` one; the open CZ (dim 81) for one
+    fg evaluation against the plain versions (J to a limit derived from the
+    complex128 J), timed."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.models import dissipative_tls_problem
+    from grape_tpu_torch.ops import (
+        hopper_cheby, hopper_frechet, hopper_prop, plain_versions,
+    )
+
+    problem = dissipative_tls_problem(gamma=0.05, n_steps=200, iter_stop=15)
+    cp = gt.compile_problem(problem.trajectories, problem.tlist,
+                            dtype=np.complex64,
+                            **{k: v for k, v in problem.kwargs.items()
+                               if k != "iter_stop"})
+    x0 = cp.guess_pulsevals.reshape(-1)
+    J, _, _, dJ, dg = fg_against_plain(gt.build_fg(cp), x0, "open TLS")
+    series = []
+    zero_counts(hopper_prop, hopper_frechet, hopper_cheby)
+    res = gt.optimize_problem(
+        problem, dtype=np.complex64, print_iters=False,
+        rethrow_exceptions=True,
+        callback=lambda wrk, it: series.append(float(wrk.result.J_T)))
+    torch.cuda.synchronize()
+    counts = read_counts(hopper_prop, hopper_frechet, hopper_cheby)
+    n_fg, n_f = res.fg_calls, res.f_calls
+    frechet = ("frechet_trace_shared_factored"
+               if counts.get("frechet_trace_shared_factored")
+               else "frechet_trace_shared")
+    require(counts["forward_scan_shared"] == n_fg + n_f
+            and counts["chi_scan_shared"] == n_fg
+            and counts[frechet] == n_fg,
+            f"open TLS launch counts {counts} do not match the evaluations "
+            f"({n_fg} fg, {n_f} f)")
+    golden = golden_check("lindblad_tls", series, res)
+    require(res.iter == golden["golden_iter"] and res.J_T < 0.1,
+            f"open TLS: {res.iter} iterations, J_T {res.J_T}")
+
+    # the open CZ at dim 81: one evaluation, kernels against plain, timed.
+    # Its J comes from 2000 non-unitary float32 steps, whose chain drifts
+    # from the exact one more than the unitary CZ's: J is held to the
+    # larger of 1e-5 and twice the plain float32 J's distance from the
+    # complex128 J (two float32 evaluations, each that far from it)
+    fg81 = gt.build_fg(cp_open)
+    x81 = cp_open.guess_pulsevals.reshape(-1)
+    with plain_versions():
+        J81_p = float(fg81(x81)[0])
+    p_open = open_cz_problem()
+    cp128 = gt.compile_problem(p_open.trajectories, p_open.tlist,
+                               dtype=np.complex128, **p_open.kwargs)
+    J81_128 = float(gt.build_fg(cp128)(x81)[0])
+    del cp128
+    tol_J81 = max(1e-5, 2 * abs(J81_p - J81_128))
+    zero_counts(hopper_prop, hopper_frechet, hopper_cheby)
+    J81, g81, _, dJ81, dg81 = fg_against_plain(fg81, x81, "open CZ",
+                                               tol_J=tol_J81)
+    counts81 = read_counts(hopper_prop, hopper_frechet, hopper_cheby)
+    require(counts81["forward_scan_shared"] == 1
+            and counts81["chi_scan_shared"] == 1,
+            f"open CZ launch counts {counts81}")
+    ms81 = timed_ms(lambda: fg81(x81), 5)
+    parts81 = fg_breakdown(fg81, x81)
+    emit({"phase": "open_system",
+          "tls": {"dim": cp.dim, "N_T": cp.n_timesteps, "J": float(J),
+                  "J_abs_diff_vs_plain": dJ, "grad_diff_of_max_vs_plain": dg,
+                  "J_T_series": series, "golden": golden,
+                  "fg_calls": n_fg, "f_calls": n_f, "launches": counts},
+          "cz_d81": {"dim": cp_open.dim, "K": cp_open.n_traj,
+                     "N_T": cp_open.n_timesteps, "gamma": OPEN_CZ_GAMMA,
+                     "J": float(J81), "J_abs_diff_vs_plain": dJ81,
+                     "J_limit": tol_J81, "J_complex128": J81_128,
+                     "J_plain_abs_diff_vs_complex128": abs(J81_p - J81_128),
+                     "grad_diff_of_max_vs_plain": dg81,
+                     "ms_per_eval": ms81, "device_ms_by_part": parts81,
+                     "flop_rate": flop_rate(cp_open, ms81),
+                     "launches_one_eval": counts81}})
+
+
+def host_module_paths(cz_problem, dev):
+    """Phase ``host_modules``: on the card through the kernels, the X-gate
+    (BASELINE config 2; its global phase checked by ``propagate``), the
+    STIRAP running-cost problem, the seeded dummy problem (to J_T < 1e-5)
+    and the subspace gate, each J_T series against its golden one where
+    there is one; then ``optimize_or_load`` on the CZ at dim 100 (written,
+    reloaded without a launch, resumed as ``continue_from``), and
+    ``propagate`` of its optimized pulse against the evaluation's own
+    final states, forward and back."""
+    import shutil
+
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.functionals import J_T_ss
+    from grape_tpu_torch.io import load_result, optimize_or_load
+    from grape_tpu_torch.models import (
+        tls_xgate_problem, two_transmon_subspace_gate_problem,
+    )
+    from grape_tpu_torch.ops import hopper_cheby, hopper_frechet, hopper_prop
+    from grape_tpu_torch.testing import dummy_control_problem, stirap_problem
+
+    mods = (hopper_prop, hopper_frechet, hopper_cheby)
+    out = {}
+
+    def run(name, problem, **updates):
+        series = []
+        zero_counts(*mods)
+        t0 = time.perf_counter()
+        res = gt.optimize_problem(
+            problem, dtype=np.complex64, print_iters=False,
+            rethrow_exceptions=True,
+            callback=lambda wrk, it: series.append(float(wrk.result.J_T)),
+            **updates)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts(*mods).items() if v}
+        require(counts.get("forward_scan_shared", 0) >= res.fg_calls >= 1,
+                f"{name}: the forward kernel did not serve every "
+                f"evaluation: {counts}")
+        out[name] = {"J_T_series": series, "iter": res.iter,
+                     "converged": bool(res.converged),
+                     "message": res.message, "fg_calls": res.fg_calls,
+                     "seconds": time.perf_counter() - t0,
+                     "launches": counts}
+        return res, series
+
+    # BASELINE config 2 and its global phase
+    xg = tls_xgate_problem(iter_stop=20)
+    res, _ = run("tls_xgate", xg,
+                 check_convergence=lambda r: bool(r.J_T < 1e-4))
+    require(res.converged and res.J_T < 1e-3 and res.J_a > 0.0,
+            f"X-gate: {res.message}, J_T {res.J_T}")
+    H = xg.trajectories[0].generator
+    H_opt = gt.substitute(H, list(zip(gt.get_controls(H),
+                                      res.optimized_controls)))
+    overlaps = np.asarray([
+        np.vdot(t.target_state, gt.propagate(
+            t.initial_state, H_opt, xg.tlist, dtype=np.complex64))
+        for t in xg.trajectories])
+    phases = np.angle(overlaps)
+    spread = float(np.ptp((phases - phases[0] + np.pi) % (2 * np.pi)))
+    require(np.abs(overlaps).min() > 0.999 and spread < 1e-2,
+            f"X-gate global phase: overlaps {np.abs(overlaps)}, "
+            f"spread {spread}")
+    out["tls_xgate"].update(min_abs_overlap=float(np.abs(overlaps).min()),
+                            phase_spread=spread)
+
+    res, series = run("stirap_running_cost",
+                      stirap_problem(lambda_b=0.4, iter_stop=25),
+                      gradient_method="taylor")
+    out["stirap_running_cost"]["golden"] = golden_check(
+        "stirap_running_cost", series, res)
+    require(res.iter == 25, f"STIRAP stopped after {res.iter} iterations")
+
+    res, series = run(
+        "dummy_seeded",
+        dummy_control_problem(N=2, rng=np.random.default_rng(1244538994),
+                              iter_stop=100),
+        J_T=J_T_ss, check_convergence=lambda r: (
+            "J_T < 10⁻⁵" if r.J_T < 1e-5 else ""))
+    out["dummy_seeded"]["golden"] = golden_check("dummy_seeded", series, res)
+    require(res.converged and res.J_T < 1e-5
+            and res.message == "J_T < 10⁻⁵",
+            f"seeded dummy problem: {res.message}, J_T {res.J_T}")
+
+    res, series = run("subspace_gate", two_transmon_subspace_gate_problem(
+        d=3, n_basis=6, n_steps=50, T=10.0, E0=0.2, J=0.3, iter_stop=15))
+    out["subspace_gate"]["golden"] = golden_check("subspace_gate", series,
+                                                  res)
+    require(res.iter == 15, f"subspace gate: {res.iter} iterations")
+
+    # optimize_or_load on the CZ at dim 100, in the checkout's build tree
+    io_dir = os.path.join(HERE, "build", "chip_smoke_io")
+    shutil.rmtree(io_dir, ignore_errors=True)
+    fn = os.path.join(io_dir, "cz.pkl")
+    kw = dict(dtype=np.complex64, print_iters=False, **cz_problem.kwargs)
+    trajs, tlist = cz_problem.trajectories, cz_problem.tlist
+    zero_counts(*mods)
+    r1 = optimize_or_load(fn, trajs, tlist, iter_stop=3, **kw)
+    torch.cuda.synchronize()
+    n_written = read_counts(*mods)["forward_scan_shared"]
+    zero_counts(*mods)
+    r2 = optimize_or_load(fn, trajs, tlist, iter_stop=3, **kw)
+    n_reload = sum(read_counts(*mods).values())
+    require(os.path.exists(fn) and r1.iter == 3 and n_written >= 1
+            and n_reload == 0 and r2.J_T == r1.J_T
+            and r2.fg_calls == r1.fg_calls,
+            f"optimize_or_load: iter {r1.iter}, reload launches {n_reload}, "
+            f"J_T {r1.J_T} / {r2.J_T}")
+    r3 = gt.optimize(trajs, tlist, iter_stop=5, continue_from=load_result(fn),
+                     **kw)
+    torch.cuda.synchronize()
+    require(r3.iter == 5 and r3.J_T <= r1.J_T,
+            f"resumed CZ: iter {r3.iter}, J_T {r3.J_T} after {r1.J_T}")
+    out["optimize_or_load_cz"] = {
+        "J_T_written": r1.J_T, "J_T_reloaded": r2.J_T,
+        "forward_launches_written": n_written, "launches_reloaded": n_reload,
+        "resumed_iter": r3.iter, "J_T_resumed": r3.J_T,
+        "file_bytes": os.path.getsize(fn)}
+
+    # propagate the optimized pulse, on the kernel path, against the
+    # evaluation's own final states; then back to the initial states
+    cp = gt.compile_problem(trajs, tlist, dtype=np.complex64,
+                            **cz_problem.kwargs)
+    H = trajs[0].generator
+    H_opt = gt.substitute(H, list(zip(gt.get_controls(H),
+                                      r3.optimized_controls)))
+    x = np.concatenate([gt.discretize_on_midpoints(c, tlist)
+                        for c in r3.optimized_controls])
+    _, _, aux = gt.build_fg(cp)(x)
+    psi_T = aux["psi_T"].cpu().numpy()
+    zero_counts(*mods)
+    fwd = np.stack([gt.propagate(t.initial_state, H_opt, tlist,
+                                 dtype=np.complex64) for t in trajs])
+    back = np.stack([gt.propagate(fwd[k], H_opt, tlist, backwards=True,
+                                  dtype=np.complex64)
+                     for k in range(len(trajs))])
+    n_prop = read_counts(*mods)["forward_scan_shared"]
+    e_fwd = float(np.abs(fwd - psi_T).max())
+    e_back = float(np.abs(back - cp.psi0).max())
+    # two float32 chains of 2000 steps at their own squaring counts, each
+    # held to TOL_STATE against its plain version: their sum of limits
+    require(n_prop == 2 * len(trajs) and e_fwd < 2 * TOL_STATE
+            and e_back < 2 * TOL_STATE,
+            f"propagate: {n_prop} launches, forward {e_fwd}, back {e_back}")
+    out["propagate_cz"] = {"max_abs_err_vs_fg_final_states": e_fwd,
+                           "max_abs_err_back_to_initial": e_back,
+                           "limit": 2 * TOL_STATE,
+                           "forward_scan_shared_launches": n_prop}
+    shutil.rmtree(io_dir, ignore_errors=True)
+    emit({"phase": "host_modules", **out})
+
+
+def trace_summary(trace_dir):
+    """What a ``profile_dir`` trace (Chrome trace format) says of the
+    card: the number of device events, the kernels by total time, the
+    device's busy share of the traced window (the span of all complete
+    events, host and device) and its largest idle gaps."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    require(len(files) == 1, f"profile_dir holds {files}")
+    path = os.path.join(trace_dir, files[0])
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    require(spans, "the trace holds no complete event")
+    device = [e for e in spans
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    t0 = min(float(e["ts"]) for e in spans)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in spans)
+    out = {"trace_bytes": os.path.getsize(path), "events": len(events),
+           "device_events": len(device), "window_ms": (t1 - t0) / 1e3}
+    if not device:
+        return out
+    by_name = {}
+    for e in device:
+        if e["cat"] == "kernel":
+            name = e.get("name", "?")[:80]
+            n, us = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, us + float(e["dur"]))
+    merged = []
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in device):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    busy = sum(b - a for a, b in merged)
+    gaps = sorted(((b0 - a1) for (_, a1), (b0, _) in
+                   zip(merged, merged[1:])), reverse=True)
+    out.update(
+        kernels=[{"name": k, "launches": n, "ms": us / 1e3}
+                 for k, (n, us) in sorted(by_name.items(),
+                                          key=lambda kv: -kv[1][1])[:12]],
+        kernel_names=len(by_name),
+        device_busy_ms=busy / 1e3,
+        device_busy_share=busy / (t1 - t0),
+        device_span_busy_share=busy / (merged[-1][1] - merged[0][0]),
+        largest_idle_gaps_ms=[g / 1e3 for g in gaps[:5]])
+    return out
+
+
+def profile_phase(cz_problem, dev):
+    """Phase ``profile``: ``optimize(..., profile_dir=...)`` for three
+    L-BFGS-B iterations on the CZ gate (dim 100, gradgen) and on the 1024
+    qutrits (taylor), each trace read back: kernel names, the device's busy
+    share of the traced window and its largest idle gaps."""
+    import shutil
+
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.functionals import J_T_sm
+    from grape_tpu_torch.models import transmon_ensemble_trajectories
+
+    root = os.path.join(HERE, "build", "chip_smoke_profile")
+    shutil.rmtree(root, ignore_errors=True)
+    qutrits = transmon_ensemble_trajectories(QUTRIT_SAMPLES, d=3,
+                                             T=QUTRIT_T, seed=SEED)
+    cells = {
+        "cz_gradgen": (cz_problem.trajectories, cz_problem.tlist,
+                       dict(cz_problem.kwargs)),
+        "qutrits_taylor": (qutrits,
+                           np.linspace(0, QUTRIT_T, QUTRIT_STEPS + 1),
+                           dict(J_T=J_T_sm, gradient_method="taylor")),
+    }
+    out = {}
+    for cell, (trajs, tlist, kw) in cells.items():
+        trace_dir = os.path.join(root, cell)
+        t0 = time.perf_counter()
+        res = gt.optimize(trajs, tlist, iter_stop=3, dtype=np.complex64,
+                          print_iters=False, rethrow_exceptions=True,
+                          profile_dir=trace_dir, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        require(res.iter == 3, f"profiled {cell}: {res.message}")
+        out[cell] = {"seconds_with_trace": secs, "fg_calls": res.fg_calls,
+                     "f_calls": res.f_calls, **trace_summary(trace_dir)}
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "profile", **out})
 
 
 def main():
@@ -3348,6 +4047,7 @@ def main():
         fg_plain_ms = (time.perf_counter() - t0) * 1e3
     emit({"phase": "fg", "J": float(J), "grad_norm": float(g.norm()),
           "ms_per_eval": fg_ms, "plain_ms_per_eval": fg_plain_ms,
+          "flop_rate": flop_rate(cp, fg_ms),
           "device_ms_by_part": parts,
           "J_abs_diff_vs_plain": dJ, "grad_diff_of_max_vs_plain": dg,
           "squarings": s_cz, "dtype": "complex64",
@@ -3427,6 +4127,15 @@ def main():
     counts_rc, counts_q3 = running_cost_paths(problem, dev)
     counts_ca = custom_amplitude_path(problem)
     counts_obs = observables_path(problem, dev)
+
+    # ---- this slice: non-Hermitian inputs, the open system, the host
+    # modules around optimize, the profiler trace ---------------------------
+    t_slice = time.perf_counter()
+    cp_open = nonhermitian_kernel_phase(rng, dev)
+    open_system_paths(cp_open, dev)
+    host_module_paths(problem, dev)
+    profile_phase(problem, dev)
+    slice_s = time.perf_counter() - t_slice
 
     prop_cu = "grape_tpu_torch/csrc/prop_cluster.cu"
     smalld_cu = "grape_tpu_torch/csrc/smalld_fused.cu"
@@ -3580,7 +4289,7 @@ def main():
     emit({"phase": "route_launches", "counted_runs": [
         {"run": site, **routes} for site, routes in ROUTE_READS]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
-          "nvidia_smi": smi})
+          "host_module_phases_seconds": slice_s, "nvidia_smi": smi})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,16 +1,30 @@
 """grape_tpu_torch — the PyTorch/CUDA port of grape_tpu.
 
 A GRAPE quantum-optimal-control engine: piecewise-constant pulse
-optimization over Schrödinger dynamics for final-time functionals plus a
-pulse running cost, exact per-time-step gradients (rank-1 Fréchet traces),
-semi-automatic differentiation of functionals via ``torch.autograd``, and a
-host-side C++ L-BFGS-B optimizer with box constraints.  Propagation is
+optimization over Schrödinger and Liouville (vectorized density-matrix)
+dynamics for final-time functionals plus pulse- and state-dependent
+running costs, exact per-time-step gradients (rank-1 Fréchet traces or the
+Taylor recursion), semi-automatic differentiation of functionals via
+``torch.autograd``, and a host-side C++ L-BFGS-B optimizer with box
+constraints.  Propagation is
 ExpProp, the Chebyshev series or the Krylov (Newton) series, chosen per
 direction.  The heavy phases of the gate-optimization and the
 robust-ensemble paths (one generator shared by all trajectories, per group
 of them, or per trajectory) and the Chebyshev scans at large dimension run
 in hand-written CUDA kernels for Hopper (``ops.hopper_prop``,
 ``ops.hopper_frechet``, ``ops.hopper_cheby``).
+
+Public API (the reference's ``__all__`` except Krotov's method, not
+ported yet): ``optimize``, ``optimize_problem``, ``GrapeResult``,
+``Trajectory``, ``ControlProblem``, the generator constructors
+``hamiltonian`` and ``liouvillian``, the amplitudes, ``propagate`` and
+``substitute``, the checkpoint functions ``save_result``, ``load_result``,
+``optimize_or_load`` and ``load_optimization``, the checks, the iteration
+table, ``set_default_ad_framework`` and the workspace's introspection
+helpers; beside them the port's own ``compile_problem``, ``build_fg``,
+``build_f`` and ``compiled_problem_from_numpy``.  Modules: ``functionals``,
+``shapes``, ``models``, ``testing`` (seeded fixtures), ``flops`` (the
+analytic FLOP count of an evaluation), ``io`` and ``propagate``.
 
 This package imports ``torch``, ``numpy`` and ``scipy`` (the Bessel
 functions of the Chebyshev tables) only — nothing of JAX and
@@ -25,31 +39,36 @@ from .amplitudes import (
 from .controls import discretize, discretize_on_midpoints, get_controls
 from .convert import compiled_problem_from_numpy
 from .fg import CompiledProblem, build_f, build_fg, compile_problem
-from .generators import Generator, hamiltonian
+from .generators import Generator, align_generators, hamiltonian, liouvillian
 from .info_table import make_grape_print_iters
 from .interfaces import check_generator, check_problem, check_state
+from .io import load_optimization, load_result, optimize_or_load, save_result
 from .optimize import optimize, optimize_problem
+from .propagate import propagate, substitute
 from .result import GrapeResult
 from .trajectory import ControlProblem, Trajectory
 from .workspace import (
     GrapeWrk, gradient, norm_search, pulse_update, search_direction,
     step_width, vec_angle,
 )
-from . import functionals, models, shapes
+from .functionals import set_default_ad_framework
+from . import flops, functionals, io, models, shapes, testing
 
 __version__ = "0.1.0"
 
 __all__ = [
     "optimize", "optimize_problem", "GrapeResult", "Trajectory",
-    "ControlProblem", "hamiltonian", "Generator",
-    "ShapedAmplitude", "LockedAmplitude", "ComplexAmplitude",
-    "CustomAmplitude",
+    "ControlProblem", "hamiltonian", "liouvillian", "Generator",
+    "align_generators", "ShapedAmplitude", "LockedAmplitude",
+    "ComplexAmplitude", "CustomAmplitude",
     "discretize", "discretize_on_midpoints", "get_controls",
-    "functionals", "models", "shapes",
+    "functionals", "models", "shapes", "testing", "flops", "io",
+    "propagate", "substitute",
+    "save_result", "load_result", "optimize_or_load", "load_optimization",
     "CompiledProblem", "compile_problem", "build_fg", "build_f",
     "compiled_problem_from_numpy",
     "check_state", "check_generator", "check_problem",
-    "make_grape_print_iters",
+    "make_grape_print_iters", "set_default_ad_framework",
     "GrapeWrk", "step_width", "search_direction", "norm_search", "gradient",
     "pulse_update", "vec_angle",
 ]

@@ -14,8 +14,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "real_dtype", "complex_dtype", "torch_dtype", "numpy_dtype",
-    "resolve_device",
+    "real_dtype", "complex_dtype", "default_float", "default_complex",
+    "torch_dtype", "numpy_dtype", "resolve_device",
 ]
 
 # Plain float32 matrix products must stay full float32: TF32 keeps about
@@ -29,6 +29,22 @@ _TORCH_OF_NUMPY = {
     np.dtype(np.complex128): torch.complex128,
 }
 _NUMPY_OF_TORCH = {v: k for k, v in _TORCH_OF_NUMPY.items()}
+
+
+def default_complex(device=None):
+    """The widest complex dtype the port computes in on ``device`` (numpy
+    dtype): complex128 on the CPU (the plain PyTorch versions, Padé-13),
+    complex64 on the card (the hand-written kernels' precision).  The
+    reference asks JAX's x64 switch; the port asks the device.
+    ``device=None`` means the CUDA device and raises without one."""
+    device = resolve_device(device)
+    return np.dtype(np.complex64 if device.type == "cuda"
+                    else np.complex128)
+
+
+def default_float(device=None):
+    """The real dtype matching :func:`default_complex` on ``device``."""
+    return real_dtype(default_complex(device))
 
 
 def numpy_dtype(dtype):

@@ -82,7 +82,8 @@ import torch
 
 from .amplitudes import CustomAmplitude
 from .config import (
-    complex_dtype, numpy_dtype, real_dtype, resolve_device, torch_dtype,
+    complex_dtype, default_complex, numpy_dtype, real_dtype, resolve_device,
+    torch_dtype,
 )
 from .controls import discretize_on_midpoints, get_controls, midpoints
 from .functionals import (
@@ -368,7 +369,7 @@ def compile_problem(
     )  # (L, N_T)
 
     if dtype is None:
-        dtype = np.complex64 if device.type == "cuda" else np.complex128
+        dtype = default_complex(device)
     cdtype = complex_dtype(numpy_dtype(dtype))
 
     # Heterogeneous ensembles: the batched design needs slot-aligned term
@@ -1180,42 +1181,60 @@ def _coeff_tables(cp: CompiledProblem, consts, eps):
     """Per-interval term coefficients and their control derivatives for
     the CURRENT pulse values ``eps (L, N_T)``: ``(coeffs (N_T, T),
     dM (N_T, T, L))``, with a leading ``K`` axis when
-    ``cp.per_traj_coeffs``.  Linear amplitudes: ``M @ ε + Mfix`` and
-    ``M``; a ``CustomAmplitude`` slot ``j`` gets ``a(ε_n, t_n)`` in its
-    coefficient column and ``∂a/∂ε`` (its ``deriv``, else forward-mode AD)
-    in its derivative entries, evaluated over the time grid with
+    ``cp.per_traj_coeffs`` (see :func:`coefficient_columns`)."""
+    return coefficient_columns(
+        consts["M"], consts["Mfix"], consts["tlist"], eps, cp.custom_terms,
+        per_traj_coeffs=cp.per_traj_coeffs,
+    )
+
+
+def coefficient_columns(M, Mfix, tlist, eps, custom_terms,
+                        per_traj_coeffs=False, derivatives=True):
+    """Per-interval term coefficients for the pulse values ``eps (L, N_T)``
+    from the static tables ``M (N_T, T, L)`` and ``Mfix (N_T, T)`` (a
+    leading ``K`` axis with ``per_traj_coeffs``) on the grid ``tlist``
+    (tensors): ``(coeffs, dM)``, ``dM`` None without ``derivatives``.
+    Linear amplitudes: ``M @ ε + Mfix`` and ``M``; a ``CustomAmplitude``
+    slot ``j`` of ``custom_terms`` gets ``a(ε_n, t_n)`` in its coefficient
+    column and ``∂a/∂ε`` (its ``deriv``, else forward-mode AD) in its
+    derivative entries, evaluated over the time grid with
     ``torch.func.vmap``, at ``t_n`` the interval midpoints except ``t_0``
     and ``t_{N_T}`` for the first and last interval."""
-    if cp.per_traj_coeffs:
-        coeffs = torch.einsum("kntl,ln->knt", consts["M"], eps)
+    if per_traj_coeffs:
+        coeffs = torch.einsum("kntl,ln->knt", M, eps)
     else:
-        coeffs = torch.einsum("ntl,ln->nt", consts["M"], eps)
-    coeffs = coeffs + consts["Mfix"]
-    dM = consts["M"]
-    if not cp.custom_terms:
+        coeffs = torch.einsum("ntl,ln->nt", M, eps)
+    coeffs = coeffs + Mfix
+    dM = M if derivatives else None
+    if not custom_terms:
         return coeffs, dM
-    tl = consts["tlist"]
-    tmid = 0.5 * (tl[:-1] + tl[1:])
-    tmid[0] = tl[0]
-    tmid[-1] = tl[-1]
+    n_steps = tlist.shape[0] - 1
+    tmid = 0.5 * (tlist[:-1] + tlist[1:])
+    tmid[0] = tlist[0]
+    tmid[-1] = tlist[-1]
     tmid = tmid.to(eps.dtype)
-    dM = dM.clone()  # the consts are shared by every evaluation
+    if derivatives:
+        dM = dM.clone()  # the tables are shared by every evaluation
     vmap = torch.func.vmap
-    for j, amp, idxs in cp.custom_terms:
+    for j, amp, idxs in custom_terms:
         idx = list(idxs)
         vals = eps[idx, :]  # (n_j, N_T)
         aj = vmap(amp.func, in_dims=(1, 0))(vals, tmid)
-        aj = aj.reshape(cp.n_timesteps).to(coeffs.dtype)
+        aj = aj.reshape(n_steps).to(coeffs.dtype)
+        if per_traj_coeffs:
+            coeffs[:, :, j] = aj[None, :]
+        else:
+            coeffs[:, j] = aj
+        if not derivatives:
+            continue
         dfun = amp.deriv
         if dfun is None:
             dfun = torch.func.jacfwd(amp.func, argnums=0)
         dj = vmap(dfun, in_dims=(1, 0))(vals, tmid)
-        dj = dj.reshape(cp.n_timesteps, len(idx)).to(dM.dtype)
-        if cp.per_traj_coeffs:
-            coeffs[:, :, j] = aj[None, :]
+        dj = dj.reshape(n_steps, len(idx)).to(dM.dtype)
+        if per_traj_coeffs:
             dM[:, :, j, idx] = dj[None]
         else:
-            coeffs[:, j] = aj
             dM[:, j, idx] = dj
     return coeffs, dM
 

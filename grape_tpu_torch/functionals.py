@@ -37,7 +37,7 @@ __all__ = [
     "J_a_fluence", "grad_J_a_fluence", "J_b", "grid_weights",
     "make_chi", "make_grad_J_a", "make_analytic_chi", "make_xi",
     "make_ensemble_gate_functional", "gate_functional", "make_gate_chi",
-    "taus", "weights_of", "accepts_tau",
+    "taus", "weights_of", "accepts_tau", "set_default_ad_framework",
 ]
 
 _ANALYTIC_CHI = {}
@@ -209,6 +209,20 @@ def accepts_tau(fn):
     except (TypeError, ValueError):  # pragma: no cover
         return False
     return "tau" in sig.parameters
+
+
+def set_default_ad_framework(framework=None, quiet=True):
+    """API-familiarity shim for the reference's
+    ``QuantumControl.set_default_ad_framework``: in grape_tpu_torch,
+    automatic differentiation is always ``torch.autograd`` (built into
+    :func:`make_chi`/:func:`make_xi`), so there is nothing to configure.
+    Accepts and ignores any framework argument."""
+    if not quiet and framework is not None:
+        import warnings
+        warnings.warn(
+            "grape_tpu_torch always uses torch.autograd for semi-automatic "
+            "differentiation; set_default_ad_framework is a no-op"
+        )
 
 
 def make_analytic_chi(J_T, chi):

@@ -1,4 +1,4 @@
-"""Time-dependent generators (Hamiltonians).
+"""Time-dependent generators (Hamiltonians and Liouvillians).
 
 Analog of ``QuantumPropagators.Generators`` as consumed by the
 reference (``hamiltonian(H0, (H1, ε), …)`` structure, ``README.md:36-42``).
@@ -21,7 +21,10 @@ from .amplitudes import (
     ComplexAmplitude, CustomAmplitude, LockedAmplitude, ShapedAmplitude,
 )
 
-__all__ = ["Generator", "hamiltonian", "as_generator", "align_generators"]
+__all__ = [
+    "Generator", "hamiltonian", "liouvillian", "align_generators",
+    "as_generator",
+]
 
 
 def as_generator(obj):
@@ -241,3 +244,42 @@ def align_generators(generators):
                 terms.append((acc, amp))
         out.append(Generator(g.drift, terms))
     return out
+
+
+def liouvillian(H, c_ops=()):
+    """Vectorized Liouvillian ``L`` such that ``dvec(ρ)/dt = -i L vec(ρ)``
+    (column stacking), so the same ``exp(-i L dt)`` propagation applies to
+    open systems: density matrices are vectorized states to the engine.
+
+    ``H`` may be a :class:`Generator` (terms are lifted term by term) or a
+    plain matrix.  ``c_ops`` are static collapse operators (Lindblad).  The
+    result is not Hermitian (nor normal) once ``c_ops`` are given: every
+    propagator and gradient path of the port takes such generators.
+    """
+    def _lift_h(op):
+        d = op.shape[-1]
+        ident = np.eye(d, dtype=complex)
+        return np.kron(ident, op) - np.kron(op.T, ident)
+
+    def _lift_c(c):
+        d = c.shape[-1]
+        ident = np.eye(d, dtype=complex)
+        cdc = c.conj().T @ c
+        # dρ/dt ⊃ c ρ c† - ½{c†c, ρ}  =>  -i L_c = kron(c*, c) - ½kron(I, c†c)
+        #                                       - ½kron((c†c)^T, I)
+        return 1j * (
+            np.kron(c.conj(), c)
+            - 0.5 * np.kron(ident, cdc)
+            - 0.5 * np.kron(cdc.T, ident)
+        )
+
+    if isinstance(H, Generator):
+        drift = _lift_h(H.drift.astype(complex))
+        for c in c_ops:
+            drift = drift + _lift_c(np.asarray(c, dtype=complex))
+        terms = [(_lift_h(op.astype(complex)), amp) for (op, amp) in H.terms]
+        return Generator(drift, terms)
+    L0 = _lift_h(np.asarray(H, dtype=complex))
+    for c in c_ops:
+        L0 = L0 + _lift_c(np.asarray(c, dtype=complex))
+    return Generator(L0, [])

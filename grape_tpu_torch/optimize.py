@@ -6,6 +6,7 @@ per-iteration result updates, and result finalization.  The host-side
 L-BFGS-B consumes function/gradient values from the device evaluation.
 """
 
+import contextlib
 import datetime
 import traceback
 
@@ -58,6 +59,14 @@ def optimize(trajectories, tlist, **kwargs):
     tuning (``lbfgsb_m``, ``lbfgsb_factr``, ``lbfgsb_pgtol``,
     ``lbfgsb_iprint``) and ``device``.
 
+    ``atexit_filename`` registers a crash dump for the run: should the
+    process exit while the optimization is in flight, the in-progress
+    result is saved there (``io.save_result``, tagged ``interrupted`` and
+    with ``atexit_config_digest``), and ``io.optimize_or_load`` resumes
+    from it.  ``profile_dir`` traces the optimization loop with
+    ``torch.profiler`` (the host, and the card when the problem runs on
+    CUDA) and writes a Chrome trace into that directory.
+
     ``device=None`` means the CUDA device and raises if there is none;
     pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.
     Options of ``grape_tpu.optimize`` that are not ported yet (``mesh=``,
@@ -91,8 +100,28 @@ def optimize(trajectories, tlist, **kwargs):
         return J
 
     optimizer = _get_optimizer(wrk)
+    atexit_filename = kwargs.get("atexit_filename", None)
+    atexit_hook = None
+    if atexit_filename is not None:
+        import atexit
+        from .io import save_result
+
+        def _crash_save():
+            # crash dump: tagged `interrupted` (+ the producing config's
+            # digest when known) so optimize_or_load resumes or re-runs
+            # instead of returning the partial result as final
+            save_result(
+                wrk.result, atexit_filename,
+                config_digest=kwargs.get("atexit_config_digest", None),
+                interrupted=True,
+            )
+
+        atexit.register(_crash_save)
+        atexit_hook = _crash_save
+
     try:
-        run_optimizer(optimizer, wrk, fg, callback, check_convergence)
+        with _profiled(kwargs.get("profile_dir", None), wrk.cp.device):
+            run_optimizer(optimizer, wrk, fg, callback, check_convergence)
     except KeyboardInterrupt:
         wrk.result.message = "Exception: InterruptException"
     except Exception as exc:
@@ -103,7 +132,29 @@ def optimize(trajectories, tlist, **kwargs):
             traceback.print_exc()
 
     finalize_result(wrk)
+    if atexit_hook is not None:
+        import atexit
+        atexit.unregister(atexit_hook)
     return wrk.result
+
+
+def _profiled(profile_dir, device):
+    """A ``torch.profiler.profile`` context around the optimization loop
+    when ``profile_dir`` is given (host activity, and the card's where the
+    problem runs on CUDA), else a context that does nothing.  On exit it
+    writes one Chrome trace (``<host>_<pid>.<ns>.pt.trace.json``) into
+    ``profile_dir``."""
+    if profile_dir is None:
+        return contextlib.nullcontext()
+    from torch import profiler
+
+    activities = [profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(profiler.ProfilerActivity.CUDA)
+    return profiler.profile(
+        activities=activities,
+        on_trace_ready=profiler.tensorboard_trace_handler(str(profile_dir)),
+    )
 
 
 def _wrap_callback(kwargs):

@@ -36,13 +36,13 @@ _OPTIMIZE_KEYS = frozenset({
     "continue_from", "verbose", "rethrow_exceptions", "print_iters",
     "print_iter_info", "store_iter_info", "lbfgsb_m", "lbfgsb_factr",
     "lbfgsb_pgtol", "lbfgsb_iprint", "optimizer", "upper_bound",
-    "lower_bound", "pulse_options", "check",
+    "lower_bound", "pulse_options", "check", "atexit_filename",
+    "atexit_config_digest", "profile_dir",
 })
 
 # keywords of grape_tpu.optimize() whose feature is not ported yet
 _UNPORTED_OPTIMIZE_KEYS = frozenset({
-    "eval_device_calls", "atexit_filename", "atexit_config_digest",
-    "profile_dir", "device_loop_iters", "max_embedded_constant_bytes",
+    "eval_device_calls", "device_loop_iters", "max_embedded_constant_bytes",
 })
 
 # keyword -> the reference's default, taken as "not asked for"; any other

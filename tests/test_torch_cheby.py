@@ -39,6 +39,7 @@ from grape_tpu_torch.functionals import J_T_sm
 from grape_tpu_torch.ops.cheby import (
     cheby_apply, cheby_coeffs, spectral_envelope,
 )
+from grape_tpu_torch.testing import cnot_problem
 from grape_tpu_torch.workspace import GrapeWrk
 
 from tests.test_torch_ensemble_fg import _arrays_of, _distinct
@@ -292,35 +293,6 @@ def test_tls_with_cheby(gradient_method):
     assert abs(res.J_T - res_exp.J_T) < 1e-6
 
 
-def _cnot_problem(**kwargs):
-    """The reference's CNOT Chebyshev problem (``grape_tpu.testing``),
-    built from the port's own pieces."""
-    I2 = np.eye(2, dtype=complex)
-    sx = np.array([[0, 1], [1, 0]], dtype=complex)
-    sy = np.array([[0, -1j], [1j, 0]], dtype=complex)
-    sz = np.array([[1, 0], [0, -1]], dtype=complex)
-    T = 1.0
-    tlist = np.arange(0, T + 1e-9, 0.001)
-    E0 = 0.1
-
-    def shape(t):
-        return gt.shapes.box(t, 0.0, T)
-
-    amps = [gt.ShapedAmplitude(lambda t, E0=E0: E0, shape) for _ in range(6)]
-    ops = [np.kron(sx, I2), np.kron(sy, I2), np.kron(sz, I2),
-           np.kron(I2, sx), np.kron(I2, sy), np.kron(I2, sz)]
-    H = gt.hamiltonian(np.pi / 2 * np.kron(sy, sy), *zip(ops, amps))
-    CNOT = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 0, 1], [0, 0, 1, 0]],
-                    dtype=complex)
-    basis = np.eye(4, dtype=complex)
-    trajectories = [gt.Trajectory(basis[:, k], H,
-                                  target_state=CNOT @ basis[:, k])
-                    for k in range(4)]
-    kwargs.setdefault("J_T", J_T_sm)
-    kwargs.setdefault("prop_method", "cheby")
-    return gt.ControlProblem(trajectories, tlist, **kwargs)
-
-
 def test_cnot_cheby_golden_trace():
     """dim 4, 1000 steps, 6 controls, 15 iterations under the Chebyshev
     propagator with the per-step extended-state gradgen pass: the golden
@@ -329,7 +301,7 @@ def test_cnot_cheby_golden_trace():
         ref = json.load(f)["cnot_cheby"]
     trace = []
     res = gt.optimize_problem(
-        _cnot_problem(iter_stop=15), device="cpu", print_iters=False,
+        cnot_problem(iter_stop=15), device="cpu", print_iters=False,
         rethrow_exceptions=True,
         callback=lambda wrk, it: trace.append(float(wrk.result.J_T)),
     )

@@ -47,7 +47,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "grape_tpu_torch/ops/hopper_prop.py",
             "grape_tpu_torch/ops/hopper_frechet.py",
             "grape_tpu_torch/ops/frechet.py", "grape_tpu_torch/workspace.py",
-            "grape_tpu_torch/generators.py"} <= rel
+            "grape_tpu_torch/generators.py", "grape_tpu_torch/propagate.py",
+            "grape_tpu_torch/io.py", "grape_tpu_torch/testing.py",
+            "grape_tpu_torch/flops.py",
+            "grape_tpu_torch/models/open.py"} <= rel
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -63,7 +66,9 @@ def test_importing_the_port_does_not_load_jax():
 
     code = (
         "import sys, grape_tpu_torch, grape_tpu_torch.ops.hopper_prop, "
-        "grape_tpu_torch.ops.hopper_frechet, grape_tpu_torch.optimizers.lbfgsb;"
+        "grape_tpu_torch.ops.hopper_frechet, grape_tpu_torch.optimizers.lbfgsb, "
+        "grape_tpu_torch.testing, grape_tpu_torch.flops, grape_tpu_torch.io, "
+        "grape_tpu_torch.models.open;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'grape_tpu', 'triton')];"
         "print(bad); sys.exit(1 if bad else 0)"

@@ -378,6 +378,38 @@ def test_reference_defaults_of_tpu_keywords(entry, option, value, accepted):
         assert out.iter == 1 and np.isfinite(out.J_T)
 
 
+OPTIMIZE_KEYWORDS = [
+    # (keyword, value, accepted): keywords of grape_tpu.optimize that the
+    # port once refused; what is still not ported raises naming it
+    ("eval_device_calls", 2, False),
+    ("device_loop_iters", 8, False),
+    ("max_embedded_constant_bytes", 1 << 20, False),
+    ("atexit_filename", "dump.pkl", True),
+    ("atexit_config_digest", "abc", True),
+    ("profile_dir", "prof", True),
+]
+
+
+@pytest.mark.parametrize("option,value,accepted", OPTIMIZE_KEYWORDS)
+def test_optimize_keywords_refused_or_accepted(tmp_path, option, value,
+                                               accepted):
+    trajs, tlist = _tls_quickstart()
+    if option in ("atexit_filename", "profile_dir"):
+        value = str(tmp_path / value)
+    kw = dict(J_T=J_T_sm, device="cpu", iter_stop=1, print_iters=False,
+              rethrow_exceptions=True)
+    if not accepted:
+        with pytest.raises(NotImplementedError, match=option):
+            optimize(trajs, tlist[:51], **kw, **{option: value})
+        return
+    res = optimize(trajs, tlist[:51], **kw, **{option: value})
+    assert res.iter == 1 and np.isfinite(res.J_T)
+    if option == "atexit_filename":
+        assert not os.path.exists(value)  # a finished run dumps nothing
+    if option == "profile_dir":
+        assert len(os.listdir(value)) == 1
+
+
 def test_unported_constructs_raise(monkeypatch):
     trajs, tlist = _tls_quickstart()
     # nonlinear amplitudes construct and compile since they were ported

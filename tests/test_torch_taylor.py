@@ -43,6 +43,7 @@ from grape_tpu_torch import fg as port_fg
 from grape_tpu_torch.functionals import J_T_sm, make_ensemble_gate_functional
 from grape_tpu_torch.models import tls_problem
 from grape_tpu_torch.ops.frechet import gradgen_step, taylor_grad_step
+from grape_tpu_torch.testing import random_matrix, random_state_vector
 
 from tests.test_torch_ensemble_fg import (
     PROBLEMS as ENSEMBLE_PROBLEMS, _arrays_of, _pulses,
@@ -61,15 +62,6 @@ TAYLOR_FIELDS = (
 # --------------------------------------------------------------------------
 # the per-step functions
 # --------------------------------------------------------------------------
-
-def _random_matrix(N, rng):
-    return (rng.normal(size=(N, N)) + 1j * rng.normal(size=(N, N))) / np.sqrt(N)
-
-
-def _random_state(N, rng):
-    psi = rng.normal(size=N) + 1j * rng.normal(size=N)
-    return psi / np.linalg.norm(psi)
-
 
 def _U_grad(H, mu, dt):
     """∂/∂ε exp(-i H dt) by the independent commutator series (Eq. 14)."""
@@ -94,9 +86,9 @@ def _U_grad(H, mu, dt):
 def test_taylor_grad_step_against_operator_series(dt, scale):
     rng = np.random.default_rng(3991576559)
     N = 10
-    H0, H1, H2 = (_random_matrix(N, rng) for _ in range(3))
+    H0, H1, H2 = (random_matrix(N, rng) for _ in range(3))
     H = H0 + H1 + H2
-    psi = _random_state(N, rng)
+    psi = random_state_vector(N, rng)
     mus = np.stack([H1, H2])
     expected = np.stack([_U_grad(H, H1, dt) @ psi, _U_grad(H, H2, dt) @ psi])
     got, ok = taylor_grad_step(
@@ -117,8 +109,8 @@ def test_taylor_grad_step_against_operator_series(dt, scale):
 def test_gradgen_step_against_operator_series(dt):
     rng = np.random.default_rng(12345)
     N = 8
-    H, mu = _random_matrix(N, rng), _random_matrix(N, rng)
-    psi = _random_state(N, rng)
+    H, mu = random_matrix(N, rng), random_matrix(N, rng)
+    psi = random_state_vector(N, rng)
     chi_prime, chi_new = gradgen_step(
         torch.from_numpy(H[None]), torch.from_numpy(mu[None, None]),
         torch.from_numpy(psi[None]), dt,
@@ -138,10 +130,10 @@ def test_taylor_and_gradgen_steps_agree_on_a_batch():
     by a group of co-states (the broadcast the per-step pass relies on)."""
     rng = np.random.default_rng(99)
     K, L, N = 3, 2, 6
-    H = np.stack([_random_matrix(N, rng) for _ in range(K)])
-    mu = np.stack([np.stack([_random_matrix(N, rng) for _ in range(L)])
+    H = np.stack([random_matrix(N, rng) for _ in range(K)])
+    mu = np.stack([np.stack([random_matrix(N, rng) for _ in range(L)])
                    for _ in range(K)])
-    chi = np.stack([_random_state(N, rng) for _ in range(K)])
+    chi = np.stack([random_state_vector(N, rng) for _ in range(K)])
     Ht, mut, chit = (torch.from_numpy(x) for x in (H, mu, chi))
     cp_taylor = taylor_grad_step(Ht, mut, chit, -0.3)
     cp_gradgen, _ = gradgen_step(Ht, mut, chit, -0.3)
@@ -164,8 +156,8 @@ def test_taylor_grad_step_status(check):
     with the check off, exactly ``max_order`` terms and status true."""
     rng = np.random.default_rng(4)
     N = 6
-    H, mu = 5.0 * _random_matrix(N, rng), _random_matrix(N, rng)
-    psi = _random_state(N, rng)
+    H, mu = 5.0 * random_matrix(N, rng), random_matrix(N, rng)
+    psi = random_state_vector(N, rng)
     args = (torch.from_numpy(H[None]), torch.from_numpy(mu[None, None]),
             torch.from_numpy(psi[None]), 1.0)
     got, ok = taylor_grad_step(*args, max_order=3, tolerance=1e-16,
