@@ -50,7 +50,14 @@ every evaluation went through the kernels:
   problems with their golden series, ``optimize_or_load`` and
   ``propagate`` on the CZ); and ``optimize(..., profile_dir=...)`` on the
   CZ and the qutrits, with the card's busy share read from the trace.
-  Every evaluation phase prints ``flops.fg_flops`` and the rate it implies.
+  Every evaluation phase prints ``flops.fg_flops`` and the rate it implies;
+- per-trajectory propagator settings: the CZ at dim 1024 with two basis
+  states on the Chebyshev series and two on ExpProp (``Trajectory``
+  attributes, ``fg_hetero``) against the two uniform builds, optimized
+  three iterations, and the same split at dim 256 against the plain
+  versions; Krotov's method (``optimize_krotov``) on the CZ at dim 100,
+  N_T = 2000, on a per-trajectory ensemble and in the Krotov→GRAPE
+  continuation of ``examples/07``.
 
 Each phase prints one JSON line and raises on failure; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -259,18 +266,36 @@ def zero_counts(*modules):
             mod.route_launches[key] = 0
 
 
-def read_counts(*modules):
-    """The wrappers' launch counts; the route launches beside them (of all
-    the modules, in one dict) are kept in ``ROUTE_READS`` under the calling
-    function's name."""
+def read_launches(*modules):
+    """``(the wrappers' launch counts, the route launches)`` of all the
+    modules, each in one dict."""
     out = {}
     routes = {}
     for mod in modules:
         out.update(mod.launches)
         routes.update(getattr(mod, "route_launches", {}))
+    return out, routes
+
+
+def read_counts(*modules):
+    """The wrappers' launch counts; the route launches beside them are kept
+    in ``ROUTE_READS`` under the calling function's name (every run read
+    here must take the redesigned routes; a run that takes the old ones by
+    the routing rule is read by :func:`read_launches` and checked where it
+    runs)."""
+    out, routes = read_launches(*modules)
     if routes:
         ROUTE_READS.append((sys._getframe(1).f_code.co_name, routes))
     return out
+
+
+def counted(fn):
+    """``fn`` with the number of its calls in ``.calls``."""
+    def wrapped(*args, **kwargs):
+        wrapped.calls += 1
+        return fn(*args, **kwargs)
+    wrapped.calls = 0
+    return wrapped
 
 
 def finite(*tensors):
@@ -747,17 +772,18 @@ def timed_ms(fn, reps):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def fg_breakdown(fg, x, reps=3):
+def fg_breakdown(fg, x, reps=3, names=None, label=None):
     """Where one evaluation's time on the card goes: CUDA events around the
     whole evaluation and around every kernel wrapper and the vectorized
     Taylor pass inside it (the names ``grape_tpu_torch.fg`` calls them by
-    are wrapped for the duration).  Medians over ``reps`` evaluations, ms;
-    ``glue`` is the rest of the span: coefficient tables, J_T, χ(T) by
-    autograd, the contraction with dM, and every gap in which the card
-    waits for the host."""
+    are wrapped for the duration; ``names`` and ``label(name, args,
+    kwargs)`` choose others and how their spans are named).  Medians over
+    ``reps`` evaluations, ms; ``glue`` is the rest of the span: coefficient
+    tables, J_T, χ(T) by autograd, the contraction with dM, and every gap
+    in which the card waits for the host."""
     import grape_tpu_torch.fg as F
 
-    names = [
+    names = names or [
         "forward_scan_shared", "forward_scan_grouped", "forward_scan_pertraj",
         "forward_scan_smalld", "chi_scan_shared", "chi_scan_grouped",
         "chi_scan_recompute", "frechet_trace_shared", "frechet_trace_pertraj",
@@ -766,6 +792,14 @@ def fg_breakdown(fg, x, reps=3):
     ]
     spans = []
 
+    def kernel_label(name, args, kwargs):
+        if name == "cheby_scan":  # one wrapper, two directions
+            return name + ("_adjoint" if kwargs.get("adjoint")
+                           else "_forward")
+        return name
+
+    label = label or kernel_label
+
     def shim(name, fn):
         def wrapped(*args, **kwargs):
             a = torch.cuda.Event(enable_timing=True)
@@ -773,10 +807,7 @@ def fg_breakdown(fg, x, reps=3):
             a.record()
             out = fn(*args, **kwargs)
             b.record()
-            label = name
-            if name == "cheby_scan":  # one wrapper, two directions
-                label += "_adjoint" if kwargs.get("adjoint") else "_forward"
-            spans.append((label, a, b))
+            spans.append((label(name, args, kwargs), a, b))
             return out
         return wrapped
 
@@ -3686,6 +3717,648 @@ def profile_phase(cz_problem, dev):
     emit({"phase": "profile", **out})
 
 
+# ---- per-trajectory propagator settings and Krotov's method ----------------
+
+# the heterogeneous cell: the dim-1024 Chebyshev CZ with |00>, |01> on the
+# Chebyshev series and |10>, |11> on ExpProp, as trajectory attributes; its
+# check against the plain versions at the dim-256 Chebyshev cell's width
+HETERO_SPLIT = ("cheby", "cheby", "expprop", "expprop")
+HETERO_ITERS = 3
+# Krotov on the flagship CZ (dim 100, K = 4, N_T = 2000): lambda_a = 0.5
+# lowers J_T monotonically (0.898 -> 0.386 -> 0.222 -> 0.198 in complex128
+# on the CPU)
+KROTOV_ITERS, KROTOV_LAMBDA = 3, 0.5
+
+
+# a seeded pulse whose gradient is of the first order: at the guess (about
+# zero on every drive at T = 1.0) the CZ's gradient is of the second order
+# (8.3e-7 at its max), so the checks against the uniform builds and the
+# plain versions and the optimization also run from this pulse, inside the
+# guess's amplitude envelope (max(|guess|, 0.1) doubled: 0.2)
+HETERO_PULSE_AMP, HETERO_PULSE_SEED = 0.15, 10
+
+
+def nonflat_pulse(tlist, n_controls, amp=HETERO_PULSE_AMP,
+                  seed=HETERO_PULSE_SEED):
+    """``(L, N_T)`` pulse values on the intervals: per control, four seeded
+    sine modes under a sine window, scaled to ``max |ε| = amp``."""
+    rng = np.random.default_rng(seed)
+    tl = np.asarray(tlist, dtype=np.float64)
+    T = tl[-1] - tl[0]
+    t = 0.5 * (tl[:-1] + tl[1:]) - tl[0]
+    out = np.empty((n_controls, len(t)))
+    for l in range(n_controls):
+        a = rng.normal(size=4)
+        ph = rng.uniform(0.0, 2 * np.pi, size=4)
+        f = np.sin(np.pi * t / T) * sum(
+            a[k] * np.sin((k + 1) * np.pi * t / T + ph[k]) for k in range(4))
+        out[l] = amp * f / np.abs(f).max()
+    return out
+
+
+def hetero_problem(d, n_steps, T, guesses=None):
+    """``two_transmon_cz_problem`` (with its guess, or the pulse values
+    ``guesses (L, N_T)``) with the propagator of each basis state given by
+    its trajectory's ``prop_method`` (``HETERO_SPLIT``) and the taylor
+    gradient: ``(trajectories, tlist, kwargs, the same trajectories
+    without the attribute)``."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.models import two_transmon_cz_problem
+
+    p = two_transmon_cz_problem(
+        d=d, n_steps=n_steps, T=T, gradient_method="taylor",
+        guesses=None if guesses is None else list(guesses))
+    trajs = [gt.Trajectory(t.initial_state, t.generator,
+                           target_state=t.target_state, prop_method=m)
+             for t, m in zip(p.trajectories, HETERO_SPLIT)]
+    return trajs, p.tlist, dict(p.kwargs), p.trajectories
+
+
+def hetero_breakdown(fg, x, hp, reps=2):
+    """``fg_breakdown`` of a heterogeneous evaluation by partition: each
+    partition's forward pass (``fg._evaluate_forward``) and gradient pass
+    (``fg._tau_grads_pass``); ``glue`` is the rest (the coefficient tables,
+    the scatter of the final states, J_T and χ(T) over all trajectories,
+    the assembly)."""
+    kinds = {"_evaluate_forward": "forward", "_tau_grads_pass": "gradient"}
+
+    def label(name, args, kwargs):
+        p = next(i for i, q in enumerate(hp.parts) if q is args[0])
+        return f"{kinds[name]}_part{p}_{args[0].fw_prop_method}"
+
+    return fg_breakdown(fg, x, reps=reps, names=list(kinds), label=label)
+
+
+HETERO_READINGS = {"J_vs_cheby": "J", "J_vs_expprop": "J",
+                   "grad_vs_cheby": "grad", "grad_vs_expprop": "grad",
+                   "psi_T_rows_cheby": "psi_T", "psi_T_rows_expprop": "psi_T"}
+
+
+def hetero_agreement(out_h, out_c, out_e):
+    """A heterogeneous evaluation ``(J, g, aux)`` against the uniform
+    all-cheby and all-expprop builds' at the same pulse: J and the gradient
+    against both, each row of psi_T against the build of its own method;
+    the limits are max(1e-5 of the scale, twice the two uniform builds' own
+    difference).  The readings, the limits and their derivation."""
+    (J, g, a), (J_c, g_c, a_c), (J_e, g_e, a_e) = out_h, out_c, out_e
+    mutual = {"J": abs(float(J_c) - float(J_e)), "grad": max_abs(g_c, g_e),
+              "psi_T": max_abs(a_c["psi_T"], a_e["psi_T"])}
+    scale = {"J": abs(float(J_c)), "grad": float(g_c.abs().max()),
+             "psi_T": 1.0}
+    return {
+        "J": float(J), "J_uniform_cheby": float(J_c),
+        "J_uniform_expprop": float(J_e), "uniform_mutual": mutual,
+        "scale": scale,
+        "limit": {k: max(1e-5 * scale[k], 2 * mutual[k]) for k in mutual},
+        "limit_rule": "max(1e-5 * scale, "
+                      "2 * |uniform cheby - uniform expprop|)",
+        "J_vs_cheby": abs(float(J) - float(J_c)),
+        "J_vs_expprop": abs(float(J) - float(J_e)),
+        "grad_vs_cheby": max_abs(g, g_c), "grad_vs_expprop": max_abs(g, g_e),
+        "psi_T_rows_cheby": max_abs(a["psi_T"][:2], a_c["psi_T"][:2]),
+        "psi_T_rows_expprop": max_abs(a["psi_T"][2:], a_e["psi_T"][2:]),
+    }
+
+
+def hetero_paths(dev):
+    """Phase ``hetero``: the dim-1024 CZ (K = 4, N_T = 100, T = 1.0,
+    ``J_T_sm``, taylor) with two basis states on the Chebyshev series and
+    two on ExpProp, as ``Trajectory`` attributes, through
+    ``compile_heterogeneous`` / ``build_fg`` and three L-BFGS-B iterations
+    of ``optimize``.  One evaluation runs the Chebyshev ring kernel both
+    ways at K = 2, the propagator kernel on its global-scratch route at
+    d = 1024 (the rule's route there, with the one-block forward scan),
+    the χ scan over the stored propagators (past the one-block χ scan's
+    shared memory: the forward apply-scan over the adjoint propagators,
+    ``hopper_prop._chi_by_apply``) and two Taylor passes.  Held against
+    the uniform all-cheby and all-expprop builds on the card (the same
+    physics for every trajectory) at the guess and at a seeded pulse with
+    a first-order gradient (``nonflat_pulse``), which the optimization
+    starts from; with a control (the pulse × 1.01) that the gradient limit
+    must tell apart.  At d = 1024 the ExpProp half's forward scan and χ
+    chain alone, and one whole evaluation, against the plain versions;
+    the propagator kernel alone (the global route) beside
+    ``torch.linalg.matrix_exp`` on the same 100 matrices; and the same
+    split at dim 256 (``cz(16, 200, "taylor", "cheby", T=5.0)``) against
+    the plain versions.  Returns ``(the counted optimization's launches,
+    the d = 1024 propagator reading, the d = 1024 chain readings)``."""
+    import grape_tpu_torch as gt
+    import grape_tpu_torch.fg as F
+    from grape_tpu_torch.fg_hetero import (
+        compile_heterogeneous, traj_prop_partition,
+    )
+    from grape_tpu_torch.flops import fg_flops
+    from grape_tpu_torch.ops import hopper_cheby, hopper_frechet, hopper_prop
+    from grape_tpu_torch.ops import plain_versions
+
+    t_phase = time.perf_counter()
+    modules = (hopper_prop, hopper_frechet, hopper_cheby)
+    trajs, tlist, kw, plain_trajs = hetero_problem(CHEBY_D, CHEBY_STEPS,
+                                                   CHEBY_T)
+    partition = traj_prop_partition(trajs, kw)
+    hp = compile_heterogeneous(trajs, tlist, partition, dtype=np.complex64,
+                               **kw)
+    cp_c, cp_e = hp.parts
+    pd_c = F._prop_data(cp_c)
+    require(hp.dim == 1024 and hp.n_traj == 4 and hp.n_timesteps == 100
+            and [i.tolist() for i in hp.part_idx] == [[0, 1], [2, 3]]
+            and cp_c.fw_prop_method == "cheby"
+            and cp_e.fw_prop_method == "expprop"
+            and cp_c.gradient_method == cp_e.gradient_method == "taylor"
+            and F._cheby_kernel_enabled(cp_c, pd_c["fw"])
+            and F._cheby_kernel_enabled(cp_c, pd_c["bw"])
+            and F._reuse_U_enabled(cp_e)
+            and hopper_prop.propagator_route(hp.dim) == "global"
+            and not hopper_prop.legacy_chi_fits(hp.dim),
+            "the heterogeneous cell must split into a Chebyshev-kernel "
+            "partition and an ExpProp partition on the global route")
+    uniform = {m: gt.compile_problem(plain_trajs, tlist, dtype=np.complex64,
+                                     prop_method=m, **kw)
+               for m in ("cheby", "expprop")}
+    x0 = hp.guess_pulsevals.reshape(-1)
+    eps1 = nonflat_pulse(tlist, hp.n_controls)
+    x1 = eps1.reshape(-1)
+    fg_h = counted(gt.build_fg(hp))
+    fg_u = {m: gt.build_fg(cp) for m, cp in uniform.items()}
+    out_u = {m: fg(x0) for m, fg in fg_u.items()}
+    out_u1 = {m: fg(x1) for m, fg in fg_u.items()}
+    g_control = fg_u["cheby"](x1 * (1.0 + 1e-2))[1]
+    torch.cuda.synchronize()
+    reps = 3
+    ms = {f"uniform_{m}": timed_ms(lambda fg=fg: fg(x0), reps)
+          for m, fg in fg_u.items()}
+
+    # ---- the counted run: one heterogeneous evaluation --------------------
+    zero_counts(*modules)
+    for key in hopper_cheby.launches_by_direction:
+        hopper_cheby.launches_by_direction[key] = 0
+    J, g, aux = fg_h(x0)
+    torch.cuda.synchronize()
+    counts_one, routes_one = (
+        {k: v for k, v in c.items() if v} for c in read_launches(*modules))
+    by_dir = dict(hopper_cheby.launches_by_direction)
+    require(counts_one == {"forward_scan_shared": 1, "chi_scan_shared": 1,
+                           "cheby_scan": 2}
+            and by_dir == {"forward": 1, "adjoint": 1}
+            and routes_one == {"propagators_global": 1,
+                               "state_scan_legacy_forward": 1,
+                               "state_scan_legacy_chi_by_apply": 1,
+                               "cheby_ring": 2},
+            f"one heterogeneous evaluation launched {counts_one} {by_dir} "
+            f"on the routes {routes_one}")
+    require(bool(torch.isfinite(g).all()) and math.isfinite(float(J))
+            and bool(aux["chi_ok"]) and bool(aux["taylor_ok"])
+            and aux["psi_T"].shape == (4, hp.dim),
+            "the heterogeneous evaluation is not finite or not converged")
+
+    # ---- against the uniform builds, at the guess and the seeded pulse ----
+    agreement = {
+        "guess": hetero_agreement((J, g, aux), out_u["cheby"],
+                                  out_u["expprop"]),
+        "nonflat": hetero_agreement(fg_h(x1), out_u1["cheby"],
+                                    out_u1["expprop"]),
+    }
+    agreement["nonflat"]["pulse"] = {"amplitude": HETERO_PULSE_AMP,
+                                     "seed": HETERO_PULSE_SEED}
+    agreement["nonflat"]["control_grad_vs_cheby_pulse_x1.01"] = max_abs(
+        g_control, out_u1["cheby"][1])
+
+    # ---- times ------------------------------------------------------------
+    ms["hetero"] = timed_ms(lambda: fg_h(x0), reps)
+    by_part = hetero_breakdown(fg_h, x0, hp)
+    kernel_parts = fg_breakdown(fg_h, x0, reps=2)
+    flops_h = sum(fg_flops(p) for p in hp.parts)
+    f_h = counted(gt.build_f(hp))
+    Jf, _ = f_h(x0)
+    require(abs(float(Jf) - float(J)) < 1e-6,
+            "build_f disagrees with build_fg on the heterogeneous cell")
+
+    # ---- three L-BFGS-B iterations through optimize, from the pulse -------
+    trajs1, _, _, _ = hetero_problem(CHEBY_D, CHEBY_STEPS, CHEBY_T,
+                                     guesses=eps1)
+    series, wrks = [], []
+
+    def record(wrk, iteration):
+        series.append(float(wrk.result.J_T))
+        wrks[:] = [wrk]
+
+    t0 = time.perf_counter()
+    res = gt.optimize(trajs1, tlist, iter_stop=HETERO_ITERS,
+                      dtype=np.complex64, print_iters=False,
+                      rethrow_exceptions=True, callback=record, **kw)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    counts, routes = read_launches(*modules)
+    by_dir = dict(hopper_cheby.launches_by_direction)
+    n_fg = fg_h.calls + res.fg_calls
+    n_f = f_h.calls + res.f_calls
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"forward_scan_shared": n_fg + n_f,
+                   "chi_scan_shared": n_fg,
+                   "cheby_scan": 2 * n_fg + n_f})
+    expect_routes = dict.fromkeys(routes, 0)
+    expect_routes.update({"propagators_global": n_fg + n_f,
+                          "state_scan_legacy_forward": n_fg + n_f,
+                          "state_scan_legacy_chi_by_apply": n_fg,
+                          "cheby_ring": 2 * n_fg + n_f})
+    # J_T must fall by more than ten times the uniform builds' own
+    # difference in J at the starting pulse
+    fall_floor = 10 * agreement["nonflat"]["uniform_mutual"]["J"]
+    ok_series = (len(series) == HETERO_ITERS + 1
+                 and res.iter == HETERO_ITERS
+                 and np.array_equal(wrks[0].cp.guess_pulsevals, eps1)
+                 and all(math.isfinite(v) for v in series)
+                 and all(b <= a for a, b in zip(series, series[1:]))
+                 and series[0] - series[-1] > fall_floor)
+    emit_hetero = {
+        "phase": "hetero", "dim": hp.dim, "K": hp.n_traj,
+        "N_T": hp.n_timesteps, "split": list(HETERO_SPLIT),
+        "partitions": [{"trajectories": i.tolist(),
+                        "fw_prop_method": p.fw_prop_method,
+                        "gradient_method": p.gradient_method}
+                       for p, i in zip(hp.parts, hp.part_idx)],
+        "agreement": agreement,
+        "launches_one_eval": counts_one, "routes_one_eval": routes_one,
+        "ms_per_eval": ms["hetero"], "ms_per_eval_uniform_cheby":
+            ms["uniform_cheby"], "ms_per_eval_uniform_expprop":
+            ms["uniform_expprop"],
+        "device_ms_by_part": by_part, "device_ms_by_kernel": kernel_parts,
+        "flop_rate": {"fg_flops": flops_h,
+                      "tflops_per_s": flops_h / (ms["hetero"] * 1e-3) / 1e12},
+        "optimize": {"start": "the seeded pulse", "J_T_series": series,
+                     "J_T_fall": series[0] - series[-1] if series else None,
+                     "J_T_fall_floor": fall_floor, "iterations": res.iter,
+                     "seconds": opt_s, "fg_calls": res.fg_calls,
+                     "f_calls": res.f_calls, "message": res.message,
+                     "envelope_bucket_growths":
+                         len(wrks[0]._program_cache) - 1 if wrks else None},
+        "evaluations_counted": {"fg": n_fg, "f": n_f},
+        "launches": {k: v for k, v in counts.items() if v},
+        "route_launches": {k: v for k, v in routes.items() if v},
+        "launches_by_direction": by_dir,
+    }
+
+    # ---- the propagator kernel alone at d = 1024: the global route --------
+    H0, ops = cp_e.H0[0], cp_e.ops[0]
+    c64 = lambda a: torch.tensor(np.ascontiguousarray(a),
+                                 dtype=torch.complex64, device=dev)
+    c128 = lambda x: x.to(torch.complex128 if x.is_complex()
+                          else torch.float64)
+    H0_t, ops_t = c64(H0), c64(ops)
+
+    def coeff_table(eps):
+        return torch.tensor(np.einsum("ntl,ln->nt", cp_e.M, eps) + cp_e.Mfix,
+                            dtype=torch.float32, device=dev)
+
+    coeffs = coeff_table(hp.guess_pulsevals)
+    dts = torch.tensor(np.diff(cp_e.tlist), dtype=torch.float32, device=dev)
+    s_e = F._static_squarings(cp_e)
+    zero_counts(hopper_prop)
+    prop_call = lambda: hopper_prop.propagators_shared(H0_t, ops_t, coeffs,
+                                                       dts, s_e)
+    U = prop_call()
+    torch.cuda.synchronize()
+    require(read_launches(hopper_prop)[1]["propagators_global"] == 1,
+            "the d = 1024 propagators did not take the global route")
+    prop_ms = median_ms(prop_call, reps=3)
+    # the plain version of the propagator half (the wrapper has none of
+    # its own: it always launches)
+    plain_call = lambda: hopper_prop._propagators_plain(
+        H0_t[None], ops_t[None], coeffs, dts, s_e)[:, 0]
+    U_p = plain_call()
+    prop_plain_ms = median_ms(plain_call, reps=1)
+    A_lib = (-1j * dts.to(torch.complex64))[:, None, None] * (
+        H0_t[None] + torch.einsum("nt,tij->nij",
+                                  coeffs.to(torch.complex64), ops_t))
+    U_lib = torch.linalg.matrix_exp(A_lib)
+    prop_lib_ms = median_ms(lambda: torch.linalg.matrix_exp(A_lib), reps=3)
+    d, N_T = hp.dim, hp.n_timesteps
+    prop_flops = N_T * (6 + s_e) * 8.0 * d ** 3
+    prop_bytes = nbytes(H0_t, ops_t, coeffs, dts, U)
+    b_ms, b_by = bound(prop_flops, prop_bytes)
+    e_plain = max_abs(U, U_p)
+    e_lib = max_abs(U, U_lib)
+    require(e_plain < TOL_STATE and e_lib < TOL_STATE,
+            f"the d = 1024 propagators disagree: plain {e_plain}, "
+            f"matrix_exp {e_lib}")
+    del U, U_p, U_lib, A_lib
+    global_d1024 = {"d": d, "N_T": N_T, "squarings": s_e, "ms": prop_ms,
+                    "plain_ms": prop_plain_ms, "library_ms": prop_lib_ms,
+                    "library_call": "torch.linalg.matrix_exp on the same "
+                                    "(N_T, d, d) matrices",
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "max_abs_err_vs_plain": e_plain,
+                    "max_abs_err_vs_library": e_lib,
+                    "launches_hetero_optimize": routes["propagators_global"]}
+    emit_hetero["propagators_global_d1024"] = global_d1024
+
+    # ---- the ExpProp half's chains at d = 1024 against the plain versions:
+    # the one-block forward scan and the χ chain by the forward apply-scan
+    # over U†, on the partition's inputs at the seeded pulse (K = 2) -------
+    rng = np.random.default_rng(HETERO_PULSE_SEED)
+    chi0 = rng.normal(size=(2, d)) + 1j * rng.normal(size=(2, d))
+    chi0 = c64(chi0 / np.linalg.norm(chi0, axis=1, keepdims=True))
+    psi0 = c64(cp_e.psi0)
+    co1 = coeff_table(eps1)
+    zero_counts(hopper_prop)
+    st, U1 = hopper_prop.forward_scan_shared(H0_t, ops_t, co1, dts, psi0, s_e)
+    chis = hopper_prop.chi_scan_shared(U1, chi0)
+    torch.cuda.synchronize()
+    routes_chain = {k: v for k, v in read_launches(hopper_prop)[1].items()
+                    if v}
+    with plain_versions():
+        st_p, U1_p = hopper_prop.forward_scan_shared(H0_t, ops_t, co1, dts,
+                                                     psi0, s_e)
+        chis_p = hopper_prop.chi_scan_shared(U1, chi0)
+    # the kernel's own propagators applied plainly: the apply-scan alone
+    psi, e_apply = psi0, 0.0
+    for n in range(N_T):
+        psi = psi @ U1[n].transpose(-1, -2)
+        e_apply = max(e_apply, max_abs(psi, st[n + 1]))
+    # the whole forward scan against the plain one: within the larger of
+    # TOL_STATE and twice the plain float32 chain's distance from complex128
+    st_x, _ = hopper_prop.forward_scan_shared_plain(
+        c128(H0_t), c128(ops_t), c128(co1), c128(dts), c128(psi0), s_e)
+    drift = max_abs(st_p.to(torch.complex128), st_x)
+    chains = {"K": 2, "d": d, "N_T": N_T, "squarings": s_e,
+              "routes": routes_chain,
+              "forward_apply_vs_plain_on_kernel_U": e_apply,
+              "chi_by_apply_vs_plain_on_kernel_U": max_abs(chis, chis_p),
+              "propagators_vs_plain": max_abs(U1, U1_p),
+              "forward_states_vs_plain": max_abs(st, st_p),
+              "plain_float32_states_vs_complex128": drift,
+              "forward_states_limit": max(TOL_STATE, 2 * drift),
+              "limit": TOL_STATE}
+    del st, U1, st_p, U1_p, st_x, chis, chis_p
+    emit_hetero["chains_d1024_vs_plain"] = chains
+
+    # ---- one whole evaluation at d = 1024 against the plain versions ------
+    zero_counts(*modules)
+    J1, _, _, dJ1, dg1 = fg_against_plain(fg_h, x1, "hetero dim 1024")
+    routes1 = {k: v for k, v in read_launches(*modules)[1].items() if v}
+    emit_hetero["dim1024_vs_plain"] = {
+        "pulse": "the seeded pulse", "J": float(J1),
+        "J_abs_diff_vs_plain": dJ1, "grad_diff_of_max_vs_plain": dg1,
+        "route_launches": routes1}
+
+    # ---- dim 256: the kernels against the plain versions ------------------
+    trajs2, tlist2, kw2, _ = hetero_problem(CHEBY256_D, CHEBY256_STEPS,
+                                            CHEBY256_T)
+    hp2 = compile_heterogeneous(trajs2, tlist2,
+                                traj_prop_partition(trajs2, kw2),
+                                dtype=np.complex64, **kw2)
+    x2 = hp2.guess_pulsevals.reshape(-1)
+    zero_counts(*modules)
+    J2, g2, aux2, dJ2, dg2 = fg_against_plain(gt.build_fg(hp2), x2,
+                                              "hetero dim 256")
+    counts2, routes2 = (
+        {k: v for k, v in c.items() if v} for c in read_launches(*modules))
+    require(counts2 == {"forward_scan_shared": 1, "chi_scan_shared": 1,
+                        "cheby_scan": 2}
+            and routes2.get("cheby_ring") == 2
+            and routes2.get("propagators_global") == 1,
+            f"hetero dim 256: kernel launches {counts2} {routes2}")
+    emit_hetero["dim256_vs_plain"] = {
+        "dim": hp2.dim, "N_T": hp2.n_timesteps, "J": float(J2),
+        "J_abs_diff_vs_plain": dJ2, "grad_diff_of_max_vs_plain": dg2,
+        "launches": counts2, "route_launches": routes2}
+    emit_hetero["seconds"] = time.perf_counter() - t_phase
+    emit(emit_hetero)
+    for where, agr in agreement.items():
+        for k, key in HETERO_READINGS.items():
+            require(agr[k] <= agr["limit"][key],
+                    f"hetero at the {where} pulse: {k} = {agr[k]} exceeds "
+                    f"{agr['limit'][key]}")
+    ctl = agreement["nonflat"]["control_grad_vs_cheby_pulse_x1.01"]
+    require(ctl > agreement["nonflat"]["limit"]["grad"],
+            f"hetero: the control gradient ({ctl}) is inside the limit")
+    require(counts == expect and routes == expect_routes,
+            f"hetero optimize: launches {counts} {routes} do not match the "
+            f"evaluations {expect} {expect_routes}")
+    require(ok_series, f"hetero optimize: {res.message}, series {series}")
+    require(routes_chain == {"propagators_global": 1,
+                             "state_scan_legacy_forward": 1,
+                             "state_scan_legacy_chi_by_apply": 1}
+            and chains["forward_apply_vs_plain_on_kernel_U"] < TOL_STATE
+            and chains["chi_by_apply_vs_plain_on_kernel_U"] < TOL_STATE
+            and chains["propagators_vs_plain"] < TOL_STATE
+            and chains["forward_states_vs_plain"]
+            < chains["forward_states_limit"],
+            f"the d = 1024 chains against the plain versions: {chains}")
+    require(routes1 == {"propagators_global": 1,
+                        "state_scan_legacy_forward": 1,
+                        "state_scan_legacy_chi_by_apply": 1,
+                        "cheby_ring": 2},
+            f"hetero dim 1024 against plain took the routes {routes1}")
+    return counts, global_d1024, chains
+
+
+def krotov_paths(cz_problem, dev):
+    """Phase ``krotov``: Krotov's method on the card.  The flagship CZ
+    (dim 100, K = 4, N_T = 2000) for three iterations at ``KROTOV_LAMBDA``,
+    J_T falling monotonically, each iteration's time split into the
+    forward pass (K1), the χ chain (K2) and the sweep, with the sweep's
+    host decisions on its squaring count; one iteration with the kernels
+    against the plain versions (``eps_new``, J_T), within the larger of a
+    base limit and twice the plain float32 iteration's distance from a
+    complex128 one; the per-trajectory generator ensemble of the reference
+    tests through K5 and the grouped χ chain; and the Krotov→GRAPE
+    continuation of ``examples/07``.  Returns the counted run's
+    launches."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch import krotov
+    from grape_tpu_torch.functionals import J_T_sm
+    from grape_tpu_torch.models import transmon_ensemble_trajectories
+    from grape_tpu_torch.ops import hopper_cheby, hopper_frechet, hopper_prop
+    from grape_tpu_torch.ops import plain_versions
+    from grape_tpu_torch.shapes import flattop
+
+    t_phase = time.perf_counter()
+    modules = (hopper_prop, hopper_frechet, hopper_cheby)
+    trajs, tlist = cz_problem.trajectories, cz_problem.tlist
+    J_T = cz_problem.kwargs["J_T"]
+
+    # spans of the three phases of every iteration, and the stats
+    spans, steps = [], []
+    originals = {n: getattr(krotov, n) for n in
+                 ("_evaluate_forward", "_chi_trajectory", "_sweep",
+                  "_build_krotov_step")}
+
+    def shim(name, fn):
+        def wrapped(*args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            spans.append((name, a, b))
+            return out
+        return wrapped
+
+    def build_step(*args, **kwargs):
+        step = originals["_build_krotov_step"](*args, **kwargs)
+        steps.append(step)
+
+        def timed(flat):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = step(flat)
+            b.record()
+            spans.append(("iteration", a, b))
+            spans.append(("stats", dict(step.stats), None))
+            return out
+        timed.stats = step.stats
+        return timed
+
+    for n in ("_evaluate_forward", "_chi_trajectory", "_sweep"):
+        setattr(krotov, n, shim(n, originals[n]))
+    krotov._build_krotov_step = build_step
+    series = []
+    try:
+        zero_counts(*modules)
+        t0 = time.perf_counter()
+        res = gt.optimize_krotov(
+            trajs, tlist, J_T=J_T, lambda_a=KROTOV_LAMBDA,
+            iter_stop=KROTOV_ITERS, dtype=np.complex64, print_iters=False,
+            rethrow_exceptions=True,
+            callback=lambda r, i: series.append(float(r.J_T)))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts(*modules)
+    finally:
+        for n, fn in originals.items():
+            setattr(krotov, n, fn)
+    routes = ROUTE_READS[-1][1]
+    per_iter, cur = [], {}
+    for name, a, b in spans:
+        if name == "stats":
+            per_iter[-1].update(a)
+            continue
+        ms_ = a.elapsed_time(b)
+        if name == "iteration":
+            cur["total_ms"] = ms_
+            cur["other_ms"] = ms_ - sum(
+                v for k, v in cur.items() if k.endswith("_ms")
+                and k != "total_ms")
+            per_iter.append(cur)
+            cur = {}
+        else:
+            key = {"_evaluate_forward": "forward_ms",
+                   "_chi_trajectory": "chi_ms", "_sweep": "sweep_ms"}[name]
+            cur[key] = cur.get(key, 0.0) + ms_
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"forward_scan_shared": KROTOV_ITERS,
+                   "chi_scan_shared": KROTOV_ITERS})
+    expect_routes = dict.fromkeys(routes, 0)
+    expect_routes.update({"propagators_cluster": KROTOV_ITERS,
+                          "state_scan_forward": KROTOV_ITERS,
+                          "state_scan_chi": KROTOV_ITERS})
+    out = {"phase": "krotov",
+           "cz": {"dim": len(trajs[0].initial_state), "K": len(trajs),
+                  "N_T": len(tlist) - 1, "lambda_a": KROTOV_LAMBDA,
+                  "J_T_series": series, "iterations": res.iter,
+                  "seconds": run_s, "per_iteration": per_iter,
+                  "launches": {k: v for k, v in counts.items() if v},
+                  "route_launches": {k: v for k, v in routes.items() if v},
+                  "message": res.message}}
+
+    # ---- one iteration, kernels against the plain versions ----------------
+    cps = {dt: gt.compile_problem(trajs, tlist, dtype=dt, J_T=J_T)
+           for dt in (np.complex64, np.complex128)}
+    L, N_T = cps[np.complex64].n_controls, len(tlist) - 1
+    S = np.ones((L, N_T))
+    lam = np.full(L, KROTOV_LAMBDA)
+    x0 = cps[np.complex64].guess_pulsevals.reshape(-1)
+    zero_counts(*modules)
+    r_k = krotov._build_krotov_step(cps[np.complex64], S, lam)(x0)
+    checked = {k: v for k, v in read_launches(*modules)[0].items() if v}
+    with plain_versions():
+        r_p = krotov._build_krotov_step(cps[np.complex64], S, lam)(x0)
+    r_x = krotov._build_krotov_step(cps[np.complex128], S, lam)(x0)
+    eps_scale = max(float(np.abs(r_x[1]).max()), 1.0)
+    e_eps = float(np.abs(r_k[1] - r_p[1]).max())
+    d_eps = float(np.abs(r_p[1] - r_x[1]).max())
+    e_J = abs(r_k[2] - r_p[2])
+    d_J = abs(r_p[2] - r_x[2])
+    lim_eps = max(TOL_STATE * eps_scale, 2 * d_eps)
+    lim_J = max(1e-5, 2 * d_J)
+    out["kernels_vs_plain"] = {
+        "launches": checked, "eps_new_max_abs_diff": e_eps,
+        "eps_new_plain_vs_complex128": d_eps, "eps_new_limit": lim_eps,
+        "J_T_new": r_k[2], "J_T_new_abs_diff": e_J,
+        "J_T_new_plain_vs_complex128": d_J, "J_T_new_limit": lim_J,
+        "limit_rule": "max(base, 2 * |plain complex64 - complex128|)"}
+
+    # ---- the per-trajectory generator ensemble: K5 and the grouped chain --
+    ens = transmon_ensemble_trajectories(4, d=3, T=4.0)
+    tl_ens = np.linspace(0.0, 4.0, 41)
+    Js_ens = []
+    zero_counts(*modules)
+    res_e = gt.optimize_krotov(
+        ens, tl_ens, J_T=J_T_sm, lambda_a=0.5, iter_stop=12,
+        dtype=np.complex64, print_iters=False, rethrow_exceptions=True,
+        callback=lambda r, i: Js_ens.append(float(r.J_T)))
+    counts_e = {k: v for k, v in read_counts(*modules).items() if v}
+    out["ensemble"] = {"K": len(ens), "J_T_series": Js_ens,
+                       "launches": counts_e,
+                       "route_launches": {k: v for k, v in
+                                          ROUTE_READS[-1][1].items() if v}}
+
+    # ---- examples/07: Krotov -> GRAPE continuation ------------------------
+    T_tls = 5.0
+
+    def guess(t):
+        return 0.2 * float(flattop(t, T=T_tls, t_rise=0.3, func="blackman"))
+
+    def shape(t):
+        return float(flattop(t, T=T_tls, t_rise=0.3, func="blackman"))
+
+    H = gt.hamiltonian(np.diag([-0.5, 0.5]).astype(complex),
+                       (np.array([[0, 1], [1, 0]], dtype=complex), guess))
+    tl_tls = np.linspace(0, T_tls, 501)
+    traj = gt.Trajectory([1, 0], H, target_state=[0, 1])
+    kres = gt.optimize_krotov([traj], tl_tls, J_T=J_T_sm, lambda_a=2.0,
+                              update_shape=shape, iter_stop=4,
+                              print_iters=False, rethrow_exceptions=True)
+    J_k = float(kres.J_T)
+    iter_k = kres.iter
+    gres = gt.optimize([traj], tl_tls, J_T=J_T_sm, continue_from=kres,
+                       iter_stop=10, print_iters=False,
+                       rethrow_exceptions=True)
+    out["continuation"] = {"krotov_iter": iter_k, "krotov_J_T": J_k,
+                           "grape_iter": gres.iter,
+                           "grape_J_T": float(gres.J_T)}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    require(len(series) == KROTOV_ITERS + 1
+            and all(math.isfinite(v) for v in series)
+            and all(b < a for a, b in zip(series, series[1:])),
+            f"Krotov on the CZ: J_T does not fall monotonically: {series}")
+    require(counts == expect and routes == expect_routes,
+            f"Krotov launches {counts} {routes} do not match "
+            f"{expect} {expect_routes}")
+    # the norm bound on the update holds for unitary chains: one squaring
+    # decision a sweep, no sweep repeated
+    require(all(it["squaring_decisions"] == 1 for it in per_iter)
+            and len(per_iter) == KROTOV_ITERS,
+            f"Krotov iterations: {per_iter}")
+    require(checked == {"forward_scan_shared": 1, "chi_scan_shared": 1},
+            f"the checked Krotov iteration launched {checked}")
+    require(e_eps <= lim_eps and e_J <= lim_J,
+            f"Krotov kernels vs plain: eps {e_eps} (limit {lim_eps}), "
+            f"J_T {e_J} (limit {lim_J})")
+    require(counts_e == {"forward_scan_pertraj": 12, "chi_scan_grouped": 12}
+            and Js_ens[-1] < 0.5 * Js_ens[0]
+            and all(b <= a + 1e-6 for a, b in zip(Js_ens, Js_ens[1:])),
+            f"Krotov ensemble: {Js_ens}, launches {counts_e}")
+    require(iter_k == 4 and J_k < 0.5 and gres.J_T < 1e-3
+            and gres.iter > 4,
+            f"Krotov -> GRAPE: Krotov {iter_k} iterations J_T {J_k}, "
+            f"GRAPE {gres.iter} iterations J_T {gres.J_T}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: "
@@ -4137,6 +4810,12 @@ def main():
     profile_phase(problem, dev)
     slice_s = time.perf_counter() - t_slice
 
+    # ---- per-trajectory propagator settings and Krotov's method ----------
+    t_hetero_krotov = time.perf_counter()
+    counts_hetero, global_d1024, chains_d1024 = hetero_paths(dev)
+    counts_krotov = krotov_paths(problem, dev)
+    hetero_krotov_s = time.perf_counter() - t_hetero_krotov
+
     prop_cu = "grape_tpu_torch/csrc/prop_cluster.cu"
     smalld_cu = "grape_tpu_torch/csrc/smalld_fused.cu"
     cheby_cu = "grape_tpu_torch/csrc/cheby_ring.cu"
@@ -4254,7 +4933,9 @@ def main():
                         ("recompute", counts_rec),
                         ("running_cost", counts_rc),
                         ("custom_amplitude", counts_ca),
-                        ("observables", counts_obs)):
+                        ("observables", counts_obs),
+                        ("hetero", counts_hetero),
+                        ("krotov", counts_krotov)):
             if c.get(name):
                 m[f"launches_{path}"] = c[name]
     # launches on the taylor paths, beside the counted run of each kernel
@@ -4264,6 +4945,18 @@ def main():
         counts_cz_taylor["chi_scan_shared"])
     ens["chi_scan_grouped"]["launches_qutrit_taylor"] = (
         counts_smalld["chi_scan_grouped"])
+    # the propagator half of K1 at d = 1024 on its global-scratch route
+    # (the heterogeneous cell's ExpProp partition)
+    cz["forward_scan_shared"]["propagators_global_d1024"] = global_d1024
+    # the one-block forward scan and the χ chain by the forward apply-scan
+    # at d = 1024 (the heterogeneous cell's ExpProp half) against plain
+    cz["forward_scan_shared"]["one_block_scan_d1024"] = {
+        k: chains_d1024[k] for k in (
+            "forward_apply_vs_plain_on_kernel_U", "forward_states_vs_plain",
+            "forward_states_limit")}
+    cz["chi_scan_shared"]["chi_by_apply_d1024"] = {
+        k: chains_d1024[k] for k in ("chi_by_apply_vs_plain_on_kernel_U",
+                                     "limit")}
     kernels = []
     for name, (source, replaces, run_counts) in meta.items():
         m = dict(measured[name])
@@ -4282,14 +4975,17 @@ def main():
     # small-d pair or the grid-barrier Chebyshev kernel (those run only
     # where a phase above forces them, or past the new kernels' limits)
     old_routes = ("propagators_global", "state_scan_legacy_forward",
-                  "state_scan_legacy_chi", "smalld_pair", "cheby_grid")
+                  "state_scan_legacy_chi", "state_scan_legacy_chi_by_apply",
+                  "smalld_pair", "cheby_grid")
     for site, routes in ROUTE_READS:
         require(all(routes.get(k, 0) == 0 for k in old_routes),
                 f"the counted run of {site} took an old kernel: {routes}")
     emit({"phase": "route_launches", "counted_runs": [
         {"run": site, **routes} for site, routes in ROUTE_READS]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
-          "host_module_phases_seconds": slice_s, "nvidia_smi": smi})
+          "host_module_phases_seconds": slice_s,
+          "hetero_krotov_phases_seconds": hetero_krotov_s,
+          "nvidia_smi": smi})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -14,15 +14,18 @@ of them, or per trajectory) and the Chebyshev scans at large dimension run
 in hand-written CUDA kernels for Hopper (``ops.hopper_prop``,
 ``ops.hopper_frechet``, ``ops.hopper_cheby``).
 
-Public API (the reference's ``__all__`` except Krotov's method, not
-ported yet): ``optimize``, ``optimize_problem``, ``GrapeResult``,
+Public API (the reference's ``__all__``): ``optimize``,
+``optimize_problem``, ``optimize_krotov`` and ``KrotovResult`` (Krotov's
+method, which continues GRAPE and is continued by it), ``GrapeResult``,
 ``Trajectory``, ``ControlProblem``, the generator constructors
 ``hamiltonian`` and ``liouvillian``, the amplitudes, ``propagate`` and
 ``substitute``, the checkpoint functions ``save_result``, ``load_result``,
 ``optimize_or_load`` and ``load_optimization``, the checks, the iteration
 table, ``set_default_ad_framework`` and the workspace's introspection
 helpers; beside them the port's own ``compile_problem``, ``build_fg``,
-``build_f`` and ``compiled_problem_from_numpy``.  Modules: ``functionals``,
+``build_f``, ``compiled_problem_from_numpy`` and
+``hetero_problem_from_numpy``.  Trajectories may carry their own
+propagator settings (``fg_hetero``).  Modules: ``functionals``,
 ``shapes``, ``models``, ``testing`` (seeded fixtures), ``flops`` (the
 analytic FLOP count of an evaluation), ``io`` and ``propagate``.
 
@@ -37,12 +40,13 @@ from .amplitudes import (
     ComplexAmplitude, CustomAmplitude, LockedAmplitude, ShapedAmplitude,
 )
 from .controls import discretize, discretize_on_midpoints, get_controls
-from .convert import compiled_problem_from_numpy
+from .convert import compiled_problem_from_numpy, hetero_problem_from_numpy
 from .fg import CompiledProblem, build_f, build_fg, compile_problem
 from .generators import Generator, align_generators, hamiltonian, liouvillian
 from .info_table import make_grape_print_iters
 from .interfaces import check_generator, check_problem, check_state
 from .io import load_optimization, load_result, optimize_or_load, save_result
+from .krotov import KrotovResult, optimize_krotov
 from .optimize import optimize, optimize_problem
 from .propagate import propagate, substitute
 from .result import GrapeResult
@@ -52,12 +56,13 @@ from .workspace import (
     step_width, vec_angle,
 )
 from .functionals import set_default_ad_framework
-from . import flops, functionals, io, models, shapes, testing
+from . import fg_hetero, flops, functionals, io, models, shapes, testing
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "optimize", "optimize_problem", "GrapeResult", "Trajectory",
+    "optimize", "optimize_problem", "optimize_krotov", "KrotovResult",
+    "GrapeResult", "Trajectory",
     "ControlProblem", "hamiltonian", "liouvillian", "Generator",
     "align_generators", "ShapedAmplitude", "LockedAmplitude",
     "ComplexAmplitude", "CustomAmplitude",
@@ -66,8 +71,8 @@ __all__ = [
     "propagate", "substitute",
     "save_result", "load_result", "optimize_or_load", "load_optimization",
     "CompiledProblem", "compile_problem", "build_fg", "build_f",
-    "compiled_problem_from_numpy",
-    "check_state", "check_generator", "check_problem",
+    "compiled_problem_from_numpy", "hetero_problem_from_numpy",
+    "fg_hetero", "check_state", "check_generator", "check_problem",
     "make_grape_print_iters", "set_default_ad_framework",
     "GrapeWrk", "step_width", "search_direction", "norm_search", "gradient",
     "pulse_update", "vec_angle",

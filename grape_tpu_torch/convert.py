@@ -1,5 +1,7 @@
 """State carried across from the reference: build the port's
-:class:`~grape_tpu_torch.fg.CompiledProblem` from plain numpy arrays.
+:class:`~grape_tpu_torch.fg.CompiledProblem` (and the heterogeneous
+:class:`~grape_tpu_torch.fg_hetero.HeteroCompiledProblem`) from plain numpy
+arrays.
 
 A caller that has compiled a problem elsewhere (the parity tests read the
 fields off the JAX package's ``CompiledProblem``) hands the arrays over as a
@@ -18,7 +20,7 @@ from .fg import (
 from .functionals import accepts_tau, make_chi, make_grad_J_a
 from .trajectory import Trajectory
 
-__all__ = ["compiled_problem_from_numpy"]
+__all__ = ["compiled_problem_from_numpy", "hetero_problem_from_numpy"]
 
 
 def _functional(fn):
@@ -31,6 +33,23 @@ def _functional(fn):
         raise ValueError(
             f"unknown functional {fn!r}: not in grape_tpu_torch.functionals"
         ) from None
+
+
+def _trajectories(psi0, arrays):
+    """Trajectories of the initial states ``psi0 (K, d)`` without a
+    generator, with ``arrays``' ``target_states`` and ``weights`` where
+    given: what the functionals read."""
+    targets = arrays.get("target_states")
+    weights = arrays.get("weights")
+    out = []
+    for k in range(psi0.shape[0]):
+        kw = {}
+        if targets is not None:
+            kw["target_state"] = np.asarray(targets[k])
+        if weights is not None:
+            kw["weight"] = float(weights[k])
+        out.append(Trajectory(psi0[k], None, **kw))
+    return out
 
 
 def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
@@ -126,17 +145,8 @@ def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
     guess = np.asarray(arrays["guess_pulsevals"], dtype=np.float64)
     N_T, _, L = M.shape[-3:]
 
-    targets = arrays.get("target_states")
-    weights = arrays.get("weights")
-    trajectories = []
-    for k in range(K):
-        kw = {}
-        if targets is not None:
-            kw["target_state"] = np.asarray(targets[k])
-        if weights is not None:
-            kw["weight"] = float(weights[k])
-        trajectories.append(Trajectory(psi0[k], None, **kw))
-    has_targets = targets is not None
+    trajectories = _trajectories(psi0, arrays)
+    has_targets = arrays.get("target_states") is not None
 
     J_T = _functional(J_T)
     chi = _functional(chi)
@@ -203,5 +213,85 @@ def compiled_problem_from_numpy(arrays, *, J_T, chi=None, J_a=None,
         gen_group_size=gen_group_size,
         ops_grouped=ops_grouped,
         norm_cache=norm_cache,
+        device=device,
+    )
+
+
+_PART_SETTINGS = ("fw_prop_method", "bw_prop_method", "grad_prop_method",
+                  "gradient_method")
+
+
+def hetero_problem_from_numpy(fields, *, J_T, chi=None, J_a=None,
+                              grad_J_a=None, lambda_a=1.0, g_b=None,
+                              xi=None, lambda_b=1.0, chi_min_norm=1e-100,
+                              dtype=None, device=None, **part_kwargs):
+    """The port's ``HeteroCompiledProblem`` from the reference's one, field
+    by field.
+
+    ``fields`` holds ``parts``, one dict per partition in the reference's
+    order: the arrays that :func:`compiled_problem_from_numpy` takes (read
+    off that partition's ``CompiledProblem``) and ``settings``, its
+    ``fw_prop_method``, ``bw_prop_method``, ``grad_prop_method`` and the
+    resolved ``gradient_method``; ``part_idx``, the partitions' trajectory
+    indices in the original order; and for the global trajectory list
+    ``target_states (K, d)`` and ``weights (K,)`` where the trajectories
+    have them.  Each partition goes through
+    :func:`compiled_problem_from_numpy` with placeholder functionals, the
+    global ``g_b`` and its ``ξ`` (``make_xi`` over the GLOBAL list where
+    ``xi`` is not given, as ``compile_heterogeneous`` builds it) and
+    ``part_kwargs`` (``storage_mode``, the Taylor settings, ...; the
+    partition's own ``settings`` take precedence).  The
+    functionals are evaluated over the global list, as in
+    :func:`~grape_tpu_torch.fg_hetero.compile_heterogeneous`."""
+    from .fg_hetero import (
+        HeteroCompiledProblem, _part_chi_zero, _part_J_T_zero,
+    )
+
+    device = resolve_device(device)
+    part_idx = [np.asarray(i, dtype=np.int64) for i in fields["part_idx"]]
+    K = sum(len(i) for i in part_idx)
+    first = fields["parts"][0]
+    psi0 = np.zeros((K, np.asarray(first["psi0"]).shape[1]),
+                    dtype=np.asarray(first["psi0"]).dtype)
+    for arrays, idx in zip(fields["parts"], part_idx):
+        psi0[idx] = np.asarray(arrays["psi0"])
+    trajectories = _trajectories(psi0, fields)
+    has_targets = fields.get("target_states") is not None
+    tlist = np.asarray(first["tlist"], dtype=np.float64)
+
+    J_T = _functional(J_T)
+    chi = _functional(chi)
+    J_a = _functional(J_a)
+    grad_J_a = _functional(grad_J_a)
+    if chi is None:
+        chi = make_chi(J_T, trajectories)
+    if J_a is not None and grad_J_a is None:
+        grad_J_a = make_grad_J_a(J_a, tlist)
+    g_b, xi = _running_cost_closures(g_b, xi, lambda_b, trajectories)
+
+    parts = []
+    for arrays in fields["parts"]:
+        settings = {k: arrays["settings"][k] for k in _PART_SETTINGS
+                    if k in arrays["settings"]}
+        parts.append(compiled_problem_from_numpy(
+            arrays, J_T=_part_J_T_zero, chi=_part_chi_zero, g_b=g_b, xi=xi,
+            lambda_b=lambda_b, dtype=dtype, device=device,
+            **{**part_kwargs, **settings},
+        ))
+    guess = np.asarray(first["guess_pulsevals"], dtype=np.float64)
+    return HeteroCompiledProblem(
+        parts=parts, part_idx=part_idx, trajectories=trajectories,
+        controls=parts[0].controls, tlist=tlist, guess_pulsevals=guess,
+        n_controls=guess.shape[0], n_timesteps=len(tlist) - 1, n_traj=K,
+        dim=parts[0].dim, J_T=J_T, chi=chi, J_a=J_a, grad_J_a=grad_J_a,
+        lambda_a=float(lambda_a), xi=xi, lambda_b=float(lambda_b),
+        chi_min_norm=float(chi_min_norm),
+        J_T_takes_tau=accepts_tau(J_T) and has_targets,
+        chi_takes_tau=accepts_tau(chi) and has_targets,
+        has_targets=has_targets,
+        taylor_grad_max_order=int(
+            part_kwargs.get("taylor_grad_max_order", 100)),
+        taylor_grad_tolerance=float(
+            part_kwargs.get("taylor_grad_tolerance", 1e-16)),
         device=device,
     )

@@ -67,9 +67,13 @@ run in the hand-written kernels of ``ops.hopper_cheby``; every other
 Chebyshev or Krylov step is plain PyTorch, as in the reference.
 
 ``fw_prop_callback`` receives per-step observables (or the states) of
-every evaluation under full storage.  Not ported yet, and raising
-``NotImplementedError`` when asked for: per-trajectory propagator settings
-and ``mesh=`` sharding.
+every evaluation under full storage.  A propagator setting carried by the
+trajectories themselves (``Trajectory(..., prop_method=...)``) is adopted
+where it is uniform; a heterogeneous one is compiled by
+``fg_hetero.compile_heterogeneous`` (one problem per partition, over the
+global control list), which ``build_fg`` and ``build_f`` dispatch to.  Not
+ported yet, and raising ``NotImplementedError`` when asked for: ``mesh=``
+sharding.
 """
 
 import itertools
@@ -226,7 +230,6 @@ class CompiledProblem:
 # switches have no meaning here: the kernels run for CUDA tensors.
 _UNPORTED_DEFAULTS = {
     "mesh": None,
-    "_controls": None,
     "use_pallas": "auto",
     "gradgen_pallas_precision": "high",
 }
@@ -253,6 +256,62 @@ def _prop_methods(prop_method, fw_prop_method, bw_prop_method,
         _normalize_prop_method(prop_method if m is None else m)
         for m in (None, fw_prop_method, bw_prop_method, grad_prop_method)
     )
+
+
+_PROP_SETTING_KEYS = (
+    "prop_method", "fw_prop_method", "bw_prop_method", "grad_prop_method"
+)
+
+
+def _merge_traj_prop_settings(trajectories, *given):
+    """The propagator settings ``(prop, fw, bw, grad)`` (unnormalized, None
+    where not given) after reading the trajectories' attributes of the same
+    names (the reference's rule, ``grape_tpu/fg.py:489-540``).  A setting
+    carried uniformly by every trajectory is adopted, and so is one that
+    only some carry when it equals what the others resolve to.  A setting
+    that differs between trajectories raises ``NotImplementedError``: one
+    compiled problem propagates every trajectory alike, and ``optimize``
+    partitions such an ensemble (``fg_hetero``).  A trajectory setting
+    that conflicts with the global keyword raises ``ValueError``."""
+    out = list(given)
+    K = len(trajectories)
+    for i, key in enumerate(_PROP_SETTING_KEYS):
+        vals = [
+            t.kwargs[key] for t in trajectories
+            if getattr(t, "kwargs", None) and key in t.kwargs
+        ]
+        if not vals:
+            continue
+        norm = {_normalize_prop_method(v) for v in vals}
+        # what the trajectories WITHOUT the attribute resolve to: the
+        # global keyword, falling back to prop_method, then the default
+        base = out[i]
+        if base is None and key != "prop_method":
+            base = out[0]
+        eff_default = _normalize_prop_method(base)
+        partial_hetero = len(vals) < K and norm != {eff_default}
+        if len(norm) > 1 or partial_hetero:
+            raise NotImplementedError(
+                "per-trajectory-heterogeneous propagator settings in a "
+                "single compiled problem are not supported: trajectories "
+                f"specify {key} in {sorted(norm)} ({len(vals)}/{K} "
+                "trajectories carry the attribute).  Use optimize(), which "
+                "partitions such ensembles into uniform problems with the "
+                "functional assembled over all of them "
+                "(fg_hetero.compile_heterogeneous), or pass one global "
+                f"{key}= here"
+            )
+        val = vals[0]
+        base = out[i]
+        if base is not None and (
+            _normalize_prop_method(base) != _normalize_prop_method(val)
+        ):
+            raise ValueError(
+                f"trajectory attribute {key}={val!r} conflicts with "
+                f"the global {key}={base!r} keyword argument"
+            )
+        out[i] = val
+    return tuple(out)
 
 
 def _check_ported(gradient_method, storage_mode, options):
@@ -311,6 +370,7 @@ def compile_problem(
     fw_prop_callback=None,
     fw_prop_observables=None,
     device=None,
+    _controls=None,
     **options,
 ):
     """Compile trajectories + tlist into a :class:`CompiledProblem`.
@@ -333,31 +393,30 @@ def compile_problem(
     ``storage_mode="recompute"`` keeps ``storage_segments`` (default: the
     divisor of N_T nearest √N_T) checkpoints instead of every state;
     ``fw_prop_callback`` (full storage only) receives the per-step
-    ``fw_prop_observables`` once per evaluation.  A keyword for a feature
+    ``fw_prop_observables`` once per evaluation.  Propagator settings
+    carried by the trajectories are merged by
+    :func:`_merge_traj_prop_settings`.  ``_controls`` (the heterogeneous
+    compile's) gives the GLOBAL control list, so that every partition of an
+    ensemble shares one pulse layout; a control that a partition's
+    generators do not couple to gets zero columns.  A keyword for a feature
     that is not ported yet raises ``NotImplementedError``; an unknown
     keyword raises ``TypeError``.
     """
     device = resolve_device(device)
     _check_ported(gradient_method, storage_mode, options)
-    methods = _prop_methods(prop_method, fw_prop_method, bw_prop_method,
-                            grad_prop_method)
     trajectories = list(trajectories)
     tlist = np.asarray(tlist, dtype=np.float64)
     N_T = len(tlist) - 1
     K = len(trajectories)
     if K == 0:
         raise ValueError("no trajectories")
-    for t in trajectories:
-        for key in ("prop_method", "fw_prop_method", "bw_prop_method",
-                    "grad_prop_method"):
-            if key in getattr(t, "kwargs", {}):
-                raise NotImplementedError(
-                    f"per-trajectory {key} settings are not ported to "
-                    "grape_tpu_torch yet"
-                )
+    methods = _prop_methods(*_merge_traj_prop_settings(
+        trajectories, prop_method, fw_prop_method, bw_prop_method,
+        grad_prop_method))
 
     generators = [t.generator for t in trajectories]
-    controls = get_controls(generators)
+    controls = (tuple(_controls) if _controls is not None
+                else get_controls(generators))
     L = len(controls)
     if L == 0:
         raise ValueError(
@@ -867,7 +926,10 @@ def uses_static_envelope(cp: CompiledProblem):
     envelope bucket (and builds the tables again) when the optimizer
     pushes a pulse past it.  Unlike the reference, whose forward kernels
     are off under recompute, the port runs each recomputed segment through
-    the forward kernels, so their clause holds in both storage modes."""
+    the forward kernels, so their clause holds in both storage modes.  A
+    heterogeneous problem asks each of its partitions."""
+    if hasattr(cp, "parts"):  # heterogeneous compile
+        return any(uses_static_envelope(p) for p in cp.parts)
     if "cheby" in (cp.fw_prop_method, cp.bw_prop_method,
                    cp.grad_prop_method):
         return True
@@ -1940,6 +2002,84 @@ def _forward_checkpoints(cp: CompiledProblem, consts, coeffs, amp_max,
     return torch.stack(checkpoints), psi, gb_sum
 
 
+def _evaluate_forward(cp: CompiledProblem, consts, coeffs, amp_max, pds,
+                      want_U):
+    """The forward pass in either storage mode, from the coefficient table
+    ``coeffs`` of the current pulse: ``(storage, checkpoints, psi_T,
+    gb_sum, Us)``.  Full storage: ``storage (N_T+1, K, d)``, checkpoints
+    None, ``Us`` the step propagators where ``want_U`` asks for them (a
+    forward scan may emit them unasked).  Recompute: storage None,
+    ``checkpoints (S, K, d)``, ``Us`` None.  ``gb_sum`` is the weighted sum
+    of ``g_b`` over the grid, or None.  One entry point for ``build_fg``,
+    ``build_f``, the heterogeneous builder (per partition) and Krotov's
+    method."""
+    if cp.storage_mode == "recompute":
+        checkpoints, psi_T, gb_sum = _forward_checkpoints(
+            cp, consts, coeffs, amp_max, pds)
+        return None, checkpoints, psi_T, gb_sum, None
+    storage, Us = _forward(cp, consts, coeffs, amp_max, pds, want_U=want_U)
+    gb_sum = None if cp.g_b is None else _running_cost(cp, consts, storage)
+    return storage, None, storage[-1], gb_sum, Us
+
+
+def _backward_plan(cp: CompiledProblem, amp_max):
+    """``(vec_gg, n_orders, reuse_U)``: the backward pass an evaluation
+    takes (the vectorized gradgen pass; the vectorized Taylor pass with its
+    static order count where one within ``taylor_grad_max_order`` exists;
+    else the per-step pass) and whether the forward pass keeps the
+    propagator stream for the co-state chain (under recompute: a segment's
+    propagators, for the vectorized passes)."""
+    vec_gg = _vec_gradgen_enabled(cp)
+    n_orders = None
+    if cp.gradient_method == "taylor" and cp.vectorize_backward:
+        n_orders = _vectorized_taylor_orders(cp, amp_max)
+    reuse_U = _reuse_U_enabled(cp) or (vec_gg and _gg_u_bytes_ok(cp))
+    if cp.storage_mode == "recompute" and (vec_gg or n_orders is not None):
+        reuse_U = _seg_reuse_U(cp)
+    return vec_gg, n_orders, reuse_U
+
+
+def _tau_grads_pass(cp: CompiledProblem, consts, coeffs, dM, amp_max, pds,
+                    storage, checkpoints, Us, chi_hat, rho, safe_rho):
+    """The backward gradient pass from the forward results of
+    :func:`_evaluate_forward` and the normalized boundary co-states
+    ``chi_hat`` (with their norms ``rho`` and ``safe_rho``):
+    ``(tau_grads (N_T, K, L), taylor_ok)``.  The pass of
+    :func:`_backward_plan` over the whole grid, or under recompute segment
+    by segment in reverse: each segment propagated again from its
+    checkpoint (through the same forward kernels, one launch per segment,
+    with its propagators while ``_seg_reuse_U`` allows), then phases A and
+    B over its window.  Shared by ``build_fg`` and the heterogeneous
+    builder, which runs it per partition on its rows of ``chi_hat``."""
+    vec_gg, n_orders, reuse_U = _backward_plan(cp, amp_max)
+    if cp.storage_mode != "recompute":
+        if not reuse_U:
+            Us = None  # a forward scan may emit them unasked
+        tau_grads, taylor_ok, _ = _backward_window(
+            cp, consts, coeffs, dM, storage[:-1], Us, chi_hat, rho,
+            safe_rho, amp_max, pds, 0, vec_gg, n_orders)
+        return tau_grads, taylor_ok
+    S = cp.storage_segments
+    seg = cp.n_timesteps // S
+    tau_grads = torch.empty((cp.n_timesteps, cp.n_traj, cp.n_controls),
+                            dtype=consts["cdtype"], device=chi_hat.device)
+    taylor_ok = torch.ones((), dtype=torch.bool, device=chi_hat.device)
+    chi = chi_hat
+    for s in range(S - 1, -1, -1):
+        n0 = s * seg
+        cs, co, dMw = _window(cp, consts, coeffs, dM, n0, n0 + seg)
+        states, Us_s = _forward(cp, cs, co, amp_max, pds, want_U=reuse_U,
+                                psi0=checkpoints[s], n0=n0)
+        if not reuse_U:
+            Us_s = None  # a forward scan may emit them unasked
+        grads, ok, chi = _backward_window(
+            cp, cs, co, dMw, states[:-1], Us_s, chi, rho, safe_rho,
+            amp_max, pds, n0, vec_gg, n_orders)
+        tau_grads[n0:n0 + seg] = grads
+        taylor_ok = taylor_ok & ok
+    return tau_grads, taylor_ok
+
+
 def _fw_observables(cp: CompiledProblem, consts, storage):
     """Per-step observable values over the stored forward states: each of
     ``fw_prop_observables`` ``(Psi (K, d), tlist, n) -> array`` at every
@@ -1971,27 +2111,23 @@ def _zero_tau(cp, consts, device):
 def build_f(cp: CompiledProblem, amp_max=None, device=None):
     """Functional-only evaluation ``f(pulsevals) -> (J, aux)`` (line-search
     F-only probes).  ``device=None`` means the device the problem was
-    compiled for."""
+    compiled for.  A heterogeneous problem (``fg_hetero``) gets
+    ``build_f_hetero``."""
+    if hasattr(cp, "parts"):  # heterogeneous compile
+        from .fg_hetero import build_f_hetero
+
+        return build_f_hetero(cp, amp_max=amp_max, device=device)
     device = cp.device if device is None else resolve_device(device)
     consts = _device_constants(cp, device)
     pds = _prop_data_on(_prop_data(cp, amp_max), device)
-    recompute = cp.storage_mode == "recompute"
 
     @torch.no_grad()
     def f(pulsevals):
         pulsevals = _as_pulse(pulsevals, consts, device)
         eps = pulsevals.reshape(cp.n_controls, cp.n_timesteps)
         coeffs, _ = _coeff_tables(cp, consts, eps)
-        storage = None
-        if recompute:
-            _, psi_T, gb_sum = _forward_checkpoints(cp, consts, coeffs,
-                                                    amp_max, pds)
-        else:
-            storage, _ = _forward(cp, consts, coeffs, amp_max, pds,
-                                  want_U=False)
-            psi_T = storage[-1]
-            gb_sum = (None if cp.g_b is None
-                      else _running_cost(cp, consts, storage))
+        storage, _, psi_T, gb_sum, _ = _evaluate_forward(
+            cp, consts, coeffs, amp_max, pds, want_U=False)
         J_T_val, J_a_val, J_b_val, tau = _J_parts(cp, pulsevals, psi_T,
                                                   gb_sum)
         J = J_T_val + J_a_val + J_b_val
@@ -2014,98 +2150,46 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
     the device) with the flat l-major pulse layout
     ``[ε_11.. ε_{N_T}1, ε_12..]``.  ``aux`` has the reference's keys;
     ``tau`` and ``psi_T`` (and ``fw_observables``) are complex tensors.
-    ``device=None`` means the device the problem was compiled for.
+    ``device=None`` means the device the problem was compiled for.  A
+    heterogeneous problem (``fg_hetero``) gets ``build_fg_hetero``.
 
-    Under ``storage_mode="recompute"`` the forward pass keeps one state per
-    segment, and the backward pass propagates each segment again from its
-    checkpoint (through the same forward kernels, one launch per segment,
-    with the segment's propagators while ``_seg_reuse_U`` allows), then
-    runs phases A and B over that segment's window (the Fréchet kernels
-    take one segment window per launch).
+    The forward pass is :func:`_evaluate_forward` and the gradient
+    :func:`_tau_grads_pass`: under ``storage_mode="recompute"`` the forward
+    pass keeps one state per segment and the backward pass propagates each
+    segment again from its checkpoint.
     """
+    if hasattr(cp, "parts"):  # heterogeneous compile
+        from .fg_hetero import build_fg_hetero
+
+        return build_fg_hetero(cp, amp_max=amp_max, device=device)
     device = cp.device if device is None else resolve_device(device)
     consts = _device_constants(cp, device)
     pds = _prop_data_on(_prop_data(cp, amp_max), device)
     cdt = consts["cdtype"]
-    recompute = cp.storage_mode == "recompute"
-    # the three backward passes: vectorized gradgen; vectorized taylor
-    # where a static order count within taylor_grad_max_order exists; else
-    # the per-step pass
-    vec_gg = _vec_gradgen_enabled(cp)
-    n_orders = None
-    if cp.gradient_method == "taylor" and cp.vectorize_backward:
-        n_orders = _vectorized_taylor_orders(cp, amp_max)
     # keep the propagator stream for the co-state chain while it fits its
-    # budget (taylor: unless reuse_propagators says otherwise); under
-    # recompute, a segment's propagators for the vectorized passes
-    reuse_U = _reuse_U_enabled(cp) or (vec_gg and _gg_u_bytes_ok(cp))
-    if recompute and (vec_gg or n_orders is not None):
-        reuse_U = _seg_reuse_U(cp)
+    # budget (taylor: unless reuse_propagators says otherwise)
+    reuse_U = _backward_plan(cp, amp_max)[2]
 
     @torch.no_grad()
     def fg(pulsevals):
         pulsevals = _as_pulse(pulsevals, consts, device)
         eps = pulsevals.reshape(cp.n_controls, cp.n_timesteps)
         coeffs, dM = _coeff_tables(cp, consts, eps)
-        if recompute:
-            storage = None
-            checkpoints, psi_T, gb_sum = _forward_checkpoints(
-                cp, consts, coeffs, amp_max, pds)
-        else:
-            storage, Us = _forward(cp, consts, coeffs, amp_max, pds,
-                                   want_U=reuse_U)
-            psi_T = storage[-1]
-            gb_sum = (None if cp.g_b is None
-                      else _running_cost(cp, consts, storage))
+        storage, checkpoints, psi_T, gb_sum, Us = _evaluate_forward(
+            cp, consts, coeffs, amp_max, pds, want_U=reuse_U)
         J_T_val, J_a_val, J_b_val, tau = _J_parts(cp, pulsevals, psi_T,
                                                   gb_sum)
         J = J_T_val + J_a_val + J_b_val
 
         chi_T = _chi_boundary(cp, consts, psi_T, tau).to(cdt)
-        rho = torch.sqrt(torch.sum(torch.abs(chi_T) ** 2, dim=-1))  # (K,)
-        chi_ok = torch.all(rho > cp.chi_min_norm)
-        safe_rho = torch.where(rho > 0, rho, torch.ones_like(rho))
-        chi_hat = chi_T / safe_rho[:, None].to(cdt)
-
-        taylor_ok = torch.ones((), dtype=torch.bool, device=device)
-        if recompute:
-            S = cp.storage_segments
-            seg = cp.n_timesteps // S
-            tau_grads = torch.empty(
-                (cp.n_timesteps, cp.n_traj, cp.n_controls), dtype=cdt,
-                device=device)
-            chi = chi_hat
-            for s in range(S - 1, -1, -1):
-                n0 = s * seg
-                cs, co, dMw = _window(cp, consts, coeffs, dM, n0, n0 + seg)
-                states, Us = _forward(cp, cs, co, amp_max, pds,
-                                      want_U=reuse_U,
-                                      psi0=checkpoints[s], n0=n0)
-                if not reuse_U:
-                    Us = None  # a forward scan may emit them unasked
-                grads, ok, chi = _backward_window(
-                    cp, cs, co, dMw, states[:-1], Us, chi, rho, safe_rho,
-                    amp_max, pds, n0, vec_gg, n_orders)
-                tau_grads[n0:n0 + seg] = grads
-                taylor_ok = taylor_ok & ok
-        else:
-            if not reuse_U:
-                Us = None  # a forward scan may emit them unasked
-            tau_grads, taylor_ok, _ = _backward_window(
-                cp, consts, coeffs, dM, storage[:-1], Us, chi_hat, rho,
-                safe_rho, amp_max, pds, 0, vec_gg, n_orders)
+        rho, chi_ok, safe_rho, chi_hat = _normalized_costates(cp, chi_T)
+        tau_grads, taylor_ok = _tau_grads_pass(
+            cp, consts, coeffs, dM, amp_max, pds, storage, checkpoints, Us,
+            chi_hat, rho, safe_rho)
 
         grad_Tb = -2.0 * torch.real(torch.sum(tau_grads, dim=1))  # (N_T, L)
-        grad_Tb_flat = grad_Tb.T.reshape(-1)  # l-major flat layout
-        grad = grad_Tb_flat
-        if cp.grad_J_a is not None:
-            grad_J_a_flat = torch.reshape(
-                torch.as_tensor(cp.grad_J_a(pulsevals, cp.tlist)),
-                grad.shape,
-            ).to(grad.dtype)
-            grad = grad + cp.lambda_a * grad_J_a_flat
-        else:
-            grad_J_a_flat = torch.zeros_like(grad)
+        grad, grad_Tb_flat, grad_J_a_flat = _assemble_grad(cp, pulsevals,
+                                                           grad_Tb)
         aux = {
             "grad_J_Tb": grad_Tb_flat,
             "grad_J_a": grad_J_a_flat,
@@ -2121,3 +2205,29 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
         return J, grad, aux
 
     return fg
+
+
+def _normalized_costates(cp, chi_T):
+    """``(ρ, chi_ok, safe ρ, χ̂)``: the norms of the boundary co-states
+    ``chi_T (K, d)``, whether all exceed ``chi_min_norm``, the norms with
+    zeros replaced by one, and the co-states divided by them."""
+    rho = torch.sqrt(torch.sum(torch.abs(chi_T) ** 2, dim=-1))  # (K,)
+    chi_ok = torch.all(rho > cp.chi_min_norm)
+    safe_rho = torch.where(rho > 0, rho, torch.ones_like(rho))
+    return rho, chi_ok, safe_rho, chi_T / safe_rho[:, None].to(chi_T.dtype)
+
+
+def _assemble_grad(cp, pulsevals, grad_Tb):
+    """``(grad, grad_J_Tb, grad_J_a)`` flat in the l-major layout from the
+    ``(N_T, L)`` final-time gradient ``grad_Tb``, with ``λ_a ∇J_a`` added
+    where there is a pulse running cost."""
+    grad_Tb_flat = grad_Tb.T.reshape(-1)  # l-major flat layout
+    grad = grad_Tb_flat
+    if cp.grad_J_a is not None:
+        grad_J_a_flat = torch.reshape(
+            torch.as_tensor(cp.grad_J_a(pulsevals, cp.tlist)), grad.shape,
+        ).to(grad.dtype)
+        grad = grad + cp.lambda_a * grad_J_a_flat
+    else:
+        grad_J_a_flat = torch.zeros_like(grad)
+    return grad, grad_Tb_flat, grad_J_a_flat

@@ -11,6 +11,7 @@ silently returning the stale result.  A crash dump (``optimize``'s
 ``atexit_filename``) is resumed, never returned as a finished result.
 """
 
+import datetime
 import hashlib
 import os
 import pickle
@@ -177,8 +178,21 @@ class _LoadedResult:
 
 
 def load_result(filename):
+    """The result saved in ``filename``: a Krotov result (``method`` =
+    ``"krotov"`` in its data) as a
+    :class:`~grape_tpu_torch.krotov.KrotovResult`, anything else as a
+    duck-typed :class:`GrapeResult`."""
     with open(filename, "rb") as fh:
         data = pickle.load(fh)
+    if data.get("method") == "krotov":
+        from .krotov import KrotovResult
+
+        res = KrotovResult.__new__(KrotovResult)
+        # the times are not saved: a continued run starts its clock anew
+        res.start_local_time = res.end_local_time = datetime.datetime.now()
+        res.__dict__.update(data)
+        res.__dict__.pop("method")
+        return res
     return _LoadedResult(data)
 
 

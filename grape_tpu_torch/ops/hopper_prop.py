@@ -23,7 +23,10 @@ every grouping:
   global-scratch kernel of ``csrc/prop_scan.cu``; the state chains of both
   directions from the cluster scan of ``csrc/state_scan.cu``
   (:func:`scan_route`), or, where not even its two-stage ring fits, the
-  one-block scans of ``csrc/prop_scan.cu``.
+  one-block scans of ``csrc/prop_scan.cu``.  Past the shared memory of the
+  one-block χ scan (its ``(1 + 8)·4·d`` partial sums: ``d > 807``) the χ
+  chain runs as the one-block forward apply-scan over the adjoint
+  propagators in reverse order (:func:`_chi_by_apply`).
 - :func:`chi_scan_shared` replaces ``chi_scan_pallas_shared``, and
   :func:`chi_scan_grouped` is the same chain over grouped or per-trajectory
   stored propagators (a scan of small products in the reference): in
@@ -91,8 +94,13 @@ route_launches = {
     "propagators_cluster": 0, "propagators_global": 0,
     "state_scan_forward": 0, "state_scan_chi": 0,
     "state_scan_legacy_forward": 0, "state_scan_legacy_chi": 0,
+    "state_scan_legacy_chi_by_apply": 0,
     "smalld_fused": 0, "smalld_pair": 0,
 }
+
+# the one-block χ scan's blocks: 4 trajectories, 8 row groups of partial
+# sums (csrc/prop_scan.cu kKB, kRowGroups)
+_LEGACY_KB, _LEGACY_ROW_GROUPS = 4, 8
 
 # shared memory one block may use on sm_90, in bytes
 _SMEM_MAX = 232448
@@ -639,6 +647,15 @@ def _state_scan(lib, U, x0, out, x_out, chi):
                 _stream(device),
             ), f"cluster state scan ({direction}) launch")
             route_launches[f"state_scan_{direction}"] += 1
+        elif chi and not legacy_chi_fits(d):
+            def apply(V, x, states):
+                check(lib, lib.grape_forward_apply(
+                    V.data_ptr(), x.data_ptr(), states.data_ptr(), C, K, d,
+                    G, gs, _stream(device),
+                ), "forward apply-scan kernel launch (chi chain)")
+
+            _chi_by_apply(apply, U, x0.contiguous(), out, x_out)
+            route_launches["state_scan_legacy_chi_by_apply"] += 1
         elif chi:
             check(lib, lib.grape_chi_scan(
                 U.data_ptr(), x0.data_ptr(), out.data_ptr(),
@@ -652,6 +669,31 @@ def _state_scan(lib, U, x0, out, x_out, chi):
                 _stream(device),
             ), "forward apply-scan kernel launch")
             route_launches["state_scan_legacy_forward"] += 1
+
+
+def legacy_chi_fits(d):
+    """True where the one-block χ scan's shared memory (the state and the
+    partial sums of its row groups, ``(1 + 8)·4·d`` complex entries) fits
+    one block: ``d ≤ 807``."""
+    smem = (1 + _LEGACY_ROW_GROUPS) * _LEGACY_KB * int(d) * 8
+    return smem <= _SMEM_MAX
+
+
+def _chi_by_apply(apply, U, x0, out, x_out):
+    """The χ chain over ``U (C, G, d, d)`` from ``x0 (K, d)`` by a forward
+    apply-scan: ``χ ← χ·conj(U_n)`` in reverse time is ``ψ ← ψ·V_jᵀ`` with
+    ``V_j = U_{C-1-j}†`` forward.  ``apply(V, x0, states)`` writes the
+    ``(C+1, K, d)`` states; ``out`` gets ``chis[n] = χ(t_{n+1})``, the
+    states in reverse, and ``x_out`` (where given) χ carried out of the
+    window.  A copy of the propagators, adjoint and reversed, is made."""
+    C = U.shape[0]
+    V = U.flip(0).transpose(-1, -2).conj().contiguous()
+    states = torch.empty((C + 1,) + tuple(x0.shape), dtype=x0.dtype,
+                         device=x0.device)
+    apply(V, x0, states)
+    out.copy_(states[:-1].flip(0))
+    if x_out is not None:
+        x_out.copy_(states[-1])
 
 
 def _chi_window(lib, Us, chi, chis, carry):

@@ -20,18 +20,21 @@ __all__ = ["optimize", "optimize_problem", "run_optimizer"]
 
 def optimize_problem(problem, method="grape", **updates):
     """Optimize a :class:`~grape_tpu_torch.trajectory.ControlProblem`
-    (``QuantumControl.optimize(problem; method=GRAPE)`` analog).  Krotov's
-    method is not ported yet."""
+    (``QuantumControl.optimize(problem; method=GRAPE)`` analog);
+    ``method="krotov"`` dispatches to
+    :func:`grape_tpu_torch.optimize_krotov`."""
     kwargs = dict(problem.kwargs)
     kwargs.update(updates)
     method_l = str(method).lower()
     if method_l == "krotov":
-        raise NotImplementedError(
-            "method='krotov' is not ported to grape_tpu_torch yet"
-        )
+        from .krotov import optimize_krotov
+
+        return optimize_krotov(problem.trajectories, problem.tlist,
+                               **kwargs)
     if method_l != "grape":
         raise ValueError(
-            f"Unknown optimization method {method!r} (supported: 'grape')"
+            f"Unknown optimization method {method!r} "
+            "(supported: 'grape', 'krotov')"
         )
     return optimize(problem.trajectories, problem.tlist, **kwargs)
 
@@ -66,6 +69,13 @@ def optimize(trajectories, tlist, **kwargs):
     from it.  ``profile_dir`` traces the optimization loop with
     ``torch.profiler`` (the host, and the card when the problem runs on
     CUDA) and writes a Chrome trace into that directory.
+
+    Trajectories may carry their own ``prop_method`` (and
+    ``fw_/bw_/grad_prop_method``): an ensemble whose members differ is
+    partitioned into uniform problems (``fg_hetero``), with the functional
+    and the gradient assembled over all of them.  ``continue_from`` takes a
+    :class:`GrapeResult`, a :class:`~grape_tpu_torch.krotov.KrotovResult`
+    or a reloaded one, with continuous iteration numbers.
 
     ``device=None`` means the CUDA device and raises if there is none;
     pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.

@@ -11,10 +11,14 @@ The pulse vector is simply the argument of ``fg``; mutation by the optimizer
 (or by a callback) is honored because every evaluation passes the current
 vector to the device.
 
-After each evaluation the ``fw_prop_callback`` (if any) receives the
-per-step observables.  Left out on purpose, as workarounds of the TPU
-platform the port does not have: background pre-warm threads (there is no
-compile step to hide), multi-call evaluations and device-argument builds.
+Trajectories whose own propagator settings differ are partitioned first
+(``fg_hetero.traj_prop_partition``) and compiled into one problem per
+partition (``fg_hetero.compile_heterogeneous``), as the reference's
+workspace does.  After each evaluation the ``fw_prop_callback`` (if any)
+receives the per-step observables.  Left out on purpose, as workarounds of
+the TPU platform the port does not have: background pre-warm threads (there
+is no compile step to hide), multi-call evaluations and device-argument
+builds.
 ``mesh=`` sharding is not ported yet and raises.
 """
 
@@ -22,6 +26,7 @@ import numpy as np
 
 from .controls import discretize_on_midpoints
 from .fg import build_f, build_fg, compile_problem, uses_static_envelope
+from .fg_hetero import compile_heterogeneous, traj_prop_partition
 from .result import GrapeResult
 
 __all__ = [
@@ -82,9 +87,16 @@ class GrapeWrk:
         self.kwargs = dict(kwargs)
         self.trajectories = list(trajectories)
         self.tlist = np.asarray(tlist, dtype=np.float64)
-        self.cp = compile_problem(
-            trajectories, tlist, **_compile_kwargs(self.kwargs)
-        )
+        compile_kwargs = _compile_kwargs(self.kwargs)
+        partition = traj_prop_partition(self.trajectories, compile_kwargs)
+        if partition is not None:
+            # per-trajectory propagator settings that differ: one compiled
+            # problem per partition, the functional assembled over all
+            self.cp = compile_heterogeneous(
+                self.trajectories, tlist, partition, **compile_kwargs
+            )
+        else:
+            self.cp = compile_problem(trajectories, tlist, **compile_kwargs)
         self.controls = self.cp.controls
         L, N_T = self.cp.n_controls, self.cp.n_timesteps
         self.n = L * N_T

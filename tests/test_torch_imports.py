@@ -50,7 +50,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "grape_tpu_torch/generators.py", "grape_tpu_torch/propagate.py",
             "grape_tpu_torch/io.py", "grape_tpu_torch/testing.py",
             "grape_tpu_torch/flops.py",
-            "grape_tpu_torch/models/open.py"} <= rel
+            "grape_tpu_torch/models/open.py",
+            "grape_tpu_torch/fg_hetero.py",
+            "grape_tpu_torch/krotov.py"} <= rel
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -68,7 +70,8 @@ def test_importing_the_port_does_not_load_jax():
         "import sys, grape_tpu_torch, grape_tpu_torch.ops.hopper_prop, "
         "grape_tpu_torch.ops.hopper_frechet, grape_tpu_torch.optimizers.lbfgsb, "
         "grape_tpu_torch.testing, grape_tpu_torch.flops, grape_tpu_torch.io, "
-        "grape_tpu_torch.models.open;"
+        "grape_tpu_torch.models.open, grape_tpu_torch.fg_hetero, "
+        "grape_tpu_torch.krotov;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'grape_tpu', 'triton')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -82,7 +85,18 @@ def test_importing_the_port_does_not_load_jax():
 
 ENTRY_POINTS = ["optimize", "optimize_problem", "compile_problem",
                 "build_fg", "build_f", "compiled_problem_from_numpy",
-                "ensemble"]
+                "ensemble", "optimize_krotov", "krotov_problem",
+                "compile_heterogeneous", "hetero_build_fg",
+                "hetero_optimize", "hetero_problem_from_numpy"]
+
+
+def _mixed_trajectories():
+    """Three TLS trajectories, one on the Chebyshev series: a partition."""
+    problem = tls_problem(n_steps=10, J_T=J_T_sm)
+    t0 = problem.trajectories[0]
+    return [gt.Trajectory(t0.initial_state, t0.generator,
+                          target_state=t0.target_state, **kw)
+            for kw in ({"prop_method": "cheby"}, {}, {})], problem.tlist
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
@@ -106,6 +120,30 @@ def test_device_none_raises_without_cuda(entry):
                                                  n_steps=4),
                 rethrow_exceptions=True,
             )
+        elif entry == "optimize_krotov":
+            gt.optimize_krotov(trajs, tlist, J_T=J_T_sm,
+                               rethrow_exceptions=True)
+        elif entry == "krotov_problem":
+            gt.optimize_problem(problem, method="krotov",
+                                rethrow_exceptions=True)
+        elif entry == "compile_heterogeneous":
+            mixed, tl = _mixed_trajectories()
+            gt.fg_hetero.compile_heterogeneous(
+                mixed, tl, gt.fg_hetero.traj_prop_partition(mixed, {}),
+                J_T=J_T_sm)
+        elif entry == "hetero_build_fg":
+            mixed, tl = _mixed_trajectories()
+            hp = gt.fg_hetero.compile_heterogeneous(
+                mixed, tl, gt.fg_hetero.traj_prop_partition(mixed, {}),
+                J_T=J_T_sm, device="cpu")
+            # a problem compiled for the CPU, explicitly asked onto CUDA
+            gt.build_fg(hp, device="cuda")(hp.guess_pulsevals.reshape(-1))
+        elif entry == "hetero_optimize":
+            mixed, tl = _mixed_trajectories()
+            gt.optimize(mixed, tl, J_T=J_T_sm, rethrow_exceptions=True)
+        elif entry == "hetero_problem_from_numpy":
+            gt.hetero_problem_from_numpy({"parts": [], "part_idx": []},
+                                         J_T="J_T_sm")
         else:
             cp = gt.compile_problem(trajs, tlist, J_T=J_T_sm, device="cpu")
             # a problem compiled for the CPU, explicitly asked onto CUDA

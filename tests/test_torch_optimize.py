@@ -421,9 +421,11 @@ def test_unported_constructs_raise(monkeypatch):
             target_state=[0, 1])],
         tlist, J_T=J_T_sm, device="cpu")
     assert [j for j, _, _ in cp_c.custom_terms] == [0]
-    with pytest.raises(NotImplementedError, match="krotov"):
-        optimize_problem(tls_problem(J_T=J_T_sm), method="krotov",
-                         device="cpu")
+    # Krotov's method, refused until it was ported, now dispatches
+    kres = optimize_problem(tls_problem(J_T=J_T_sm, n_steps=50),
+                            method="krotov", device="cpu", iter_stop=1,
+                            print_iters=False, rethrow_exceptions=True)
+    assert isinstance(kres, gt.KrotovResult) and kres.iter == 1
     # two different Hamiltonians (per-trajectory generators, aligned to the
     # union of their controls) compile; with a complex128 propagator stream
     # beyond its storage budget they take the per-step backward pass
