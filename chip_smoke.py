@@ -57,7 +57,13 @@ every evaluation went through the kernels:
   three iterations, and the same split at dim 256 against the plain
   versions; Krotov's method (``optimize_krotov``) on the CZ at dim 100,
   N_T = 2000, on a per-trajectory ensemble and in the Krotov→GRAPE
-  continuation of ``examples/07``.
+  continuation of ``examples/07``;
+- the kernels past the cluster kernels (d > 108): the wide propagator
+  kernel against the global-scratch one, its plain version and
+  ``torch.linalg.matrix_exp`` at d = 128, 256, 512 and 1024, the grid state
+  scans against the one-block scans at d = 512 and 1024, and the CZ at 12
+  levels a transmon (dim 144, N_T = 2000, taylor) evaluated against its
+  plain version.
 
 Each phase prints one JSON line and raises on failure; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -1431,11 +1437,111 @@ def prop_routes_phase(cp, cp_ens, s_main, dev):
     for r in rows:
         require(r["cluster_ms"] < r["global_ms"], "the cluster propagator "
                 f"kernel is slower than the global one at {r}")
+    wide_rows, k_wide = wide_route_rows(dev)
     emit({"phase": "prop_routes", "tol": TOL_STATE,
           "resident_clusters": hp.load_kernels()
-          .grape_propagators_cluster_resident(d), "rows": rows})
+          .grape_propagators_cluster_resident(d), "rows": rows,
+          "wide_rows": wide_rows})
+    for r in wide_rows:
+        require(r["wide_ms"] < r["global_ms"], "the wide propagator kernel "
+                f"is slower than the global one at {r}")
+        require(r["d"] < 256 or r["wide_ms"] <= r["plain_ms"],
+                f"the wide propagator kernel is slower than plain at {r}")
     zero_counts(hp)
-    return k1
+    return k1, k_wide
+
+
+# the wide propagator kernel's shapes: (d, N_T), one seeded generator, and
+# the items each route is also held against complex128 on
+WIDE_ROUTE_SHAPES = ((128, 2000), (256, 2000), (512, 400), (1024, 100))
+WIDE_C128_ITEMS = 8
+
+
+def wide_route_rows(dev):
+    """The wide propagator kernel (the rule's route past d = 108) against
+    the global-scratch kernel forced, the plain version and
+    ``torch.linalg.matrix_exp`` on the same exponentials, at the
+    ``WIDE_ROUTE_SHAPES`` (seeded Hermitian generators of the spread of
+    ``random_group_inputs``, one group, T = 4), each at s = 0 and at the
+    squaring count the 1-norm rule gives these generators (``expm``'s,
+    theta = 2); the bound both ways: 6 d^3 operations a product (the
+    Karatsuba form the kernel computes) and 8 d^3 (four real products).
+    Each kernel within ``TOL_STATE`` of plain.  Returns ``(rows, the kernel
+    line's numbers at d = 1024 and its s)``."""
+    from grape_tpu_torch.ops import hopper_prop as hp
+    from grape_tpu_torch.ops.expm import _norm_squarings
+
+    c128 = lambda x: x.to(torch.complex128 if x.is_complex()
+                          else torch.float64)
+    rng = np.random.default_rng(SEED + 11)
+    rows, k_wide = [], {}
+    for d, N_T in WIDE_ROUTE_SHAPES:
+        H0, ops, co, dts, _, _ = random_group_inputs(rng, dev, d, 1, 1, 4,
+                                                     N_T, 10.0, False)
+        A = ((-1j * dts.to(torch.complex64))[:, None, None] * (
+            H0 + torch.einsum("nt,tij->nij", co.to(torch.complex64), ops[0])))
+        s_path = _norm_squarings(A, 2.0, 32)
+        reps = 3 if N_T * d ** 3 < 4e11 else 2
+        for s in sorted({0, s_path}):
+            U, ms = {}, {}
+            for route in ("wide", "global"):
+                with hp._forced_routes(propagators=route):
+                    fn = (lambda: hp.propagators(H0, ops, co, dts, s))
+                    U[route] = fn()
+                    ms[route] = median_ms(fn, reps=reps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            U_p = hp._propagators_plain(H0, ops, co, dts, s)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = {r: max_abs(u, U_p) for r, u in U.items()}
+            require(finite(U["wide"]) and max(err.values()) < TOL_STATE,
+                    f"propagators at d={d}, s={s} disagree with their plain "
+                    f"version: {err}")
+            # each route's distance from complex128 on the first items
+            n_x = WIDE_C128_ITEMS
+            U_x = hp._propagators_plain(c128(H0), c128(ops), c128(co[:n_x]),
+                                        c128(dts[:n_x]), s)
+            err_x = {r: max_abs(u[:n_x].to(torch.complex128), U_x)
+                     for r, u in (("wide", U["wide"]), ("global", U["global"]),
+                                  ("plain", U_p))}
+            del U_x
+            products = N_T * (6 + s)
+            byts = nbytes(H0, ops, co, dts, U["wide"])
+            b6, b6_by = bound(products * 6.0 * d ** 3, byts)
+            b8, b8_by = bound(products * 8.0 * d ** 3, byts)
+            plan = hp.wide_plan(d, N_T)
+            row = {"d": d, "N_T": N_T, "s": s, "s_path": s_path,
+                   "plan": {k: plan[k] for k in ("tile", "tiles", "window",
+                                                 "windows")},
+                   "wide_ms": ms["wide"], "global_ms": ms["global"],
+                   "plain_ms": plain_ms,
+                   "bound_ms_6d3": b6, "bound_by_6d3": b6_by,
+                   "bound_ms_8d3": b8, "bound_by_8d3": b8_by,
+                   "wide_of_bound_6d3": b6 / ms["wide"],
+                   "wide_tflops_6d3": products * 6.0 * d ** 3
+                   / (ms["wide"] * 1e-3) / 1e12,
+                   "err_wide": err["wide"], "err_global": err["global"],
+                   "err_vs_complex128_first_items": err_x}
+            del U, U_p
+            torch.cuda.empty_cache()
+            if s == s_path:
+                row["library_ms"] = median_ms(
+                    lambda: torch.linalg.matrix_exp(A), reps=reps)
+                row["library_call"] = ("torch.linalg.matrix_exp on the same "
+                                       "(N_T, d, d) matrices")
+            rows.append(row)
+            if d == 1024 and s == s_path:
+                k_wide = {"ms": ms["wide"], "plain_ms": plain_ms,
+                          "library_ms": row["library_ms"],
+                          "library_call": row["library_call"],
+                          "flops": products * 6.0 * d ** 3, "bytes": byts,
+                          "bound_ms_8d3": b8, "err": err["wide"],
+                          "global_route_ms": ms["global"], "d": d,
+                          "N_T": N_T, "squarings": s}
+        del A
+        torch.cuda.empty_cache()
+    return rows, k_wide
 
 
 def scan_routes_phase(dev):
@@ -1535,10 +1641,167 @@ def scan_routes_phase(dev):
         rows.append(row)
         del U, Ut, st, chis, st_p, chis_p
         torch.cuda.empty_cache()
+    grid_rows, k_grid = grid_scan_rows(dev, lib, sms)
+    grid_checks = grid_scan_shapes(dev, lib, sms)
     emit({"phase": "scan_routes", "tol": TOL_STATE, "sm_count": sms,
-          "rows": rows})
+          "rows": rows, "grid_rows": grid_rows,
+          "grid_shapes": {"tol": TOL_TRJ, "checks": grid_checks}})
+    for row in grid_rows:
+        for direction in ("forward", "chi"):
+            require(row[f"grid_{direction}_ms"]
+                    < row[f"legacy_{direction}_ms"],
+                    f"the grid scan ({direction}) is slower than the "
+                    f"one-block scan at {row}")
+            if row["d"] == 1024 and row["K"] == 2:
+                require(row[f"grid_{direction}_ms"] <= GRID_SCAN_LIMIT_MS,
+                        f"the grid scan ({direction}) takes more than "
+                        f"{GRID_SCAN_LIMIT_MS} ms at dim 1024, K = 2: {row}")
     zero_counts(hp)
-    return cz
+    return cz, k_grid
+
+
+# the grid scan's layouts past the paths' shapes: (d, G, gs, N_T) -- odd d
+# (element copies, not TMA), a partial second piece, several chunks with
+# three pieces of 8 entries a CTA, more chunks than SMs (rounds), d < 256
+GRID_SCAN_LAYOUTS = ((419, 1, 1, 20), (450, 1, 4, 12), (450, 3, 5, 12),
+                     (300, 140, 1, 3), (130, 1, 4, 9))
+
+
+def grid_scan_shapes(dev, lib, sms):
+    """The grid scan forced at ``GRID_SCAN_LAYOUTS``, both directions (the
+    co-state with and without the carry), against the plain chains on the
+    same propagators (< TOL_TRJ), with each shape's plan."""
+    from grape_tpu_torch.ops import hopper_prop as hp
+
+    rng = np.random.default_rng(SEED + 13)
+    checks = []
+    for d, G, gs, N_T in GRID_SCAN_LAYOUTS:
+        K = G * gs
+        Hs, Os, cs, ts, p0, x0 = random_group_inputs(rng, dev, d, G, gs, 2,
+                                                     N_T, 10.0, False)
+        U = hp.propagators(Hs, Os, cs, ts, 0)
+        psi, st_p = p0.reshape(G, gs, d), [p0]
+        for n in range(N_T):
+            psi = psi @ U[n].transpose(-1, -2)
+            st_p.append(psi.reshape(K, d))
+        st_p = torch.stack(st_p)
+        chis_p = torch.empty((N_T, K, d), dtype=torch.complex64, device=dev)
+        carry_p = hp.chi_window_plain(U, x0, chis_p)
+        st = torch.empty_like(st_p)
+        chis, chis_nc = torch.empty_like(chis_p), torch.empty_like(chis_p)
+        carry = torch.empty_like(x0)
+        with hp._forced_routes(scan="grid"):
+            hp._state_scan(lib, U, p0, st, None, False)
+            hp._state_scan(lib, U, x0, chis, carry, True)
+            hp._state_scan(lib, U, x0, chis_nc, None, True)
+        torch.cuda.synchronize()
+        e = max(max_abs(st, st_p), max_abs(chis, chis_p),
+                max_abs(carry, carry_p), max_abs(chis_nc, chis_p))
+        plan = hp.scan_route(d, G, gs, sms, cluster="grid")
+        checks.append({"d": d, "G": G, "gs": gs, "N_T": N_T,
+                       "plan": {k: plan[k] for k in (
+                           "kb", "teams", "ctas", "entries", "groups",
+                           "stages")}, "max_abs_err": e})
+        require(finite(st, chis, carry) and e < TOL_TRJ,
+                f"the grid scan disagrees with the plain chains at "
+                f"{checks[-1]}")
+        del U, st, st_p, chis, chis_p, chis_nc
+    zero_counts(hp)
+    return checks
+
+
+# the grid scan's shapes: (d, N_T) at one group of K = 2 and 4, and its
+# limit at dim 1024, N_T = 100, K = 2 (each direction)
+GRID_SCAN_SHAPES = ((512, 400), (1024, 100))
+GRID_SCAN_LIMIT_MS = 2.0
+
+
+def grid_scan_rows(dev, lib, sms):
+    """The grid state scan (the rule's route past the cluster scan) against
+    the one-block scans forced (past d = 807 the χ chain as the forward
+    scan over the reversed adjoint copy) and the plain chains, on the same
+    propagators (the wide kernel's, of seeded generators) and states, at
+    ``GRID_SCAN_SHAPES`` with K = 2 and 4 in one group, both directions
+    (< TOL_STATE).  Returns ``(rows, the kernel line's numbers at dim 1024,
+    K = 2)``."""
+    from grape_tpu_torch.ops import hopper_prop as hp
+
+    rng = np.random.default_rng(SEED + 12)
+    rows, k_grid = [], {}
+    for d, N_T in GRID_SCAN_SHAPES:
+        Hs, Os, cs, ts, _, _ = random_group_inputs(rng, dev, d, 1, 1, 4,
+                                                   N_T, 10.0, False)
+        U = hp.propagators(Hs, Os, cs, ts, 0)
+        Ut = U.transpose(-1, -2)
+        for K in (2, 4):
+            _, _, _, _, p0, x0 = random_group_inputs(rng, dev, d, 1, K, 1, 1,
+                                                     1.0, False)
+            st = torch.empty((N_T + 1, K, d), dtype=torch.complex64,
+                             device=dev)
+            chis = torch.empty((N_T, K, d), dtype=torch.complex64,
+                               device=dev)
+            carry = torch.empty_like(x0)
+            psi, st_p = p0, [p0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for n in range(N_T):
+                psi = psi @ Ut[n, 0]
+                st_p.append(psi)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            st_p = torch.stack(st_p)
+            chis_p = torch.empty_like(chis)
+            carry_p = hp.chi_window_plain(U, x0, chis_p)
+            plan = hp.scan_route(d, 1, K, sms)
+            require(plan["route"] == "grid",
+                    f"d = {d}, K = {K} must take the grid scan: {plan}")
+            row = {"d": d, "K": K, "N_T": N_T, "plan": plan,
+                   "plain_forward_ms": plain_ms}
+            for route in ("grid", "legacy"):
+                with hp._forced_routes(scan=None if route == "grid"
+                                       else "legacy"):
+                    zero_counts(hp)
+                    fwd = lambda: hp._state_scan(lib, U, p0, st, None, False)
+                    chi = lambda: hp._state_scan(lib, U, x0, chis, carry,
+                                                 True)
+                    fwd()
+                    chi()
+                    torch.cuda.synchronize()
+                    row[f"{route}_routes"] = {
+                        k: v for k, v in hp.route_launches.items() if v}
+                    e = max(max_abs(st, st_p), max_abs(chis, chis_p),
+                            max_abs(carry, carry_p))
+                    require(finite(st, chis, carry) and e < TOL_STATE,
+                            f"the {route} state scans disagree with the "
+                            f"plain chains at d={d}, K={K}: {e}")
+                    row[f"{route}_err"] = e
+                    row[f"{route}_forward_ms"] = median_ms(fwd, reps=3)
+                    row[f"{route}_chi_ms"] = median_ms(chi, reps=3)
+            for direction in ("forward", "chi"):
+                row[f"grid_{direction}_us_per_step"] = (
+                    row[f"grid_{direction}_ms"] * 1e3 / N_T)
+            require(row["grid_routes"] == {"state_scan_grid_forward": 1,
+                                           "state_scan_grid_chi": 1},
+                    f"the rule's scans at d={d}, K={K} took "
+                    f"{row['grid_routes']}")
+            b_ms, b_by = bound(N_T * 8.0 * K * d * d, nbytes(U, p0, st))
+            row.update(bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            if d == 1024 and K == 2:
+                k_grid = {"ms": row["grid_forward_ms"],
+                          "ms_chi": row["grid_chi_ms"],
+                          "us_per_step": row["grid_forward_us_per_step"],
+                          "us_per_step_chi": row["grid_chi_us_per_step"],
+                          "legacy_ms": row["legacy_forward_ms"],
+                          "legacy_ms_chi": row["legacy_chi_ms"],
+                          "plain_ms": plain_ms, "err": row["grid_err"],
+                          "flops": N_T * 8.0 * K * d * d,
+                          "bytes": nbytes(U, p0, st), "d": d, "K": K,
+                          "N_T": N_T}
+            del st, chis, st_p, chis_p
+        del U, Ut
+        torch.cuda.empty_cache()
+    return rows, k_grid
 
 
 def cluster_shapes_phase(dev):
@@ -1546,7 +1809,7 @@ def cluster_shapes_phase(dev):
     chains against their plain versions where the two redesigned kernels
     change layout: d = 37 (odd: element copies into the scan's ring, not
     TMA), 100 (the paths' own) and 129 (past the cluster propagator kernel:
-    its global route), for one group of 4, 8 groups of 4 and 32 groups of
+    the wide kernel), for one group of 4, 8 groups of 4 and 32 groups of
     1, at s = 0..3, 40 steps (windows of 7 steps for the versions that keep
     no U stream), to < TOL_TRJ; with the routes each shape took."""
     from grape_tpu_torch.ops import hopper_prop as hp
@@ -1590,7 +1853,7 @@ def cluster_shapes_phase(dev):
                                "max_abs_err": e})
                 require(finite(*got) and e < TOL_TRJ, "the redesigned "
                         f"kernels disagree at {checks[-1]}")
-    require(any(c["propagator_route"] == "global" for c in checks)
+    require(any(c["propagator_route"] == "wide" for c in checks)
             and {2, 8, 16} <= {c["scan_plan"]["cluster"] for c in checks},
             "the shapes must reach both propagator routes and the cluster "
             "sizes 2, 8 and 16")
@@ -3826,22 +4089,22 @@ def hetero_paths(dev):
     two on ExpProp, as ``Trajectory`` attributes, through
     ``compile_heterogeneous`` / ``build_fg`` and three L-BFGS-B iterations
     of ``optimize``.  One evaluation runs the Chebyshev ring kernel both
-    ways at K = 2, the propagator kernel on its global-scratch route at
-    d = 1024 (the rule's route there, with the one-block forward scan),
-    the χ scan over the stored propagators (past the one-block χ scan's
-    shared memory: the forward apply-scan over the adjoint propagators,
-    ``hopper_prop._chi_by_apply``) and two Taylor passes.  Held against
+    ways at K = 2, the wide propagator kernel at d = 1024 (the rule's route
+    there) and the grid state scans forward and for the χ chain over the
+    stored propagators (read in place), and two Taylor passes.  Held against
     the uniform all-cheby and all-expprop builds on the card (the same
     physics for every trajectory) at the guess and at a seeded pulse with
     a first-order gradient (``nonflat_pulse``), which the optimization
     starts from; with a control (the pulse × 1.01) that the gradient limit
     must tell apart.  At d = 1024 the ExpProp half's forward scan and χ
     chain alone, and one whole evaluation, against the plain versions;
-    the propagator kernel alone (the global route) beside
-    ``torch.linalg.matrix_exp`` on the same 100 matrices; and the same
+    the propagator kernel alone (the wide route, and the global-scratch
+    kernel forced) beside ``torch.linalg.matrix_exp`` on the same 100
+    matrices; and the same
     split at dim 256 (``cz(16, 200, "taylor", "cheby", T=5.0)``) against
     the plain versions.  Returns ``(the counted optimization's launches,
-    the d = 1024 propagator reading, the d = 1024 chain readings)``."""
+    its route launches, the d = 1024 propagator reading, the d = 1024
+    chain readings)``."""
     import grape_tpu_torch as gt
     import grape_tpu_torch.fg as F
     from grape_tpu_torch.fg_hetero import (
@@ -3868,10 +4131,14 @@ def hetero_paths(dev):
             and F._cheby_kernel_enabled(cp_c, pd_c["fw"])
             and F._cheby_kernel_enabled(cp_c, pd_c["bw"])
             and F._reuse_U_enabled(cp_e)
-            and hopper_prop.propagator_route(hp.dim) == "global"
-            and not hopper_prop.legacy_chi_fits(hp.dim),
+            and hopper_prop.propagator_route(hp.dim) == "wide"
+            and hopper_prop.scan_route(hp.dim, 1, 2, torch.cuda
+                                       .get_device_properties(dev)
+                                       .multi_processor_count)["route"]
+            == "grid",
             "the heterogeneous cell must split into a Chebyshev-kernel "
-            "partition and an ExpProp partition on the global route")
+            "partition and an ExpProp partition on the wide propagator "
+            "kernel and the grid scans")
     uniform = {m: gt.compile_problem(plain_trajs, tlist, dtype=np.complex64,
                                      prop_method=m, **kw)
                for m in ("cheby", "expprop")}
@@ -3900,9 +4167,9 @@ def hetero_paths(dev):
     require(counts_one == {"forward_scan_shared": 1, "chi_scan_shared": 1,
                            "cheby_scan": 2}
             and by_dir == {"forward": 1, "adjoint": 1}
-            and routes_one == {"propagators_global": 1,
-                               "state_scan_legacy_forward": 1,
-                               "state_scan_legacy_chi_by_apply": 1,
+            and routes_one == {"propagators_wide": 1,
+                               "state_scan_grid_forward": 1,
+                               "state_scan_grid_chi": 1,
                                "cheby_ring": 2},
             f"one heterogeneous evaluation launched {counts_one} {by_dir} "
             f"on the routes {routes_one}")
@@ -3957,9 +4224,9 @@ def hetero_paths(dev):
                    "chi_scan_shared": n_fg,
                    "cheby_scan": 2 * n_fg + n_f})
     expect_routes = dict.fromkeys(routes, 0)
-    expect_routes.update({"propagators_global": n_fg + n_f,
-                          "state_scan_legacy_forward": n_fg + n_f,
-                          "state_scan_legacy_chi_by_apply": n_fg,
+    expect_routes.update({"propagators_wide": n_fg + n_f,
+                          "state_scan_grid_forward": n_fg + n_f,
+                          "state_scan_grid_chi": n_fg,
                           "cheby_ring": 2 * n_fg + n_f})
     # J_T must fall by more than ten times the uniform builds' own
     # difference in J at the starting pulse
@@ -3998,7 +4265,8 @@ def hetero_paths(dev):
         "launches_by_direction": by_dir,
     }
 
-    # ---- the propagator kernel alone at d = 1024: the global route --------
+    # ---- the propagator kernel alone at d = 1024: the wide route, and the
+    # global-scratch kernel forced ------------------------------------------
     H0, ops = cp_e.H0[0], cp_e.ops[0]
     c64 = lambda a: torch.tensor(np.ascontiguousarray(a),
                                  dtype=torch.complex64, device=dev)
@@ -4018,9 +4286,14 @@ def hetero_paths(dev):
                                                        dts, s_e)
     U = prop_call()
     torch.cuda.synchronize()
-    require(read_launches(hopper_prop)[1]["propagators_global"] == 1,
-            "the d = 1024 propagators did not take the global route")
+    require(read_launches(hopper_prop)[1]["propagators_wide"] == 1,
+            "the d = 1024 propagators did not take the wide route")
     prop_ms = median_ms(prop_call, reps=3)
+    with hopper_prop._forced_routes(propagators="global"):
+        U_g = prop_call()
+        prop_global_ms = median_ms(prop_call, reps=3)
+    e_global = max_abs(U_g, U)
+    del U_g
     # the plain version of the propagator half (the wrapper has none of
     # its own: it always launches)
     plain_call = lambda: hopper_prop._propagators_plain(
@@ -4033,28 +4306,32 @@ def hetero_paths(dev):
     U_lib = torch.linalg.matrix_exp(A_lib)
     prop_lib_ms = median_ms(lambda: torch.linalg.matrix_exp(A_lib), reps=3)
     d, N_T = hp.dim, hp.n_timesteps
-    prop_flops = N_T * (6 + s_e) * 8.0 * d ** 3
+    prop_flops = N_T * (6 + s_e) * 6.0 * d ** 3
     prop_bytes = nbytes(H0_t, ops_t, coeffs, dts, U)
     b_ms, b_by = bound(prop_flops, prop_bytes)
+    b8_ms, _ = bound(N_T * (6 + s_e) * 8.0 * d ** 3, prop_bytes)
     e_plain = max_abs(U, U_p)
     e_lib = max_abs(U, U_lib)
     require(e_plain < TOL_STATE and e_lib < TOL_STATE,
             f"the d = 1024 propagators disagree: plain {e_plain}, "
             f"matrix_exp {e_lib}")
     del U, U_p, U_lib, A_lib
-    global_d1024 = {"d": d, "N_T": N_T, "squarings": s_e, "ms": prop_ms,
-                    "plain_ms": prop_plain_ms, "library_ms": prop_lib_ms,
-                    "library_call": "torch.linalg.matrix_exp on the same "
-                                    "(N_T, d, d) matrices",
-                    "bound_ms": b_ms, "bound_by": b_by,
-                    "max_abs_err_vs_plain": e_plain,
-                    "max_abs_err_vs_library": e_lib,
-                    "launches_hetero_optimize": routes["propagators_global"]}
-    emit_hetero["propagators_global_d1024"] = global_d1024
+    wide_d1024 = {"d": d, "N_T": N_T, "squarings": s_e, "ms": prop_ms,
+                  "global_route_ms": prop_global_ms,
+                  "plain_ms": prop_plain_ms, "library_ms": prop_lib_ms,
+                  "library_call": "torch.linalg.matrix_exp on the same "
+                                  "(N_T, d, d) matrices",
+                  "bound_ms": b_ms, "bound_by": b_by,
+                  "bound_ms_8d3": b8_ms,
+                  "max_abs_err_vs_plain": e_plain,
+                  "max_abs_err_vs_library": e_lib,
+                  "max_abs_diff_vs_global_route": e_global,
+                  "launches_hetero_optimize": routes["propagators_wide"]}
+    emit_hetero["propagators_wide_d1024"] = wide_d1024
 
     # ---- the ExpProp half's chains at d = 1024 against the plain versions:
-    # the one-block forward scan and the χ chain by the forward apply-scan
-    # over U†, on the partition's inputs at the seeded pulse (K = 2) -------
+    # the grid scans both ways, on the partition's inputs at the seeded
+    # pulse (K = 2) ----------------------------------------------------------
     rng = np.random.default_rng(HETERO_PULSE_SEED)
     chi0 = rng.normal(size=(2, d)) + 1j * rng.normal(size=(2, d))
     chi0 = c64(chi0 / np.linalg.norm(chi0, axis=1, keepdims=True))
@@ -4070,7 +4347,7 @@ def hetero_paths(dev):
         st_p, U1_p = hopper_prop.forward_scan_shared(H0_t, ops_t, co1, dts,
                                                      psi0, s_e)
         chis_p = hopper_prop.chi_scan_shared(U1, chi0)
-    # the kernel's own propagators applied plainly: the apply-scan alone
+    # the kernel's own propagators applied plainly: the forward scan alone
     psi, e_apply = psi0, 0.0
     for n in range(N_T):
         psi = psi @ U1[n].transpose(-1, -2)
@@ -4082,8 +4359,8 @@ def hetero_paths(dev):
     drift = max_abs(st_p.to(torch.complex128), st_x)
     chains = {"K": 2, "d": d, "N_T": N_T, "squarings": s_e,
               "routes": routes_chain,
-              "forward_apply_vs_plain_on_kernel_U": e_apply,
-              "chi_by_apply_vs_plain_on_kernel_U": max_abs(chis, chis_p),
+              "forward_scan_vs_plain_on_kernel_U": e_apply,
+              "chi_scan_vs_plain_on_kernel_U": max_abs(chis, chis_p),
               "propagators_vs_plain": max_abs(U1, U1_p),
               "forward_states_vs_plain": max_abs(st, st_p),
               "plain_float32_states_vs_complex128": drift,
@@ -4116,7 +4393,7 @@ def hetero_paths(dev):
     require(counts2 == {"forward_scan_shared": 1, "chi_scan_shared": 1,
                         "cheby_scan": 2}
             and routes2.get("cheby_ring") == 2
-            and routes2.get("propagators_global") == 1,
+            and routes2.get("propagators_wide") == 1,
             f"hetero dim 256: kernel launches {counts2} {routes2}")
     emit_hetero["dim256_vs_plain"] = {
         "dim": hp2.dim, "N_T": hp2.n_timesteps, "J": float(J2),
@@ -4136,21 +4413,110 @@ def hetero_paths(dev):
             f"hetero optimize: launches {counts} {routes} do not match the "
             f"evaluations {expect} {expect_routes}")
     require(ok_series, f"hetero optimize: {res.message}, series {series}")
-    require(routes_chain == {"propagators_global": 1,
-                             "state_scan_legacy_forward": 1,
-                             "state_scan_legacy_chi_by_apply": 1}
-            and chains["forward_apply_vs_plain_on_kernel_U"] < TOL_STATE
-            and chains["chi_by_apply_vs_plain_on_kernel_U"] < TOL_STATE
+    require(routes_chain == {"propagators_wide": 1,
+                             "state_scan_grid_forward": 1,
+                             "state_scan_grid_chi": 1}
+            and chains["forward_scan_vs_plain_on_kernel_U"] < TOL_STATE
+            and chains["chi_scan_vs_plain_on_kernel_U"] < TOL_STATE
             and chains["propagators_vs_plain"] < TOL_STATE
             and chains["forward_states_vs_plain"]
             < chains["forward_states_limit"],
             f"the d = 1024 chains against the plain versions: {chains}")
-    require(routes1 == {"propagators_global": 1,
-                        "state_scan_legacy_forward": 1,
-                        "state_scan_legacy_chi_by_apply": 1,
+    require(routes1 == {"propagators_wide": 1,
+                        "state_scan_grid_forward": 1,
+                        "state_scan_grid_chi": 1,
                         "cheby_ring": 2},
             f"hetero dim 1024 against plain took the routes {routes1}")
-    return counts, global_d1024, chains
+    require(prop_ms < prop_global_ms, "the wide propagator kernel is slower "
+            f"than the global one at dim 1024: {wide_d1024}")
+    return counts, routes, wide_d1024, chains
+
+
+# the CZ at 12 levels a transmon: dim 144, N_T = 2000, ExpProp, taylor
+DIM144_LEVELS = 12
+
+
+def dim144_path(dev):
+    """Phase ``fg_dim144``: ``two_transmon_cz_problem(d=12)`` (dim 144,
+    K = 4, N_T = 2000, T = 50, ExpProp) with the taylor gradient through
+    ``compile_problem`` / ``build_fg``: one evaluation against the plain
+    versions forced and against the plain complex128 evaluation, its time,
+    ``device_ms_by_part`` and ``flop_rate``, with the counts set to 0 just
+    before the counted evaluations and read just after: the wide
+    propagator kernel once per forward pass (past d = 108), the cluster
+    scans (d = 144 is inside their ring).  Over 2000 steps at dim 144 the
+    plain float32 evaluation itself is some 2e-5 from complex128 in J, so
+    J is held, against plain and against complex128, to the larger of 1e-5
+    and twice the plain float32 evaluation's distance from complex128 (the
+    rule of the non-Hermitian chains); the gradient to 2e-3 of its max
+    against plain and 1e-3 against complex128.  Returns the route
+    launches."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.fg import (
+        _static_squarings, _vectorized_taylor_orders,
+    )
+    from grape_tpu_torch.models import two_transmon_cz_problem
+    from grape_tpu_torch.ops import hopper_cheby, hopper_frechet, hopper_prop
+    from grape_tpu_torch.ops import plain_versions
+
+    t0 = time.perf_counter()
+    modules = (hopper_prop, hopper_frechet, hopper_cheby)
+    p = two_transmon_cz_problem(d=DIM144_LEVELS, gradient_method="taylor")
+    cp = gt.compile_problem(p.trajectories, p.tlist, dtype=np.complex64,
+                            **p.kwargs)
+    require((cp.dim, cp.n_traj, cp.n_timesteps) == (144, 4, 2000)
+            and cp.fw_prop_method == "expprop"
+            and cp.gradient_method == "taylor"
+            and hopper_prop.propagator_route(cp.dim) == "wide",
+            "the dim-144 CZ must run ExpProp with the taylor gradient on the "
+            "wide propagator kernel")
+    cp128 = gt.compile_problem(p.trajectories, p.tlist, dtype=np.complex128,
+                               **p.kwargs)
+    fg = counted(gt.build_fg(cp))
+    x0 = cp.guess_pulsevals.reshape(-1)
+    # the references: the plain complex128 and float32 evaluations
+    J128, g128, _ = gt.build_fg(cp128)(x0)
+    with plain_versions():
+        J_p, _, _ = fg(x0)
+    drift = abs(float(J_p) - float(J128))
+    tol_J = max(1e-5, 2 * drift)
+    zero_counts(*modules)
+    n0 = fg.calls
+    J, g, aux, dJ, dg = fg_against_plain(fg, x0, "dim 144", tol_J=tol_J)
+    dJ128 = abs(float(J) - float(J128))
+    dg128 = max_abs(g.double(), g128) / float(g128.abs().max())
+    require(dJ128 < tol_J and dg128 < 1e-3,
+            f"dim 144 against complex128: J {dJ128} (limit {tol_J}), "
+            f"gradient {dg128} of its max")
+    ms = timed_ms(lambda: fg(x0), 3)
+    parts = fg_breakdown(fg, x0)
+    counts = read_counts(*modules)
+    routes = dict(ROUTE_READS[-1][1])
+    # the plain evaluation of fg_against_plain launches none
+    n = fg.calls - n0 - 1
+    require(bool(aux["taylor_ok"])
+            and counts["forward_scan_shared"] == n
+            and counts["chi_scan_shared"] == n
+            and routes["propagators_wide"] == n
+            and routes["state_scan_forward"] == n
+            and routes["state_scan_chi"] == n,
+            f"dim 144: {n} evaluations launched {counts} on {routes}")
+    emit({"phase": "fg_dim144", "dim": cp.dim, "K": cp.n_traj,
+          "N_T": cp.n_timesteps, "squarings": _static_squarings(cp),
+          "J": float(J), "J_complex128": float(J128),
+          "J_abs_diff_vs_plain": dJ, "J_abs_diff_vs_complex128": dJ128,
+          "plain_float32_J_vs_complex128": drift, "J_limit": tol_J,
+          "J_limit_rule": "max(1e-5, 2 * |J plain float32 - J complex128|)",
+          "grad_diff_of_max_vs_plain": dg,
+          "grad_diff_of_max_vs_complex128": dg128, "ms_per_eval": ms,
+          "flop_rate": flop_rate(cp, ms), "device_ms_by_part": parts,
+          "taylor_orders": _vectorized_taylor_orders(cp),
+          "evaluations_counted": n,
+          "launches": {k: v for k, v in counts.items() if v},
+          "route_launches": {k: v for k, v in routes.items() if v},
+          "seconds": time.perf_counter() - t0})
+    zero_counts(*modules)
+    return routes
 
 
 def krotov_paths(cz_problem, dev):
@@ -4651,8 +5017,8 @@ def main():
     ens = ensemble_kernel_phases(cp_ens, s_ens, rng, dev)
 
     # ---- the two redesigned kernels: routes forced, layouts ---------------
-    k_prop = prop_routes_phase(cp, cp_ens, s_cz, dev)
-    k_scan = scan_routes_phase(dev)
+    k_prop, k_wide = prop_routes_phase(cp, cp_ens, s_cz, dev)
+    k_scan, k_grid = scan_routes_phase(dev)
     cluster_shapes_phase(dev)
     phase_clock_phase(dev)
 
@@ -4812,9 +5178,13 @@ def main():
 
     # ---- per-trajectory propagator settings and Krotov's method ----------
     t_hetero_krotov = time.perf_counter()
-    counts_hetero, global_d1024, chains_d1024 = hetero_paths(dev)
+    counts_hetero, routes_hetero, wide_d1024, chains_d1024 = hetero_paths(
+        dev)
     counts_krotov = krotov_paths(problem, dev)
     hetero_krotov_s = time.perf_counter() - t_hetero_krotov
+
+    # ---- the CZ at 12 levels a transmon (dim 144) on the wide kernel -----
+    routes_144 = dim144_path(dev)
 
     prop_cu = "grape_tpu_torch/csrc/prop_cluster.cu"
     smalld_cu = "grape_tpu_torch/csrc/smalld_fused.cu"
@@ -4837,12 +5207,23 @@ def main():
         "propagator_kernel_cluster": routes_main["propagators_cluster"],
         "state_scan_cluster": (routes_main["state_scan_forward"]
                                + routes_main["state_scan_chi"]),
+        # this slice's two kernels, counted per route in the mixed cell's
+        # optimization (dim 1024: both) and in the dim-144 CZ's runs
+        "propagator_kernel_wide": routes_hetero["propagators_wide"],
+        "state_scan_grid": (routes_hetero["state_scan_grid_forward"]
+                            + routes_hetero["state_scan_grid_chi"]),
     }
     meta = {
         "propagator_kernel_cluster": (
             prop_cu, "grape_tpu/ops/pallas_prop.py:373", counts_routes),
         "state_scan_cluster": (
             scan_cu, "grape_tpu/ops/pallas_prop.py:607", counts_routes),
+        "propagator_kernel_wide": (
+            "grape_tpu_torch/csrc/prop_wide.cu",
+            "grape_tpu/ops/pallas_prop.py:373", counts_routes),
+        "state_scan_grid": (
+            "grape_tpu_torch/csrc/state_grid.cu",
+            "grape_tpu/ops/pallas_prop.py:607", counts_routes),
         "forward_scan_shared": (
             prop_cu, "grape_tpu/ops/pallas_prop.py:373", counts),
         "chi_scan_shared": (
@@ -4915,6 +5296,23 @@ def main():
                      "half of :373, :494, :144 (K1, K4, K5); the grouped "
                      "and windowed co-state chains",
         routes_main_path=routes_main)
+    k_wide.update(
+        replaces_all="grape_tpu/ops/pallas_prop.py:144, :275, :373, :494 "
+                     "(the propagator half of K5, K10, K1, K4) past d = 108",
+        replaces_route="the global-scratch kernel of csrc/prop_scan.cu "
+                       "(global_route_ms)",
+        hetero_d1024=wide_d1024,
+        launches_dim144=routes_144["propagators_wide"])
+    k_grid.update(
+        library_ms=None,
+        replaces_all="grape_tpu/ops/pallas_prop.py:607 (K2) and the apply "
+                     "half of :373, :494, :144 past the cluster scan",
+        replaces_route="the one-block scans of csrc/prop_scan.cu "
+                       "(legacy_ms, legacy_ms_chi)",
+        hetero_chains_d1024={k: chains_d1024[k] for k in (
+            "forward_scan_vs_plain_on_kernel_U",
+            "chi_scan_vs_plain_on_kernel_U", "forward_states_vs_plain",
+            "forward_states_limit")})
     measured = {**cz, **ens, "forward_scan_smalld": k7, "cheby_scan": k8,
                 "smalld_fused_kernel": dict(k7, replaces_route=(
                     "the two-launch pair of csrc/smalld_scan.cu (pair_ms)")),
@@ -4923,7 +5321,9 @@ def main():
                     "(grid_ms)")),
                 "forward_scan_time": k10, "karatsuba_chain": k11,
                 "propagator_kernel_cluster": k_prop,
-                "state_scan_cluster": k_scan}
+                "state_scan_cluster": k_scan,
+                "propagator_kernel_wide": k_wide,
+                "state_scan_grid": k_grid}
     # launches on this slice's paths, beside the counted run of each kernel
     for name, m in measured.items():
         for path, c in (("main_path", counts), ("ensemble", counts_ens),
@@ -4945,18 +5345,9 @@ def main():
         counts_cz_taylor["chi_scan_shared"])
     ens["chi_scan_grouped"]["launches_qutrit_taylor"] = (
         counts_smalld["chi_scan_grouped"])
-    # the propagator half of K1 at d = 1024 on its global-scratch route
-    # (the heterogeneous cell's ExpProp partition)
-    cz["forward_scan_shared"]["propagators_global_d1024"] = global_d1024
-    # the one-block forward scan and the χ chain by the forward apply-scan
-    # at d = 1024 (the heterogeneous cell's ExpProp half) against plain
-    cz["forward_scan_shared"]["one_block_scan_d1024"] = {
-        k: chains_d1024[k] for k in (
-            "forward_apply_vs_plain_on_kernel_U", "forward_states_vs_plain",
-            "forward_states_limit")}
-    cz["chi_scan_shared"]["chi_by_apply_d1024"] = {
-        k: chains_d1024[k] for k in ("chi_by_apply_vs_plain_on_kernel_U",
-                                     "limit")}
+    # the propagator half of K1 at d = 1024 on the wide route (the
+    # heterogeneous cell's ExpProp partition)
+    cz["forward_scan_shared"]["propagators_wide_d1024"] = wide_d1024
     kernels = []
     for name, (source, replaces, run_counts) in meta.items():
         m = dict(measured[name])

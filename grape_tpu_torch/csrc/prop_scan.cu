@@ -3,11 +3,13 @@
 // G = 1 is the shared generator (gate optimization), gs = 1 one generator
 // per trajectory (robust ensembles), anything between a gate ensemble.
 //
-// Since the cluster kernels of prop_cluster.cu and state_scan.cu took
-// over, these are the routes for the shapes those do not hold
-// (ops/hopper_prop.py propagator_route: d > 108; scan_route: a ring of two
-// slabs past shared memory, d above about 1200), and the reference the
-// checks force them as.
+// No shape takes these kernels by rule any more: the cluster kernels of
+// prop_cluster.cu and state_scan.cu hold the shapes they fit, and past
+// them (ops/hopper_prop.py propagator_route: d > 108; scan_route: from
+// d = 417 at one group of 4 on 132 SMs) the wide propagator kernel of
+// prop_wide.cu and the grid scans of state_grid.cu.  They run only where
+// hopper_prop._forced_routes asks for them, as the kernels the new ones
+// are timed and checked against.
 //
 // Replaces four TPU Pallas kernels of grape_tpu/ops/pallas_prop.py:
 //

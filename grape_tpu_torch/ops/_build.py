@@ -163,6 +163,14 @@ def _declare(lib):
     lib.grape_propagators_cluster_resident.argtypes = [i]
     lib.grape_state_scan.restype = i
     lib.grape_state_scan.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.grape_propagators_wide.restype = i
+    lib.grape_propagators_wide.argtypes = [p, p, p, p, i, i, i, i, ll, i, p,
+                                           i, i, p, p]
+    lib.grape_propagators_wide_scratch_floats.restype = ll
+    lib.grape_propagators_wide_scratch_floats.argtypes = [i, i, i]
+    lib.grape_state_grid.restype = i
+    lib.grape_state_grid.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
+                                     i, i, p, p, p]
     lib.grape_state_scan_resident.restype = i
     lib.grape_state_scan_resident.argtypes = [i, i, i, i, i, i, i]
     lib.grape_error_string.restype = ctypes.c_char_p

@@ -18,15 +18,19 @@ every grouping:
   two device launches: a batched propagator kernel over the independent
   (step, group) items, then a sequential apply-scan.  The coefficient table
   may be one ``(N_T, T)`` for all groups or ``(G, N_T, T)``, one per group.
-  The propagators come from the cluster kernel of ``csrc/prop_cluster.cu``
-  where its working set fits (:func:`propagator_route`), else from the
-  global-scratch kernel of ``csrc/prop_scan.cu``; the state chains of both
-  directions from the cluster scan of ``csrc/state_scan.cu``
-  (:func:`scan_route`), or, where not even its two-stage ring fits, the
-  one-block scans of ``csrc/prop_scan.cu``.  Past the shared memory of the
-  one-block χ scan (its ``(1 + 8)·4·d`` partial sums: ``d > 807``) the χ
-  chain runs as the one-block forward apply-scan over the adjoint
-  propagators in reverse order (:func:`_chi_by_apply`).
+  The propagators come from one of two kernels (:func:`propagator_route`):
+  the cluster kernel of ``csrc/prop_cluster.cu`` where an exponential's
+  working set fits the shared memory of four CTAs (``d ≤ 108``), else the
+  batched Karatsuba products of ``csrc/prop_wide.cu``, every stage of the
+  polynomial one product over (item, output tile) (:func:`wide_plan`).  The
+  state chains of both directions come from the cluster scan of
+  ``csrc/state_scan.cu`` (:func:`scan_route`), or, where not even its
+  two-stage ring fits, from the co-resident grid of ``csrc/state_grid.cu``,
+  which reads the co-state's columns of ``U`` in place.  The kernels these
+  replaced, the global-scratch propagator kernel and the one-block scans of
+  ``csrc/prop_scan.cu`` (past ``d = 807`` the χ chain as the one-block
+  forward scan over ``U†`` reversed, :func:`_chi_by_apply`), run only
+  where :func:`_forced_routes` asks for them, for comparisons.
 - :func:`chi_scan_shared` replaces ``chi_scan_pallas_shared``, and
   :func:`chi_scan_grouped` is the same chain over grouped or per-trajectory
   stored propagators (a scan of small products in the reference): in
@@ -46,8 +50,8 @@ every grouping:
   layout (a sequential grid over the steps with the K trajectories
   unrolled in each step, for small K) has no meaning on the card, where
   the (step, trajectory) exponentials are independent: it runs the same
-  kernel pair as :func:`forward_scan_pertraj` (``csrc/prop_scan.cu``), or
-  the fused small-dimension kernel under its gates.
+  kernel pair as :func:`forward_scan_pertraj`, or the fused small-dimension
+  kernel under its gates.
 - :func:`taylor_order_for_bound` is the host helper that sizes the static
   order count of the time-vectorized Taylor backward pass.
 
@@ -76,8 +80,8 @@ __all__ = [
     "forward_scan_smalld", "forward_scan_smalld_plain",
     "forward_scan_time", "forward_scan_time_plain",
     "taylor_order_for_bound",
-    "propagators", "propagators_shared", "propagator_route", "scan_route",
-    "smalld_route", "launches", "route_launches",
+    "propagators", "propagators_shared", "propagator_route", "wide_plan",
+    "scan_route", "grid_plan", "smalld_route", "launches", "route_launches",
 ]
 
 # wrapper calls that launched their kernels
@@ -88,11 +92,13 @@ launches = {
     "forward_scan_smalld": 0, "forward_scan_time": 0,
 }
 
-# kernel launches per route: the propagator kernel (cluster or global
-# scratch) and the state scans (cluster or one block, per direction)
+# kernel launches per route: the propagator kernels (cluster, wide, and the
+# global-scratch one only forced) and the state scans (cluster or grid per
+# direction, and the one-block ones only forced)
 route_launches = {
-    "propagators_cluster": 0, "propagators_global": 0,
+    "propagators_cluster": 0, "propagators_wide": 0, "propagators_global": 0,
     "state_scan_forward": 0, "state_scan_chi": 0,
+    "state_scan_grid_forward": 0, "state_scan_grid_chi": 0,
     "state_scan_legacy_forward": 0, "state_scan_legacy_chi": 0,
     "state_scan_legacy_chi_by_apply": 0,
     "smalld_fused": 0, "smalld_pair": 0,
@@ -113,6 +119,26 @@ PROP_CLUSTER_TILES = 192
 # the state scans' largest cluster and deepest ring (csrc/state_scan.cu)
 SCAN_MAX_CLUSTER = 16
 SCAN_MAX_STAGES = 8
+
+# the wide propagator kernel (csrc/prop_wide.cu): the output tile of each
+# configuration, matrices and planes per item in flight, the scratch budget
+# of the items in flight (a fixed byte count of this card's 80 GB: at
+# d = 1024 a window of 24 items, 4608 CTAs a stage) and the largest window
+# (the grid's y extent)
+WIDE_TILES = (128, 64)
+WIDE_MATS, WIDE_PLANES = 7, 3
+_WIDE_SCRATCH_BYTES = 2 * 1024**3
+WIDE_MAX_WINDOW = 65535
+
+# the grid state scan (csrc/state_grid.cu): entries of a piece, reduction
+# indices of a piece, float2 per row of a co-state piece, the deepest ring,
+# the mbarrier head and the two fold buffers (float2), the compute threads
+# (each acquires one owner's flag), the stride of the flags (one 128-byte
+# line each)
+GRID_GROUP, GRID_PIECE, GRID_CHI_PITCH = 8, 256, 10
+GRID_MAX_STAGES, GRID_HEAD, GRID_RED = 16, 512, 2 * 8 * 32
+GRID_COMPUTE_THREADS = 256
+GRID_FLAG_STRIDE = 32
 
 # routes forced for checks and timings (see _forced_routes)
 _forced = {"propagators": None, "scan": None}
@@ -245,12 +271,46 @@ def propagator_route(d):
     """The propagator kernel for dimension ``d``: ``"cluster"`` (the
     working set of an exponential in the shared memory of a cluster of
     four CTAs, ``csrc/prop_cluster.cu``) where it fits, d ≤ 108, else
-    ``"global"`` (the per-block global scratch of ``csrc/prop_scan.cu``).
-    The same rule on the CPU and on the card."""
+    ``"wide"`` (batched Karatsuba products over (item, output tile),
+    ``csrc/prop_wide.cu``).  The same rule on the CPU and on the card; the
+    global-scratch kernel of ``csrc/prop_scan.cu`` runs only forced."""
     d = int(d)
     fits = (d >= 1 and _prop_cluster_smem(d) <= _SMEM_MAX
             and _prop_cluster_tiles(d) <= PROP_CLUSTER_TILES)
-    return "cluster" if fits else "global"
+    return "cluster" if fits else "wide"
+
+
+def wide_plan(d, n_items):
+    """The launch plan of the wide propagator kernel for ``n_items``
+    exponentials of dimension ``d``: ``{"config", "tile", "pitch",
+    "tiles", "item_floats", "window", "windows", "scratch_bytes"}``.
+
+    Rows are padded to ``pitch`` (a multiple of 4 floats); the square
+    output tile is the one of ``WIDE_TILES`` that covers the fewest padded
+    entries (the larger on a tie); ``tiles`` per item and product, each
+    formed plane by plane by three CTAs.  An item in flight holds seven
+    matrices of three planes and a counter per tile (``item_floats``); a
+    window holds at most as many items as ``_WIDE_SCRATCH_BYTES`` allows
+    (at least one, at most ``WIDE_MAX_WINDOW``), the items split evenly
+    over the fewest windows, and every stage is one launch per window (``csrc/prop_wide.cu`` ``grape_propagators_wide_scratch_floats``)."""
+    d, n_items = int(d), int(n_items)
+    pitch = 4 * _ceil_div(d, 4)
+    best = None
+    for config, t in enumerate(WIDE_TILES):
+        tiles = _ceil_div(d, t) * _ceil_div(pitch, t)
+        if best is None or tiles * t * t < best[0]:
+            best = (tiles * t * t, config, tiles)
+    _, config, tiles = best
+    item_floats = WIDE_MATS * WIDE_PLANES * d * pitch + tiles
+    most = max(1, min(n_items, WIDE_MAX_WINDOW,
+                      _WIDE_SCRATCH_BYTES // (4 * item_floats)))
+    windows = _ceil_div(n_items, most)
+    # windows of even size: no short last window leaves the card idle
+    window = _ceil_div(n_items, windows)
+    return {"config": config, "tile": WIDE_TILES[config], "pitch": pitch,
+            "tiles": tiles, "item_floats": item_floats, "window": window,
+            "windows": windows,
+            "scratch_bytes": 4 * item_floats * window}
 
 
 def _scan_slot(d, cluster):
@@ -279,6 +339,46 @@ def _scan_stages(d, kb, cluster):
     return min(SCAN_MAX_STAGES, free // (8 * _scan_slot(d, cluster)))
 
 
+def _grid_stage(d):
+    """``float2`` per ring stage of the grid scan: a co-state piece (the
+    larger of the two directions' pieces: ``min(d, 256)`` rows of 10),
+    rounded up to 128 bytes (``csrc/state_grid.cu`` ``stage_elems``)."""
+    return 16 * _ceil_div(min(int(d), GRID_PIECE) * GRID_CHI_PITCH, 16)
+
+
+def _grid_smem(d, kb, stages):
+    """Shared-memory bytes of one CTA of the grid scan: the mbarriers, the
+    state ``[d][kb]`` (rounded up to 128 bytes), the fold buffers and
+    ``stages`` ring stages (``csrc/state_grid.cu`` ``smem_bytes``)."""
+    state = 16 * _ceil_div(int(d) * int(kb), 16)
+    return GRID_HEAD + 8 * (state + GRID_RED + stages * _grid_stage(d))
+
+
+def grid_plan(d, kb, chunks, sm_count):
+    """The grid scan's launch plan: ``teams`` of ``ctas`` CTAs (one per SM,
+    at most one team per chunk, the chunks dealt to the teams in rounds),
+    CTA ``r`` of a team owning the ``entries`` output entries from
+    ``r · entries`` (``used`` CTAs own one or more, ``groups`` pieces of 8
+    per reduction index range), and the ring as deep as shared memory
+    allows (``stages``, at most 16; fewer than 2: the plan does not fit).
+    Where ``d`` is even the entries come in pairs, so that every box of
+    columns starts on 16 bytes, as TMA requires."""
+    d, kb, chunks, sms = int(d), int(kb), int(chunks), int(sm_count)
+    teams = max(1, min(chunks, sms))
+    ctas = max(1, min(sms // teams, GRID_COMPUTE_THREADS))
+    entries = _ceil_div(d, ctas)
+    if d % 2 == 0:
+        # pairs: a co-state piece's box then starts 16-byte aligned (TMA)
+        entries += entries % 2
+    stages = min(GRID_MAX_STAGES, (_SMEM_MAX - _grid_smem(d, kb, 0))
+                 // (8 * _grid_stage(d)))
+    return {"route": "grid", "kb": kb, "chunks": chunks, "cluster": None,
+            "stages": max(0, stages), "teams": teams, "ctas": ctas,
+            "entries": entries, "used": _ceil_div(d, entries),
+            "groups": _ceil_div(entries, GRID_GROUP),
+            "smem": _grid_smem(d, kb, max(0, stages))}
+
+
 def scan_route(d, G, gs, sm_count, cluster=None):
     """The launch plan of the state scans (both directions) for ``G``
     groups of ``gs`` trajectories at dimension ``d`` on a card of
@@ -291,11 +391,16 @@ def scan_route(d, G, gs, sm_count, cluster=None):
     GPC each, so at 132 SMs only 30 of 4 CTAs fit at once, not 33) and
     give every CTA an output entry, else 1; grown while a ring of two slabs
     of U does not fit; the ring as deep as shared memory allows, up to 8.
-    ``"legacy"`` (the one-block scans of ``csrc/prop_scan.cu``) where not
-    even 16 CTAs fit.  ``cluster`` forces a size (checks and timings)."""
+    Where not even 16 CTAs fit, the co-resident grid of
+    ``csrc/state_grid.cu`` (:func:`grid_plan`), and ``"legacy"`` only where
+    its state and a ring of two pieces do not fit one CTA either (d past
+    about 5800 at ``kb`` = 4).  ``cluster`` forces a size, ``"grid"`` the
+    grid (checks and timings)."""
     d, G, gs = int(d), int(G), int(gs)
     kb = 1 if gs == 1 else 2 if gs == 2 else 4
     chunks = G * _ceil_div(gs, kb)
+    if cluster == "grid":
+        return grid_plan(d, kb, chunks, sm_count)
     if cluster is None:
         cluster = 1
         for c in (16, 8, 4, 2):
@@ -307,9 +412,14 @@ def scan_route(d, G, gs, sm_count, cluster=None):
             cluster *= 2
     cluster = int(cluster)
     stages = _scan_stages(d, kb, cluster)
-    fits = 1 <= cluster <= min(SCAN_MAX_CLUSTER, d) and stages >= 2
-    return {"route": "cluster" if fits else "legacy", "kb": kb,
-            "chunks": chunks, "cluster": cluster, "stages": stages}
+    if 1 <= cluster <= min(SCAN_MAX_CLUSTER, d) and stages >= 2:
+        return {"route": "cluster", "kb": kb, "chunks": chunks,
+                "cluster": cluster, "stages": stages}
+    grid = grid_plan(d, kb, chunks, sm_count)
+    if grid["stages"] >= 2:
+        return grid
+    return {"route": "legacy", "kb": kb, "chunks": chunks,
+            "cluster": cluster, "stages": stages}
 
 
 def smalld_route(d, K, N_T, sm_count):
@@ -351,9 +461,9 @@ def _forced_smalld_route(route):
 @contextlib.contextmanager
 def _forced_routes(propagators=None, scan=None):
     """Within the block the wrappers take the forced routes: ``propagators``
-    ``"cluster"`` or ``"global"``, ``scan`` ``"legacy"`` or a cluster size
-    (checks and timings of ``chip_smoke.py``; nothing in the package uses
-    it)."""
+    ``"cluster"``, ``"wide"`` or ``"global"``, ``scan`` ``"legacy"``,
+    ``"grid"`` or a cluster size (checks and timings of ``chip_smoke.py``;
+    nothing in the package uses it)."""
     old = dict(_forced)
     _forced.update(propagators=propagators, scan=scan)
     try:
@@ -388,7 +498,21 @@ def propagators(H0, ops, coeffs, dts, n_squarings):
                 dts.data_ptr(), T, d, N_T, G, stride, s, U.data_ptr(),
                 _stream(device),
             ), "cluster propagator kernel launch")
+        elif route == "wide":
+            plan = wide_plan(d, N_T * G)
+            _require(lib.grape_propagators_wide_scratch_floats(
+                d, plan["window"], plan["config"])
+                == plan["window"] * plan["item_floats"],
+                "the wide propagator kernel's scratch layout differs")
+            scratch = torch.empty(plan["window"] * plan["item_floats"],
+                                  dtype=torch.float32, device=device)
+            check(lib, lib.grape_propagators_wide(
+                H0.data_ptr(), ops.data_ptr(), coeffs.data_ptr(),
+                dts.data_ptr(), T, d, N_T, G, stride, s, scratch.data_ptr(),
+                plan["window"], plan["config"], U.data_ptr(), _stream(device),
+            ), "wide propagator kernel launch")
         else:
+            _require(route == "global", f"unknown propagator route {route!r}")
             n_blocks = _grid_blocks(device, N_T * G)
             n_mat = lib.grape_propagator_scratch_matrices()
             scratch = torch.empty(
@@ -636,10 +760,26 @@ def _state_scan(lib, U, x0, out, x_out, chi):
         plan = {"route": "legacy"}
     else:
         plan = scan_route(d, G, gs, _sm_count(device),
-                          cluster=None if forced is None else int(forced))
+                          cluster=forced if forced in (None, "grid")
+                          else int(forced))
     direction = "chi" if chi else "forward"
     with torch.cuda.device(device):
-        if plan["route"] == "cluster":
+        if plan["route"] == "grid":
+            kb = plan["kb"]
+            ring = torch.empty((plan["teams"], 2, d, kb),
+                               dtype=torch.complex64, device=device)
+            flags = torch.zeros(
+                plan["teams"] * plan["ctas"] * GRID_FLAG_STRIDE,
+                dtype=torch.int32, device=device)
+            check(lib, lib.grape_state_grid(
+                U.data_ptr(), x0.data_ptr(), out.data_ptr(),
+                None if x_out is None else x_out.data_ptr(), int(chi), C, K,
+                d, G, gs, kb, plan["teams"], plan["ctas"], plan["entries"],
+                plan["stages"], ring.data_ptr(), flags.data_ptr(),
+                _stream(device),
+            ), f"grid state scan ({direction}) launch")
+            route_launches[f"state_scan_grid_{direction}"] += 1
+        elif plan["route"] == "cluster":
             check(lib, lib.grape_state_scan(
                 U.data_ptr(), x0.data_ptr(), out.data_ptr(),
                 None if x_out is None else x_out.data_ptr(), int(chi), C, K,
@@ -674,7 +814,8 @@ def _state_scan(lib, U, x0, out, x_out, chi):
 def legacy_chi_fits(d):
     """True where the one-block χ scan's shared memory (the state and the
     partial sums of its row groups, ``(1 + 8)·4·d`` complex entries) fits
-    one block: ``d ≤ 807``."""
+    one block: ``d ≤ 807``; past it the forced one-block route runs the
+    chain by :func:`_chi_by_apply`."""
     smem = (1 + _LEGACY_ROW_GROUPS) * _LEGACY_KB * int(d) * 8
     return smem <= _SMEM_MAX
 

@@ -175,7 +175,8 @@ def test_fold_leaves_each_sum_where_the_owner_reads_it(tr, tk):
 def test_ring_kernel_source_is_part_of_the_build():
     """The build takes every ``.cu`` under ``csrc``: the ring kernel's
     source is among them with its entry point, and its phase-clock build
-    beside the two cluster kernels'."""
+    beside the two cluster kernels'.  Its flag stride comes from the
+    exchange header it shares with the grid state scan."""
     import os
 
     from grape_tpu_torch.ops import _build
@@ -185,7 +186,11 @@ def test_ring_kernel_source_is_part_of_the_build():
     assert "cheby_ring.cu" in names and "cheby_scan.cu" in names
     with open(cu[names.index("cheby_ring.cu")]) as f:
         src = f.read()
+    headers = {os.path.basename(f): f for f in hdr}
+    with open(headers["flag_ring.cuh"]) as f:
+        exchange = f.read()
     assert "int grape_cheby_ring(" in src
     assert "GRAPE_CLOCK_READER(grape_cheby_ring_clock" in src
-    assert "kFlagStride = 32" in src and "kComputeWarps = 8" in src
+    assert '#include "flag_ring.cuh"' in src
+    assert "kFlagStride = 32" in exchange and "kComputeWarps = 8" in src
     assert "cheby_ring.cu" in _build._CLOCKED

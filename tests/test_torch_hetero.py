@@ -407,15 +407,16 @@ def test_uses_static_envelope_asks_the_parts():
 
 @pytest.mark.parametrize("G,gs", [(1, 2), (2, 3)])
 def test_chi_chain_by_apply_scan_equals_the_chi_chain(G, gs):
-    """Past the one-block χ scan's shared memory (d > 807, the ExpProp
-    partition of the dim-1024 cell) the χ chain runs as the forward
-    apply-scan over the adjoint propagators in reverse order: the index
-    mapping, with a plain apply-scan in the kernel's place, gives the
-    chain and the carried co-state of ``chi_window_plain`` exactly."""
+    """Where the one-block scans are forced past the one-block χ scan's
+    shared memory (d > 807: the dim-1024 cell's ExpProp partition, whose
+    rule takes the grid scan, which reads U in place) the χ chain runs as
+    the forward apply-scan over the adjoint propagators in reverse order:
+    the index mapping, with a plain apply-scan in the kernel's place, gives
+    the chain and the carried co-state of ``chi_window_plain`` exactly."""
     from grape_tpu_torch.ops import hopper_prop as hp
 
     assert hp.legacy_chi_fits(807) and not hp.legacy_chi_fits(808)
-    assert hp.scan_route(1024, 1, 2, 132)["route"] == "legacy"
+    assert hp.scan_route(1024, 1, 2, 132)["route"] == "grid"
     rng = np.random.default_rng(5)
     C, d = 7, 5
     K = G * gs
