@@ -63,7 +63,13 @@ every evaluation went through the kernels:
   ``torch.linalg.matrix_exp`` at d = 128, 256, 512 and 1024, the grid state
   scans against the one-block scans at d = 512 and 1024, and the CZ at 12
   levels a transmon (dim 144, N_T = 2000, taylor) evaluated against its
-  plain version.
+  plain version;
+- the optimizer backends through ``optimize``: on the CZ ten iterations
+  each of the native L-BFGS-B, scipy's L-BFGS-B and the device-resident
+  L-BFGS loop at one and at five iterations a chunk, five of
+  ``torch.optim.Adam``; on the 8 x 4 ensemble and the 1024 qutrits the
+  host loop against the device loop; the backend ``"auto"`` takes; both
+  loops on the 8 x 4 ensemble traced with ``profile_dir``.
 
 Each phase prints one JSON line and raises on failure; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -3894,11 +3900,13 @@ def host_module_paths(cz_problem, dev):
     emit({"phase": "host_modules", **out})
 
 
-def trace_summary(trace_dir):
+def trace_summary(trace_dir, host=False):
     """What a ``profile_dir`` trace (Chrome trace format) says of the
     card: the number of device events, the kernels by total time, the
     device's busy share of the traced window (the span of all complete
-    events, host and device) and its largest idle gaps."""
+    events, host and device) and its largest idle gaps.  ``host``: also the
+    host's CUDA runtime calls and operators by total time (top-level
+    operators only, so nested ones are not counted twice)."""
     files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
     require(len(files) == 1, f"profile_dir holds {files}")
     path = os.path.join(trace_dir, files[0])
@@ -3939,6 +3947,27 @@ def trace_summary(trace_dir):
         device_busy_share=busy / (t1 - t0),
         device_span_busy_share=busy / (merged[-1][1] - merged[0][0]),
         largest_idle_gaps_ms=[g / 1e3 for g in gaps[:5]])
+    if host:
+        out["host_by_name"] = {}
+        for cat in ("cuda_runtime", "cpu_op"):
+            evs = sorted((e for e in spans if e.get("cat") == cat),
+                         key=lambda e: float(e["ts"]))
+            if cat == "cpu_op":  # top level: not inside the previous one
+                top, end = [], -1.0
+                for e in evs:
+                    if float(e["ts"]) >= end:
+                        top.append(e)
+                        end = float(e["ts"]) + float(e["dur"])
+                evs = top
+            tot = {}
+            for e in evs:
+                name = e.get("name", "?")[:60]
+                n, us = tot.get(name, (0, 0.0))
+                tot[name] = (n + 1, us + float(e["dur"]))
+            out["host_by_name"][cat] = [
+                {"name": k, "calls": n, "ms": us / 1e3}
+                for k, (n, us) in sorted(tot.items(),
+                                         key=lambda kv: -kv[1][1])[:8]]
     return out
 
 
@@ -4725,6 +4754,274 @@ def krotov_paths(cz_problem, dev):
     return counts
 
 
+# ---- the optimizer backends and the device-resident loop -------------------
+
+# iterations of each backend's run on the three cells (the host loop
+# against the device loop), of the Adam run on the CZ, and the device
+# loop's chunk sizes on the CZ
+OPT_ITERS, ADAM_ITERS, ADAM_LR = 10, 5, 2e-3
+DEVICE_CHUNKS = (1, 5)
+# the device loop's J_T series at one and at five iterations a chunk: the
+# same arithmetic in another grouping of host calls
+TOL_CHUNK_SERIES = 1e-6
+# the profiled runs of both loops on the 8 x 4 ensemble
+PROFILE_ITERS = 5
+
+
+def optimizer_cells(cz_problem, ens_problem):
+    """The three cells of the host-loop/device-loop comparison: ``{name:
+    (trajectories, tlist, optimize keywords, expected launches as a
+    function of the fg and f evaluations)}``."""
+    from grape_tpu_torch.functionals import J_T_sm
+    from grape_tpu_torch.models import transmon_ensemble_trajectories
+
+    qutrits = transmon_ensemble_trajectories(QUTRIT_SAMPLES, d=3,
+                                             T=QUTRIT_T, seed=SEED)
+    return {
+        "cz": (cz_problem.trajectories, cz_problem.tlist,
+               dict(cz_problem.kwargs),
+               lambda fg, f: {"forward_scan_shared": fg + f,
+                              "chi_scan_shared": fg,
+                              "frechet_trace_shared_factored": fg}),
+        "ensemble_8x4": (ens_problem.trajectories, ens_problem.tlist,
+                         dict(ens_problem.kwargs),
+                         lambda fg, f: {"forward_scan_grouped": fg + f,
+                                        "chi_scan_grouped": fg,
+                                        "frechet_trace_pertraj_factored":
+                                            fg}),
+        "qutrits": (qutrits, np.linspace(0, QUTRIT_T, QUTRIT_STEPS + 1),
+                    dict(J_T=J_T_sm, gradient_method="taylor"),
+                    lambda fg, f: {"forward_scan_smalld": fg + f,
+                                   "chi_scan_grouped": fg}),
+    }
+
+
+def backend_run(cell, optimizer, iters, backend_class, time_final=False,
+                **extra):
+    """One counted ``optimize`` run of ``cell`` (from
+    :func:`optimizer_cells`) with ``optimizer=``: the backend that ran (read
+    at ``run_optimizer``, required to be ``backend_class``), the J_T series, the steady rates over iterations
+    1..iters, fg per iteration, the squaring count of the first and the
+    last envelope bucket, and the kernel launches, which must equal the
+    evaluations: the counted ones and those of the iterations the device
+    loop discarded.  ``time_final``: one fg of the last bucket at the last
+    pulse, timed after the counted run (what the loop's evaluations cost,
+    against ``ms_per_eval`` at the guess)."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.fg import _static_squarings
+    from grape_tpu_torch.ops import hopper_cheby, hopper_frechet, hopper_prop
+
+    opt_mod = sys.modules["grape_tpu_torch.optimize"]
+    trajs, tlist, kw, expect_fn = cell
+    backends, series, secs, fgs, first = [], [], [], [], []
+
+    def spy(backend, *args):
+        backends.append(backend)
+        return run_optimizer(backend, *args)
+
+    def record(wrk, iteration):
+        series.append(float(wrk.result.J_T))
+        secs.append(float(wrk.result.secs))
+        fgs.append(int(wrk.fg_count[0]) + int(wrk.fg_count[1]))
+        buckets.append(wrk._amp_bucket)
+        if not first:
+            first.append(wrk)
+
+    buckets = []
+    run_optimizer = opt_mod.run_optimizer
+    zero_counts(hopper_prop, hopper_frechet, hopper_cheby)
+    opt_mod.run_optimizer = spy
+    try:
+        t0 = time.perf_counter()
+        res = gt.optimize(trajs, tlist, iter_stop=iters, dtype=np.complex64,
+                          print_iters=False, rethrow_exceptions=True,
+                          callback=record, optimizer=optimizer,
+                          **kw, **extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        opt_mod.run_optimizer = run_optimizer
+    counts = read_counts(hopper_prop, hopper_frechet, hopper_cheby)
+    backend = backends[0]
+    require(type(backend).__name__ == backend_class,
+            f"optimizer={optimizer!r} ran {type(backend).__name__}, not "
+            f"{backend_class}")
+    discarded = getattr(backend, "discarded_evaluations", 0)
+    n_fg, n_f = res.fg_calls + discarded, res.f_calls
+    expect = dict.fromkeys(counts, 0)
+    expect.update(expect_fn(n_fg, n_f))
+    require(len(series) == iters + 1 and res.iter == iters
+            and all(math.isfinite(v) for v in series),
+            f"{type(backend).__name__}: {res.message}, series {series}")
+    require(counts == expect, f"{type(backend).__name__} launches {counts} "
+            f"do not match the evaluations {expect}")
+    steady_s = sum(secs[1:])
+    wrk = first[0]
+    squarings = [_static_squarings(wrk.cp, np.asarray(b))
+                 if b is not None else 0 for b in buckets]
+    # the iterations whose bucket is the guess's: the loop's cost at the
+    # guess's squaring count
+    same_s = [i for i in range(1, iters + 1)
+              if squarings[i] == squarings[0]]
+    out = {"backend": type(backend).__name__,
+           "chunk_iters": getattr(backend, "chunk_iters", None),
+           "J_T_series": series, "iterations": res.iter,
+           "seconds": seconds, "iteration_seconds": secs,
+           "iteration_evaluations": fgs,
+           "steady_ms_per_fg": steady_s / max(sum(fgs[1:]), 1) * 1e3,
+           "steady_iters_per_second": iters / steady_s,
+           "fg_per_iteration": sum(fgs[1:]) / iters,
+           "fg_calls": res.fg_calls, "f_calls": res.f_calls,
+           "discarded_evaluations": discarded, "message": res.message,
+           "launches": counts,
+           "launches_per_evaluation": {
+               k: counts[k] / v for k, v in expect.items() if v},
+           "iteration_squarings": squarings,
+           "steady_ms_per_fg_at_guess_squarings": (
+               sum(secs[i] for i in same_s)
+               / max(sum(fgs[i] for i in same_s), 1) * 1e3),
+           "iterations_at_guess_squarings": len(same_s)}
+    if time_final:
+        guess_fg = wrk._program_cache[buckets[0]][0]
+        x0 = torch.as_tensor(wrk.cp.guess_pulsevals.reshape(-1),
+                             device=wrk.cp.device)
+        x = torch.as_tensor(wrk.pulsevals, device=wrk.cp.device)
+        guess_fg(x0)
+        out["ms_per_eval_at_guess"] = timed_ms(lambda: guess_fg(x0), 3)
+        wrk.fg(x)
+        out["ms_per_eval_at_final_pulse"] = timed_ms(lambda: wrk.fg(x), 3)
+    return out
+
+
+def warm_optimizer_code(dev):
+    """The first calls of the device loop's tensor code and of
+    ``torch.optim`` on the card (lazy imports, library handles), made
+    before the counted runs so that none of them pays for it."""
+    from grape_tpu_torch.optimizers.torch_lbfgs import make_lbfgs_iter
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    A = torch.diag(torch.arange(1.0, 5.0, **f64))
+
+    def fg(x):
+        return 0.5 * x @ A @ x, A @ x, {}
+
+    init, step = make_lbfgs_iter(fg, n=4, lower=-torch.ones(4, **f64),
+                                 upper=torch.ones(4, **f64))
+    x = torch.full((4,), 0.5, **f64)
+    st, (f, g, aux) = init(x), fg(x)
+    for _ in range(3):
+        x, st, f, g, aux, _alpha, _nfev = step(x, st, f, g, aux)
+    p = torch.zeros(4, requires_grad=True, **f64)
+    opt = torch.optim.Adam([p])
+    p.grad = torch.ones_like(p)
+    opt.step()
+    torch.cuda.synchronize()
+
+
+def optimizer_paths(cz_problem, ens_problem, dev):
+    """Phase ``optimizers``: each optimizer backend through ``optimize`` on
+    the card, every run counted (launches = evaluations).  On the CZ: ten
+    iterations of ``"lbfgsb"``, ``"scipy-lbfgsb"`` and ``"device-lbfgs"`` at
+    one and at five iterations a chunk, five of ``torch.optim.Adam``; on the
+    8 x 4 ensemble and the 1024 qutrits the host loop against the device
+    loop; one fg at each host run's last pulse; the backend ``"auto"``
+    takes on each cell; both loops on the 8 x 4 traced with
+    ``profile_dir``.  Returns the phase's record."""
+    import functools
+    import shutil
+
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.optimize import _get_optimizer
+    from grape_tpu_torch.optimizers.device_loop import DeviceLoopBackend
+    from grape_tpu_torch.optimizers.lbfgsb import LBFGSB
+    from grape_tpu_torch.workspace import GrapeWrk
+
+    t_phase = time.perf_counter()
+    warm_optimizer_code(dev)
+    cells = optimizer_cells(cz_problem, ens_problem)
+    out = {"iterations": OPT_ITERS, "cells": {}}
+    lbfgs_type = []
+    for name, cell in cells.items():
+        # the native L-BFGS-B by name: built on the card's host, no scipy
+        # stand-in
+        runs = {"lbfgsb": backend_run(cell, "lbfgsb", OPT_ITERS, "LBFGSB",
+                                      time_final=True)}
+        for n in (DEVICE_CHUNKS if name == "cz" else DEVICE_CHUNKS[1:]):
+            runs[f"device_lbfgs_chunk{n}"] = backend_run(
+                cell, "device-lbfgs", OPT_ITERS, "DeviceLoopBackend",
+                device_loop_iters=n)
+        if name == "cz":
+            runs["scipy_lbfgsb"] = backend_run(
+                cell, "scipy-lbfgsb", OPT_ITERS, "ScipyLBFGSB")
+            run = backend_run(
+                cell, functools.partial(torch.optim.Adam, lr=ADAM_LR),
+                ADAM_ITERS, "TorchOptimBackend")
+            require(run["J_T_series"][-1] < run["J_T_series"][0],
+                    f"Adam on the CZ: {run['J_T_series']}")
+            runs["torch_optim_adam"] = run
+            a = np.asarray(runs["device_lbfgs_chunk1"]["J_T_series"])
+            b = np.asarray(runs["device_lbfgs_chunk5"]["J_T_series"])
+            rel = float(np.max(np.abs(a - b) / np.abs(a)))
+            out["chunk1_vs_chunk5_max_rel"] = rel
+            require(rel <= TOL_CHUNK_SERIES,
+                    f"device loop: chunk 1 vs 5 J_T series differ by {rel}")
+        for key, run in runs.items():
+            if key != "torch_optim_adam":
+                lbfgs_type.append((name, key, run["J_T_series"]))
+        # the backend "auto" takes on the card: the host loop, by the
+        # decision these runs measure (optimize._get_optimizer)
+        wrk = GrapeWrk(cell[0], cell[1],
+                       dict(cell[2], dtype=np.complex64))
+        auto = _get_optimizer(wrk)
+        require(wrk.cp.device.type == "cuda" and isinstance(auto, LBFGSB),
+                f"auto on {name} took {type(auto).__name__}, not the host "
+                "loop")
+        host, dev_run = runs["lbfgsb"], runs["device_lbfgs_chunk5"]
+        out["cells"][name] = {
+            "runs": runs, "auto_backend": type(auto).__name__,
+            "device_vs_host": {
+                "steady_ms_per_fg": dev_run["steady_ms_per_fg"]
+                / host["steady_ms_per_fg"],
+                "steady_ms_per_fg_at_guess_squarings":
+                    dev_run["steady_ms_per_fg_at_guess_squarings"]
+                    / host["steady_ms_per_fg_at_guess_squarings"],
+                "steady_iters_per_second": dev_run["steady_iters_per_second"]
+                / host["steady_iters_per_second"],
+                "J_T_after": [host["J_T_series"][-1],
+                              dev_run["J_T_series"][-1]]}}
+        del wrk
+    for name, key, series in lbfgs_type:
+        require(series[-1] < series[0]
+                and all(b < a for a, b in zip(series, series[1:])),
+                f"{key} on {name}: J_T does not fall monotonically: {series}")
+
+    # both loops on the 8 x 4 ensemble under the profiler
+    trajs, tlist, kw, _ = cells["ensemble_8x4"]
+    root = os.path.join(HERE, "build", "chip_smoke_optimizers_profile")
+    shutil.rmtree(root, ignore_errors=True)
+    traced = {}
+    for key, optimizer in (("host_loop", "lbfgsb"),
+                           ("device_loop", DeviceLoopBackend(
+                               chunk_iters=PROFILE_ITERS))):
+        trace_dir = os.path.join(root, key)
+        t0 = time.perf_counter()
+        res = gt.optimize(trajs, tlist, iter_stop=PROFILE_ITERS,
+                          dtype=np.complex64, optimizer=optimizer,
+                          print_iters=False, rethrow_exceptions=True,
+                          profile_dir=trace_dir, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        require(res.iter == PROFILE_ITERS, f"profiled {key}: {res.message}")
+        traced[key] = {"seconds_with_trace": secs, "fg_calls": res.fg_calls,
+                       "f_calls": res.f_calls,
+                       **trace_summary(trace_dir, host=True)}
+    shutil.rmtree(root, ignore_errors=True)
+    out["profile_ensemble_8x4"] = traced
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "optimizers", **out})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: "
@@ -5185,6 +5482,9 @@ def main():
 
     # ---- the CZ at 12 levels a transmon (dim 144) on the wide kernel -----
     routes_144 = dim144_path(dev)
+
+    # ---- the optimizer backends and the device-resident loop -------------
+    optimizer_paths(problem, ens_problem, dev)
 
     prop_cu = "grape_tpu_torch/csrc/prop_cluster.cu"
     smalld_cu = "grape_tpu_torch/csrc/smalld_fused.cu"

@@ -20,6 +20,13 @@ the TPU platform the port does not have: background pre-warm threads (there
 is no compile step to hide), multi-call evaluations and device-argument
 builds.
 ``mesh=`` sharding is not ported yet and raises.
+
+The host backends evaluate through ``evaluate_gradient`` /
+``evaluate_functional``, which copy each evaluation's results into numpy
+arrays.  The device-resident loop (``optimizer="device-lbfgs"``,
+``device_loop_iters``) calls the raw programs ``wrk.fg`` / ``wrk.f`` of the
+current envelope bucket on device tensors instead, and keeps the bucket
+with ``_outside_envelope``, ``_ensure_envelope`` and ``_grow_envelope``.
 """
 
 import numpy as np
@@ -42,12 +49,13 @@ _OPTIMIZE_KEYS = frozenset({
     "print_iter_info", "store_iter_info", "lbfgsb_m", "lbfgsb_factr",
     "lbfgsb_pgtol", "lbfgsb_iprint", "optimizer", "upper_bound",
     "lower_bound", "pulse_options", "check", "atexit_filename",
-    "atexit_config_digest", "profile_dir",
+    "atexit_config_digest", "profile_dir", "device_loop_iters", "f_tol",
+    "g_tol", "x_tol", "show_trace", "scipy_options", "allow_f_increases",
 })
 
 # keywords of grape_tpu.optimize() whose feature is not ported yet
 _UNPORTED_OPTIMIZE_KEYS = frozenset({
-    "eval_device_calls", "device_loop_iters", "max_embedded_constant_bytes",
+    "eval_device_calls", "max_embedded_constant_bytes",
 })
 
 # keyword -> the reference's default, taken as "not asked for"; any other
@@ -229,19 +237,30 @@ class GrapeWrk:
             self._program_cache[key] = self._build_programs(key)
         return self._program_cache[key]
 
+    def _amplitudes(self, x):
+        """Per-control maximum of ``|x|``."""
+        N_T = self.cp.n_timesteps
+        return np.max(np.abs(np.reshape(np.asarray(x), (-1, N_T))), axis=1)
+
+    def _outside_envelope(self, x):
+        """True if the pulse exceeds the envelope bucket."""
+        if self._amp_bucket is None:
+            return False
+        return bool(np.any(self._amplitudes(x) > np.asarray(self._amp_bucket)))
+
     def _ensure_envelope(self, x):
         """Grow the envelope bucket if the pulse exceeds it."""
-        if self._amp_bucket is None:
-            return
-        N_T = self.cp.n_timesteps
-        amps = np.max(
-            np.abs(np.reshape(np.asarray(x), (-1, N_T))), axis=1
-        )
-        if np.any(amps > np.asarray(self._amp_bucket)):
+        if self._outside_envelope(x):
             self._amp_bucket = self._bucket_for(
-                np.maximum(amps, np.asarray(self._amp_bucket))
+                np.maximum(self._amplitudes(x), np.asarray(self._amp_bucket))
             )
             self.fg, self.f = self._programs()
+
+    def _grow_envelope(self):
+        """Double the envelope bucket: the Taylor safety net, where the
+        series did not converge inside the envelope."""
+        self._amp_bucket = self._bucket_for(2.0 * np.asarray(self._amp_bucket))
+        self.fg, self.f = self._programs()
 
     # -- device evaluation entry points ------------------------------------
 
@@ -280,10 +299,7 @@ class GrapeWrk:
             # amplitude envelope; if the honest last-term check still
             # fails (envelope bound too loose for this problem), grow the
             # bucket once (more orders) before giving up
-            self._amp_bucket = self._bucket_for(
-                2.0 * np.asarray(self._amp_bucket)
-            )
-            self.fg, self.f = self._programs()
+            self._grow_envelope()
             J, G, aux = self.fg(np.asarray(x, dtype=np.float64))
         self.fg_count[0] += 1
         self.result.fg_calls += 1

@@ -473,6 +473,19 @@ def test_set_default_ad_framework_is_a_no_op():
         set_default_ad_framework("Zygote", quiet=False)
 
 
+# reference modules that the port names after PyTorch
+PORT_MODULE_NAMES = {"jax_lbfgs": "torch_lbfgs",
+                     "optax_backend": "torch_optim_backend"}
+# reference modules not ported yet (ROADMAP A6)
+NOT_PORTED_YET = {"parallel"}
+
+
+def _module_names(pkg):
+    import pkgutil
+
+    return {m.name for m in pkgutil.iter_modules(pkg.__path__)}
+
+
 def test_public_api_covers_the_reference():
     # Krotov's method, the last piece missing until it was ported
     missing = set(grape_tpu.__all__) - set(gt.__all__)
@@ -482,3 +495,13 @@ def test_public_api_covers_the_reference():
     for mod in ("testing", "flops", "io", "propagate"):
         assert hasattr(gt, mod)
     import grape_tpu_torch.models.open  # noqa: F401
+    # the module lists: a backend (or any module) that is missing fails here
+    from grape_tpu import optimizers as ref_optimizers
+    from grape_tpu_torch import optimizers as port_optimizers
+
+    for ref_pkg, port_pkg, expected_missing in (
+            (grape_tpu, gt, NOT_PORTED_YET),
+            (ref_optimizers, port_optimizers, set())):
+        ref_names = {PORT_MODULE_NAMES.get(n, n)
+                     for n in _module_names(ref_pkg)}
+        assert ref_names - _module_names(port_pkg) == expected_missing
