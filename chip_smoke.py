@@ -69,7 +69,14 @@ every evaluation went through the kernels:
   L-BFGS loop at one and at five iterations a chunk, five of
   ``torch.optim.Adam``; on the 8 x 4 ensemble and the 1024 qutrits the
   host loop against the device loop; the backend ``"auto"`` takes; both
-  loops on the 8 x 4 ensemble traced with ``profile_dir``.
+  loops on the 8 x 4 ensemble traced with ``profile_dir``;
+- trajectory sharding over ``torch.distributed`` (``grape_tpu_torch.
+  parallel``): a world of one on NCCL (the 8 x 4 ensemble sharded against
+  ``build_fg``), then two ranks started as subprocesses of this script
+  (``--parallel-rank``), both on the one card and reducing over gloo, on
+  the 8 x 4 ensemble and the CZ against the single process, through three
+  iterations of ``optimize(mesh=...)`` and a device-loop chunk, and the
+  weak-scaling rows; two ranks sharing one card give no scaling number.
 
 Each phase prints one JSON line and raises on failure; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -5022,11 +5029,282 @@ def optimizer_paths(cz_problem, ens_problem, dev):
     return out
 
 
+# ---- phase parallel: trajectory sharding over torch.distributed ----------
+
+PAR_WORLD = 2          # ranks of the two-rank world, both on cuda:0
+PAR_ITERS = 3          # optimize(mesh=...) iterations, host and device loop
+PAR_TIMEOUT_S = 600    # the ranks' limit, rendezvous to their last output
+# the kernels an evaluation of each cell launches once on every rank
+PAR_EXPECT = {
+    "ensemble_8x4": ("forward_scan_grouped", "chi_scan_grouped",
+                     "frechet_trace_pertraj_factored"),
+    "cz": ("forward_scan_shared", "chi_scan_shared",
+           "frechet_trace_shared_factored"),
+}
+# a sharded J_T series against the single-process one, relative: the
+# gradients differ by the order of float32 sums over K (one rank's rows,
+# then the ranks in float64), which three L-BFGS steps carry into J_T
+TOL_PAR_SERIES = 1e-4
+# weak scaling on the card: 64 transmons of 10 levels a rank, 400 steps
+PAR_SCALING = dict(traj_per_device=64, dim=10, n_steps=400, n_iter=3)
+
+
+def _par_cells(cz_problem, ens_problem):
+    return {"ensemble_8x4": ens_problem, "cz": cz_problem}
+
+
+def _par_compile(problem):
+    import grape_tpu_torch as gt
+
+    return gt.compile_problem(problem.trajectories, problem.tlist,
+                              dtype=np.complex64, **problem.kwargs)
+
+
+def _par_series(problem, **kw):
+    """The J_T series of ``PAR_ITERS`` iterations of ``optimize``."""
+    import grape_tpu_torch as gt
+
+    series = []
+    res = gt.optimize(problem.trajectories, problem.tlist,
+                      iter_stop=PAR_ITERS, dtype=np.complex64,
+                      print_iters=False, rethrow_exceptions=True,
+                      callback=lambda w, i: series.append(
+                          float(w.result.J_T)),
+                      **problem.kwargs, **kw)
+    require(res.iter == PAR_ITERS and len(series) == PAR_ITERS + 1,
+            f"optimize {kw}: {res.message}")
+    return series
+
+
+def _par_fg_reading(fg, x, expect):
+    """One counted evaluation (after a warm one): ``(J, g, launches,
+    routes)``, the launches of ``expect`` required to be one each and every
+    other wrapper's zero; then the ms of an evaluation (median of 3)."""
+    from grape_tpu_torch.ops import hopper_cheby, hopper_frechet, hopper_prop
+
+    mods = (hopper_prop, hopper_frechet, hopper_cheby)
+    fg(x)
+    torch.cuda.synchronize()
+    zero_counts(*mods)
+    J, g, aux = fg(x)
+    torch.cuda.synchronize()
+    counts, routes = read_launches(*mods)
+    want = {k: int(k in expect) for k in counts}
+    require(counts == want, f"launches of one evaluation {counts}, "
+            f"expected {want}")
+    require(math.isfinite(float(J)) and bool(torch.isfinite(g).all())
+            and bool(aux["taylor_ok"]) and bool(aux["chi_ok"]),
+            "sharded evaluation is not finite")
+    ms = sorted(timed_ms(lambda: float(fg(x)[0]), 1) for _ in range(3))[1]
+    return (float(J), g.double().cpu().numpy(), {k: v for k, v in
+                                                  counts.items() if v},
+            {k: v for k, v in routes.items() if v}, ms)
+
+
+def parallel_rank(rank, world, store, out_path):
+    """One rank of the two-rank world (``chip_smoke.py --parallel-rank``):
+    both ranks on ``cuda:0``, reducing over gloo.  Writes its readings as
+    JSON to ``out_path``."""
+    rank, world = int(rank), int(world)
+    import grape_tpu_torch as gt
+    from grape_tpu_torch import parallel
+    from grape_tpu_torch.models import (
+        two_transmon_cz_ensemble_problem, two_transmon_cz_problem,
+    )
+    from grape_tpu_torch.ops import _build
+    from grape_tpu_torch.parallel.scaling import measure_weak_scaling
+
+    _build.load_kernels()
+    parallel.init_distributed(f"file://{store}", world, rank,
+                              backend="gloo", timeout=PAR_TIMEOUT_S)
+    mesh = parallel.make_mesh()
+    cells = _par_cells(
+        two_transmon_cz_problem(d=D_TRANSMON, n_steps=N_STEPS),
+        two_transmon_cz_ensemble_problem(n_samples=N_SAMPLES, d=D_TRANSMON,
+                                         n_steps=N_STEPS))
+    out = {"rank": rank, "device": str(torch.cuda.current_device()),
+           "backend": torch.distributed.get_backend(), "fg": {},
+           "optimize": {}}
+    for name, problem in cells.items():
+        cp = _par_compile(problem)
+        fg, blk = parallel.build_fg_sharded(cp, mesh)
+        x = torch.as_tensor(cp.guess_pulsevals.reshape(-1), device=cp.device)
+        J, g, counts, routes, ms = _par_fg_reading(fg, x, PAR_EXPECT[name])
+        out["fg"][name] = {"J": J, "g": g.tolist(), "launches": counts,
+                           "routes": routes, "ms_per_eval": ms,
+                           "rows": list(blk.traj_rows),
+                           "operator_entries": int(blk.H0.shape[0])}
+        out["optimize"][name] = _par_series(problem, mesh=mesh)
+    out["device_loop"] = _par_series(
+        cells["ensemble_8x4"], mesh=mesh, optimizer="device-lbfgs",
+        device_loop_iters=PAR_ITERS)
+    out["scaling"] = measure_weak_scaling(n_devices_list=(1, world),
+                                          **PAR_SCALING)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _par_spawn(root):
+    """Run the two ranks as subprocesses of this script; every rank's
+    failure fails the phase, and no rank outlives it."""
+    store = os.path.join(root, "store2")
+    outs = [os.path.join(root, f"rank{r}.json") for r in range(PAR_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         str(r), str(PAR_WORLD), store, outs[r]], cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(PAR_WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=PAR_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0,
+                f"parallel rank {r} exited {p.returncode}:\n{log[-6000:]}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def parallel_paths(cz_problem, ens_problem, smi):
+    """Phase ``parallel``: ``grape_tpu_torch.parallel`` on the card.
+    (a) A world of one on NCCL: ``build_fg_sharded`` on the 8 x 4 ensemble
+    at full width against ``build_fg`` (equal, bit for bit), K4, K6 and
+    the grouped chi scan once per evaluation.  (b) Two ranks as
+    subprocesses, both on ``cuda:0`` and reducing over gloo: the ensemble
+    (4 groups a rank) and the CZ (2 basis states a rank) against the
+    single-process ``fg`` within twice the kernels' own distance from their
+    plain versions, three iterations of ``optimize(mesh=...)`` and one
+    device-loop chunk with both ranks' J_T series equal bit for bit and
+    within ``TOL_PAR_SERIES`` of the single-process series.  (c)
+    ``measure_weak_scaling``'s rows for both worlds.  Two ranks sharing one
+    card is no scaling number.  Returns the launches of (a)."""
+    import shutil
+
+    import grape_tpu_torch as gt
+    from grape_tpu_torch import parallel
+    from grape_tpu_torch.ops import plain_versions
+    from grape_tpu_torch.parallel.scaling import measure_weak_scaling
+
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "build", "chip_smoke_parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cells = _par_cells(cz_problem, ens_problem)
+    single = {}
+    for name, problem in cells.items():
+        cp = _par_compile(problem)
+        fg = gt.build_fg(cp)
+        x = torch.as_tensor(cp.guess_pulsevals.reshape(-1), device=cp.device)
+        J, g, counts, routes, ms = _par_fg_reading(fg, x, PAR_EXPECT[name])
+        with plain_versions():
+            J_p, g_p, _ = fg(x)
+        g_p = g_p.double().cpu().numpy()
+        single[name] = {
+            "cp": cp, "x": x, "J": J, "g": g, "ms_per_eval": ms,
+            # the float32 spread: twice the kernels' distance from their
+            # plain versions on the same pulse
+            "tol_J": max(2 * abs(J - float(J_p)), 1e-6),
+            "tol_g": max(2 * float(np.max(np.abs(g - g_p))),
+                         1e-6 * float(np.max(np.abs(g)))),
+            "series": _par_series(problem)}
+    single["ensemble_8x4"]["device_loop"] = _par_series(
+        ens_problem, optimizer="device-lbfgs", device_loop_iters=PAR_ITERS)
+
+    # (a) a world of one on NCCL, in this process
+    world_size = parallel.init_distributed(f"file://{root}/store1", 1, 0,
+                                           timeout=PAR_TIMEOUT_S)
+    try:
+        backend = torch.distributed.get_backend()
+        require(world_size == 1 and backend == "nccl",
+                f"world of one on {backend}, size {world_size}")
+        mesh = parallel.make_mesh()
+        s = single["ensemble_8x4"]
+        fg_s, blk = parallel.build_fg_sharded(s["cp"], mesh)
+        J, g, counts_one, routes_one, ms = _par_fg_reading(
+            fg_s, s["x"], PAR_EXPECT["ensemble_8x4"])
+        one = {"backend": backend, "J": J, "J_diff": abs(J - s["J"]),
+               "grad_max_abs_diff": float(np.max(np.abs(g - s["g"]))),
+               "launches_per_eval": counts_one, "routes": routes_one,
+               "ms_per_eval": ms, "ms_per_eval_unsharded": s["ms_per_eval"],
+               "scaling": measure_weak_scaling(n_devices_list=(1,),
+                                               **PAR_SCALING)}
+        require(one["J_diff"] <= s["tol_J"]
+                and one["grad_max_abs_diff"] <= s["tol_g"],
+                f"world of one against build_fg: {one}")
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # (b) two ranks on the one card
+    t0 = time.perf_counter()
+    ranks = _par_spawn(root)
+    two = {"seconds": time.perf_counter() - t0,
+           "backend": ranks[0]["backend"], "cells": {}}
+    for name, s in single.items():
+        fgs = [r["fg"][name] for r in ranks]
+        g = np.asarray(fgs[0]["g"])
+        require(all(f["J"] == fgs[0]["J"] and f["g"] == fgs[0]["g"]
+                    for f in fgs), f"{name}: the ranks' (J, grad) differ")
+        series = [r["optimize"][name] for r in ranks]
+        require(all(t == series[0] for t in series),
+                f"{name}: the ranks' J_T series differ: {series}")
+        cell = {
+            "J": fgs[0]["J"], "J_single": s["J"],
+            "J_diff": abs(fgs[0]["J"] - s["J"]), "tol_J": s["tol_J"],
+            "grad_max_abs_diff": float(np.max(np.abs(g - s["g"]))),
+            "tol_grad": s["tol_g"],
+            "J_T_series": series[0], "J_T_series_single": s["series"],
+            "series_max_rel_diff": float(np.max(
+                np.abs(np.asarray(series[0]) - s["series"])
+                / np.abs(s["series"]))),
+            "ms_per_eval_by_rank": [f["ms_per_eval"] for f in fgs],
+            "ms_per_eval_unsharded": s["ms_per_eval"],
+            "launches_per_eval_by_rank": [f["launches"] for f in fgs],
+            "routes_by_rank": [f["routes"] for f in fgs],
+            "rows_by_rank": [f["rows"] for f in fgs],
+            "operator_entries_by_rank": [f["operator_entries"]
+                                         for f in fgs]}
+        require(cell["J_diff"] <= s["tol_J"]
+                and cell["grad_max_abs_diff"] <= s["tol_g"]
+                and cell["series_max_rel_diff"] <= TOL_PAR_SERIES,
+                f"{name}: two ranks against one process: {cell}")
+        two["cells"][name] = cell
+    loops = [r["device_loop"] for r in ranks]
+    ref = single["ensemble_8x4"]["device_loop"]
+    two["device_loop_ensemble_8x4"] = {
+        "J_T_series": loops[0], "J_T_series_single": ref,
+        "series_max_rel_diff": float(np.max(
+            np.abs(np.asarray(loops[0]) - ref) / np.abs(ref)))}
+    require(all(t == loops[0] for t in loops)
+            and two["device_loop_ensemble_8x4"]["series_max_rel_diff"]
+            <= TOL_PAR_SERIES,
+            f"device loop under the mesh: {two['device_loop_ensemble_8x4']}")
+    two["scaling_by_rank"] = [r["scaling"] for r in ranks]
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "parallel", "nvidia_smi": smi,
+          "note": "two ranks share one card and reduce through the host "
+                  "(gloo): these times are no scaling number",
+          "world_of_one": one, "two_ranks": two,
+          "seconds": time.perf_counter() - t_phase})
+    return counts_one
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: "
               "torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    if len(sys.argv) > 1 and sys.argv[1] == "--parallel-rank":
+        return parallel_rank(*sys.argv[2:])
     t_start = time.perf_counter()
 
     import grape_tpu_torch as gt
@@ -5486,6 +5764,9 @@ def main():
     # ---- the optimizer backends and the device-resident loop -------------
     optimizer_paths(problem, ens_problem, dev)
 
+    # ---- trajectory sharding over torch.distributed -----------------------
+    counts_par = parallel_paths(problem, ens_problem, smi)
+
     prop_cu = "grape_tpu_torch/csrc/prop_cluster.cu"
     smalld_cu = "grape_tpu_torch/csrc/smalld_fused.cu"
     cheby_cu = "grape_tpu_torch/csrc/cheby_ring.cu"
@@ -5635,7 +5916,8 @@ def main():
                         ("custom_amplitude", counts_ca),
                         ("observables", counts_obs),
                         ("hetero", counts_hetero),
-                        ("krotov", counts_krotov)):
+                        ("krotov", counts_krotov),
+                        ("parallel_world_of_one", counts_par)):
             if c.get(name):
                 m[f"launches_{path}"] = c[name]
     # launches on the taylor paths, beside the counted run of each kernel

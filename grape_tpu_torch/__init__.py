@@ -56,7 +56,9 @@ from .workspace import (
     step_width, vec_angle,
 )
 from .functionals import set_default_ad_framework
-from . import fg_hetero, flops, functionals, io, models, shapes, testing
+from . import (
+    fg_hetero, flops, functionals, io, models, parallel, shapes, testing,
+)
 
 __version__ = "0.1.0"
 

@@ -71,9 +71,12 @@ every evaluation under full storage.  A propagator setting carried by the
 trajectories themselves (``Trajectory(..., prop_method=...)``) is adopted
 where it is uniform; a heterogeneous one is compiled by
 ``fg_hetero.compile_heterogeneous`` (one problem per partition, over the
-global control list), which ``build_fg`` and ``build_f`` dispatch to.  Not
-ported yet, and raising ``NotImplementedError`` when asked for: ``mesh=``
-sharding.
+global control list), which ``build_fg`` and ``build_f`` dispatch to.  A
+problem that ``parallel.shard_problem`` cut into one rank's block of
+trajectories (``cp.mesh`` set) is evaluated by ``parallel.build_fg_sharded``
+and ``build_f_sharded``, which ``build_fg`` and ``build_f`` dispatch to as
+well: the rank's block through the phases below, the cross-trajectory
+quantities through ``torch.distributed`` collectives.
 """
 
 import itertools
@@ -219,6 +222,15 @@ class CompiledProblem:
     # memo for the host-side coefficient envelope (keyed by amp_max)
     env_cache: Any = field(default_factory=dict)
     device: Any = None
+    # set by parallel.shard_problem on one rank's block of trajectories:
+    # the DeviceMesh and its trajectory axis, the block's rows
+    # [start, stop) of the ensemble, and the whole problem (its
+    # trajectories and targets for J_T and χ(T), its coefficient tables
+    # for the amplitude envelope)
+    mesh: Any = None
+    mesh_axis: Any = None
+    traj_rows: Any = None
+    global_problem: Any = None
 
     @property
     def dt(self):
@@ -229,7 +241,6 @@ class CompiledProblem:
 # anything else is an option the port does not support yet.  The Pallas
 # switches have no meaning here: the kernels run for CUDA tensors.
 _UNPORTED_DEFAULTS = {
-    "mesh": None,
     "use_pallas": "auto",
     "gradgen_pallas_precision": "high",
 }
@@ -728,6 +739,10 @@ def _coeff_env(cp: CompiledProblem, amp_max):
     ``(cmax (T,), dmax (T, L))`` numpy.  A ``CustomAmplitude`` slot takes
     its analytic ``bound`` or, without one, a sampled envelope
     (:func:`_sample_amp_env`).  Memoized per ``amp_max``."""
+    if cp.global_problem is not None:
+        # a rank's block: the envelope of the whole ensemble's tables, so
+        # that every rank and the unsharded build size alike
+        return _coeff_env(cp.global_problem, amp_max)
     amp_max = np.asarray(amp_max, dtype=np.float64)
     key = tuple(amp_max.ravel().tolist())
     if key in cp.env_cache:
@@ -2112,11 +2127,16 @@ def build_f(cp: CompiledProblem, amp_max=None, device=None):
     """Functional-only evaluation ``f(pulsevals) -> (J, aux)`` (line-search
     F-only probes).  ``device=None`` means the device the problem was
     compiled for.  A heterogeneous problem (``fg_hetero``) gets
-    ``build_f_hetero``."""
+    ``build_f_hetero``, a rank's block ``parallel.build_f_sharded``."""
     if hasattr(cp, "parts"):  # heterogeneous compile
         from .fg_hetero import build_f_hetero
 
         return build_f_hetero(cp, amp_max=amp_max, device=device)
+    if cp.mesh is not None:  # one rank's block of a sharded problem
+        from .parallel import build_f_sharded
+
+        return build_f_sharded(cp, cp.mesh, amp_max=amp_max,
+                               presharded=True, device=device)[0]
     device = cp.device if device is None else resolve_device(device)
     consts = _device_constants(cp, device)
     pds = _prop_data_on(_prop_data(cp, amp_max), device)
@@ -2151,7 +2171,8 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
     ``[ε_11.. ε_{N_T}1, ε_12..]``.  ``aux`` has the reference's keys;
     ``tau`` and ``psi_T`` (and ``fw_observables``) are complex tensors.
     ``device=None`` means the device the problem was compiled for.  A
-    heterogeneous problem (``fg_hetero``) gets ``build_fg_hetero``.
+    heterogeneous problem (``fg_hetero``) gets ``build_fg_hetero``, a
+    rank's block (``parallel.shard_problem``) ``build_fg_sharded``.
 
     The forward pass is :func:`_evaluate_forward` and the gradient
     :func:`_tau_grads_pass`: under ``storage_mode="recompute"`` the forward
@@ -2162,6 +2183,11 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
         from .fg_hetero import build_fg_hetero
 
         return build_fg_hetero(cp, amp_max=amp_max, device=device)
+    if cp.mesh is not None:  # one rank's block of a sharded problem
+        from .parallel import build_fg_sharded
+
+        return build_fg_sharded(cp, cp.mesh, amp_max=amp_max,
+                                presharded=True, device=device)[0]
     device = cp.device if device is None else resolve_device(device)
     consts = _device_constants(cp, device)
     pds = _prop_data_on(_prop_data(cp, amp_max), device)

@@ -26,6 +26,11 @@ by ``make_xi`` from the global list, as in the reference; J_b is the sum of
 the partitions' J_b.
 
 The partitions run one after another on the card.
+
+A rank of a sharded problem (``parallel.build_fg_sharded``) is evaluated by
+the same builders, as ONE partition (its block of rows) whose siblings live
+in other processes: ``_comm`` then gathers the final states into the global
+block and reduces the gradient, ``λ_b·J_b`` and the flags over the ranks.
 """
 
 import warnings
@@ -256,10 +261,12 @@ def _part_setup(hp, amp_max, device):
 
 
 def _global_forward(hp: HeteroCompiledProblem, consts, pds, pulsevals,
-                    amp_max, want_U):
+                    amp_max, want_U, comm=None):
     """Every partition's forward pass, then the functional over the whole
     state block: ``(per_part, psi_T, tau, J_T, λ_a J_a, λ_b J_b)`` with
-    ``per_part[p] = (coeffs, dM, storage, checkpoints, Us)``."""
+    ``per_part[p] = (coeffs, dM, storage, checkpoints, Us)``.  With
+    ``comm`` (a rank's block) the block is gathered over the ranks and
+    ``λ_b J_b`` is this rank's share."""
     eps = pulsevals.reshape(hp.n_controls, hp.n_timesteps)
     per_part = []
     psi_parts = []
@@ -275,6 +282,8 @@ def _global_forward(hp: HeteroCompiledProblem, consts, pds, pulsevals,
             J_b_val = J_b_p if J_b_val is None else J_b_val + J_b_p
     device = pulsevals.device
     psi_T = _scatter_parts(hp, psi_parts, device)
+    if comm is not None:
+        psi_T = comm.gather_rows(psi_T)
     tau = taus(psi_T, hp.trajectories) if hp.has_targets else None
     if hp.J_T_takes_tau:
         J_T_val = hp.J_T(psi_T, hp.trajectories, tau=tau)
@@ -303,10 +312,14 @@ def _global_chi_boundary(hp: HeteroCompiledProblem, tlist, psi_T, tau):
     return chi
 
 
-def build_fg_hetero(hp: HeteroCompiledProblem, amp_max=None, device=None):
+def build_fg_hetero(hp: HeteroCompiledProblem, amp_max=None, device=None,
+                    _comm=None):
     """Function-and-gradient evaluation of a heterogeneous problem, with
     the contract of ``fg.build_fg`` (the same ``aux`` keys).
-    ``device=None`` means the device the problem was compiled for."""
+    ``device=None`` means the device the problem was compiled for.
+    ``_comm`` (``parallel.mesh``) makes ``hp`` one rank's view of a sharded
+    problem: ``J``, the gradient and the flags come out of its collectives,
+    identical on every rank."""
     device = hp.device if device is None else resolve_device(device)
     consts, pds = _part_setup(hp, amp_max, device)
     want_U = [_fg._backward_plan(p, amp_max)[2] for p in hp.parts]
@@ -318,8 +331,7 @@ def build_fg_hetero(hp: HeteroCompiledProblem, amp_max=None, device=None):
     def fg(pulsevals):
         pulsevals = _fg._as_pulse(pulsevals, consts[0], device)
         per_part, psi_T, tau, J_T_val, J_a_val, J_b_val = _global_forward(
-            hp, consts, pds, pulsevals, amp_max, want_U)
-        J = J_T_val + J_a_val + J_b_val
+            hp, consts, pds, pulsevals, amp_max, want_U, _comm)
 
         chi_T = _global_chi_boundary(hp, consts[0]["tlist"], psi_T,
                                      tau).to(cdt)
@@ -336,6 +348,12 @@ def build_fg_hetero(hp: HeteroCompiledProblem, amp_max=None, device=None):
             grad_Tb = grad_Tb + (
                 -2.0 * torch.real(torch.sum(tg_p, dim=1))).to(rdt)
             taylor_ok = taylor_ok & ok_p
+        if _comm is not None:
+            (J_T_val, J_a_val, chi_bad), (J_b_val, taylor_bad), grad_Tb = (
+                _comm.reduce([J_T_val, J_a_val, ~chi_ok],
+                             [J_b_val, ~taylor_ok], grad_Tb))
+            chi_ok, taylor_ok = ~chi_bad, ~taylor_bad
+        J = J_T_val + J_a_val + J_b_val
 
         grad, grad_Tb_flat, grad_J_a_flat = _fg._assemble_grad(
             hp, pulsevals, grad_Tb)
@@ -355,9 +373,10 @@ def build_fg_hetero(hp: HeteroCompiledProblem, amp_max=None, device=None):
     return fg
 
 
-def build_f_hetero(hp: HeteroCompiledProblem, amp_max=None, device=None):
+def build_f_hetero(hp: HeteroCompiledProblem, amp_max=None, device=None,
+                   _comm=None):
     """Functional-only evaluation of a heterogeneous problem, with the
-    contract of ``fg.build_f``."""
+    contract of ``fg.build_f`` (``_comm`` as for :func:`build_fg_hetero`)."""
     device = hp.device if device is None else resolve_device(device)
     consts, pds = _part_setup(hp, amp_max, device)
     want_U = [False] * len(hp.parts)
@@ -366,7 +385,10 @@ def build_f_hetero(hp: HeteroCompiledProblem, amp_max=None, device=None):
     def f(pulsevals):
         pulsevals = _fg._as_pulse(pulsevals, consts[0], device)
         _pp, psi_T, tau, J_T_val, J_a_val, J_b_val = _global_forward(
-            hp, consts, pds, pulsevals, amp_max, want_U)
+            hp, consts, pds, pulsevals, amp_max, want_U, _comm)
+        if _comm is not None:
+            (J_T_val, J_a_val), (J_b_val,), _ = _comm.reduce(
+                [J_T_val, J_a_val], [J_b_val])
         J = J_T_val + J_a_val + J_b_val
         aux = {
             "J_parts": torch.stack([J_T_val, J_a_val, J_b_val]),

@@ -81,9 +81,14 @@ def optimize(trajectories, tlist, **kwargs):
     pass ``device="cpu"`` to run the plain PyTorch versions on the CPU.
     ``optimizer=`` picks the backend (:func:`_get_optimizer`), with its
     options ``device_loop_iters``, ``f_tol``, ``g_tol``, ``x_tol``,
-    ``show_trace``, ``scipy_options`` and ``allow_f_increases``.  Options
-    of ``grape_tpu.optimize`` that are not ported yet (``mesh=``,
-    ``eval_device_calls``, ...) raise ``NotImplementedError`` naming the
+    ``show_trace``, ``scipy_options`` and ``allow_f_increases``.
+    ``mesh=`` (``parallel.make_mesh()`` in a process group of
+    ``parallel.init_distributed``, e.g. under ``torchrun``) shards the
+    trajectories over the ranks: each rank evaluates its block and the
+    loop runs on every rank in lockstep on the reduced ``(J, grad)``;
+    ``max_embedded_constant_bytes`` has no effect.  Options of
+    ``grape_tpu.optimize`` that are not ported yet
+    (``eval_device_calls``) raise ``NotImplementedError`` naming the
     option.
     """
     if "update_hook" in kwargs or "info_hook" in kwargs:

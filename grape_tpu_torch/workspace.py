@@ -19,7 +19,18 @@ receives the per-step observables.  Left out on purpose, as workarounds of
 the TPU platform the port does not have: background pre-warm threads (there
 is no compile step to hide), multi-call evaluations and device-argument
 builds.
-``mesh=`` sharding is not ported yet and raises.
+
+``mesh=`` (a ``DeviceMesh`` of ``parallel.make_mesh`` or
+``make_host_chip_mesh``) shards the compiled problem ONCE
+(``parallel.shard_problem``): this rank's block of trajectories, every
+envelope bucket's ``fg`` / ``f`` built sharded over it.  The backends run on
+every rank on the same reduced ``(J, grad)``, so their iterates, and the
+envelope decisions (host numpy on the replicated pulse), agree bit for bit.
+``max_embedded_constant_bytes`` is accepted and has no effect: in the
+reference it puts the operator arrays of a large problem into device
+memory as program arguments on a one-device mesh, to get past its compile
+server's request limit, and the port always holds them in device memory
+(``fg._device_constants``); it opens no process group.
 
 The host backends evaluate through ``evaluate_gradient`` /
 ``evaluate_functional``, which copy each evaluation's results into numpy
@@ -34,6 +45,7 @@ import numpy as np
 from .controls import discretize_on_midpoints
 from .fg import build_f, build_fg, compile_problem, uses_static_envelope
 from .fg_hetero import compile_heterogeneous, traj_prop_partition
+from .parallel import shard_problem
 from .result import GrapeResult
 
 __all__ = [
@@ -51,12 +63,14 @@ _OPTIMIZE_KEYS = frozenset({
     "lower_bound", "pulse_options", "check", "atexit_filename",
     "atexit_config_digest", "profile_dir", "device_loop_iters", "f_tol",
     "g_tol", "x_tol", "show_trace", "scipy_options", "allow_f_increases",
+    "mesh",
 })
 
 # keywords of grape_tpu.optimize() whose feature is not ported yet
-_UNPORTED_OPTIMIZE_KEYS = frozenset({
-    "eval_device_calls", "max_embedded_constant_bytes",
-})
+_UNPORTED_OPTIMIZE_KEYS = frozenset({"eval_device_calls"})
+# keywords of grape_tpu.optimize() that have nothing to do here (see the
+# module docstring)
+_NO_EFFECT_KEYS = frozenset({"max_embedded_constant_bytes"})
 
 # keyword -> the reference's default, taken as "not asked for"; any other
 # value raises.  The prewarm threads hide the TPU's compile latency and the
@@ -70,7 +84,7 @@ def _compile_kwargs(kwargs):
     raises for an unported or unknown one instead of ignoring it."""
     out = {}
     for key, val in kwargs.items():
-        if key in _OPTIMIZE_KEYS:
+        if key in _OPTIMIZE_KEYS or key in _NO_EFFECT_KEYS:
             continue
         if key in _UNPORTED_OPTIMIZE_DEFAULTS:
             default = _UNPORTED_OPTIMIZE_DEFAULTS[key]
@@ -105,6 +119,10 @@ class GrapeWrk:
             )
         else:
             self.cp = compile_problem(trajectories, tlist, **compile_kwargs)
+        self.mesh = self.kwargs.get("mesh", None)
+        if self.mesh is not None:
+            # this rank's block; the builds below run sharded over the mesh
+            self.cp = shard_problem(self.cp, self.mesh)
         self.controls = self.cp.controls
         L, N_T = self.cp.n_controls, self.cp.n_timesteps
         self.n = L * N_T
@@ -185,7 +203,7 @@ class GrapeWrk:
         self.grad_J_Tb = np.zeros(self.n)
         self.grad_J_a = np.zeros(self.n)
         self.J_parts = np.zeros(3)
-        self.tau_vals = np.zeros(self.cp.n_traj, dtype=np.complex128)
+        self.tau_vals = np.zeros(len(self.trajectories), dtype=np.complex128)
         self.states = None  # (K, d) final states of latest evaluation
         self.fg_count = np.zeros(2, dtype=np.int64)  # [fg_calls, f_calls]
 

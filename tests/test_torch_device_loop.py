@@ -2,8 +2,9 @@
 ``grape_tpu_torch`` against ``grape_tpu``.
 
 The cases of the reference's ``tests/test_device_loop.py`` on the port, in
-complex128 on the CPU (every case but the sharded one, which waits on
-``mesh=``): the J_T series within 1e-8 of its scale (its first value) of
+complex128 on the CPU (the sharded one is
+``tests/test_torch_distributed.py::test_device_loop_sharded_matches_plain``):
+the J_T series within 1e-8 of its scale (its first value) of
 the reference's over 8 iterations under bounds, with the same evaluation
 count (without bounds the values reach rounding level, where the two line
 searches part by an evaluation), one

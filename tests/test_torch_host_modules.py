@@ -476,8 +476,8 @@ def test_set_default_ad_framework_is_a_no_op():
 # reference modules that the port names after PyTorch
 PORT_MODULE_NAMES = {"jax_lbfgs": "torch_lbfgs",
                      "optax_backend": "torch_optim_backend"}
-# reference modules not ported yet (ROADMAP A6)
-NOT_PORTED_YET = {"parallel"}
+# reference modules not ported yet
+NOT_PORTED_YET = set()
 
 
 def _module_names(pkg):
@@ -497,11 +497,15 @@ def test_public_api_covers_the_reference():
     import grape_tpu_torch.models.open  # noqa: F401
     # the module lists: a backend (or any module) that is missing fails here
     from grape_tpu import optimizers as ref_optimizers
+    from grape_tpu import parallel as ref_parallel
     from grape_tpu_torch import optimizers as port_optimizers
+    from grape_tpu_torch import parallel as port_parallel
 
+    assert port_parallel.__all__ == ref_parallel.__all__
     for ref_pkg, port_pkg, expected_missing in (
             (grape_tpu, gt, NOT_PORTED_YET),
-            (ref_optimizers, port_optimizers, set())):
+            (ref_optimizers, port_optimizers, set()),
+            (ref_parallel, port_parallel, set())):
         ref_names = {PORT_MODULE_NAMES.get(n, n)
                      for n in _module_names(ref_pkg)}
         assert ref_names - _module_names(port_pkg) == expected_missing

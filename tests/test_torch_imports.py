@@ -52,7 +52,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "grape_tpu_torch/flops.py",
             "grape_tpu_torch/models/open.py",
             "grape_tpu_torch/fg_hetero.py",
-            "grape_tpu_torch/krotov.py"} <= rel
+            "grape_tpu_torch/krotov.py",
+            "grape_tpu_torch/parallel/mesh.py",
+            "grape_tpu_torch/parallel/scaling.py"} <= rel
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -71,7 +73,8 @@ def test_importing_the_port_does_not_load_jax():
         "grape_tpu_torch.ops.hopper_frechet, grape_tpu_torch.optimizers.lbfgsb, "
         "grape_tpu_torch.testing, grape_tpu_torch.flops, grape_tpu_torch.io, "
         "grape_tpu_torch.models.open, grape_tpu_torch.fg_hetero, "
-        "grape_tpu_torch.krotov;"
+        "grape_tpu_torch.krotov, grape_tpu_torch.parallel, "
+        "grape_tpu_torch.parallel.scaling;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'grape_tpu', 'triton')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -87,7 +90,9 @@ ENTRY_POINTS = ["optimize", "optimize_problem", "compile_problem",
                 "build_fg", "build_f", "compiled_problem_from_numpy",
                 "ensemble", "optimize_krotov", "krotov_problem",
                 "compile_heterogeneous", "hetero_build_fg",
-                "hetero_optimize", "hetero_problem_from_numpy"]
+                "hetero_optimize", "hetero_problem_from_numpy",
+                "init_distributed", "make_mesh", "make_host_chip_mesh",
+                "measure_weak_scaling"]
 
 
 def _mixed_trajectories():
@@ -141,6 +146,16 @@ def test_device_none_raises_without_cuda(entry):
         elif entry == "hetero_optimize":
             mixed, tl = _mixed_trajectories()
             gt.optimize(mixed, tl, J_T=J_T_sm, rethrow_exceptions=True)
+        elif entry == "init_distributed":
+            # before any process group is opened
+            gt.parallel.init_distributed("file:///nonexistent/store", 1, 0)
+        elif entry in ("make_mesh", "make_host_chip_mesh"):
+            getattr(gt.parallel, entry)()
+        elif entry == "measure_weak_scaling":
+            from grape_tpu_torch.parallel.scaling import measure_weak_scaling
+
+            measure_weak_scaling(n_devices_list=[1], traj_per_device=1,
+                                 dim=2, n_steps=2)
         elif entry == "hetero_problem_from_numpy":
             gt.hetero_problem_from_numpy({"parts": [], "part_idx": []},
                                          J_T="J_T_sm")

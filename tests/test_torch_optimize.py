@@ -4,6 +4,7 @@ J_T series recorded from the JAX package, small robust ensembles against
 the JAX package run here (gradgen and taylor), exception capture, and the
 options that are not ported yet."""
 
+import contextlib
 import json
 import os
 
@@ -288,7 +289,6 @@ def _excited_population(Psi, trajectories, tlist, n):
 
 
 UNPORTED = {
-    "mesh": object(),
     "eval_device_calls": 4,
 }
 
@@ -306,6 +306,9 @@ PORTED = {
         [0.0, 1.0], dtype=Psi.real.dtype),
     "fw_prop_callback": lambda values, tlist: None,
     "optimizer": "scipy-lbfgsb",
+    # made in the test: a DeviceMesh needs a process group (a gloo world
+    # of one)
+    "mesh": None,
 }
 # what a ported option's run also takes: a Krylov space that fits the TLS;
 # the running cost that an xi belongs to
@@ -313,8 +316,20 @@ PORTED_WITH = {"fw_prop_method": {"newton_m": 6},
                "xi": {"g_b": _excited_population}}
 
 
+@contextlib.contextmanager
+def _cpu_mesh_of_one(path):
+    from grape_tpu_torch import parallel
+
+    parallel.init_distributed(f"file://{path}/store", 1, 0, device="cpu",
+                              timeout=30)
+    try:
+        yield parallel.make_mesh(device="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 @pytest.mark.parametrize("option", sorted({**UNPORTED, **PORTED}))
-def test_unported_option_raises(option):
+def test_unported_option_raises(option, tmp_path):
     """An option that is not ported raises ``NotImplementedError`` naming
     it.  An option that has been ported since (``PORTED``) is honoured: the
     run reaches the TLS anchor and the compiled problem carries it."""
@@ -329,13 +344,17 @@ def test_unported_option_raises(option):
         kw["gradient_method"] = "taylor"
     seen = []
     kw.update(PORTED_WITH.get(option, {}))
-    res = optimize(trajs, tlist, iter_stop=5, **kw,
-                   callback=lambda wrk, it: seen.append(wrk),
-                   **{option: PORTED[option]})
+    with contextlib.ExitStack() as stack:
+        value = PORTED[option]
+        if option == "mesh":
+            value = stack.enter_context(_cpu_mesh_of_one(tmp_path))
+        res = optimize(trajs, tlist, iter_stop=5, **kw,
+                       callback=lambda wrk, it: seen.append(wrk),
+                       **{option: value})
     assert res.J_T < 1e-3 and res.message.startswith("Reached maximum")
     # the compiled problem carries the option; the workspace the backend's
     holder = seen[0] if option == "optimizer" else seen[0].cp
-    assert getattr(holder, option) == PORTED[option]
+    assert getattr(holder, option) == value
     assert seen[0].cp.gradient_method == "taylor"
 
 
@@ -389,7 +408,11 @@ OPTIMIZE_KEYWORDS = [
     # had while the keyword was refused
     pytest.param("device_loop_iters", 8, True,
                  id="device_loop_iters-8-False"),
-    ("max_embedded_constant_bytes", 1 << 20, False),
+    # accepted with no effect since the parallel module was ported (the
+    # port always holds the operator arrays in device memory); the id is
+    # the one it had while the keyword was refused
+    pytest.param("max_embedded_constant_bytes", 1 << 20, True,
+                 id="max_embedded_constant_bytes-1048576-False"),
     ("atexit_filename", "dump.pkl", True),
     ("atexit_config_digest", "abc", True),
     ("profile_dir", "prof", True),
