@@ -76,7 +76,17 @@ every evaluation went through the kernels:
   (``--parallel-rank``), both on the one card and reducing over gloo, on
   the 8 x 4 ensemble and the CZ against the single process, through three
   iterations of ``optimize(mesh=...)`` and a device-loop chunk, and the
-  weak-scaling rows; two ranks sharing one card give no scaling number.
+  weak-scaling rows; two ranks sharing one card give no scaling number;
+- the reference's last keywords on the CZ (``use_pallas=False``: no
+  hand-written kernel, against the kernels; the three values of
+  ``gradgen_pallas_precision``; ``prewarm_envelope=False``), the port's
+  examples (``grape_tpu_torch.examples``: each ``main`` in complex64 with
+  its own assertions), and BASELINE config 5 at the letter: 1024 samples
+  of the CZ (K = 4096 in 1024 groups of 4, dim 100, N_T = 2000, recompute
+  storage, gradgen, bounds +-0.5), the ensemble kernels at its segment
+  shape against their plain versions, one evaluation through ``build_fg``
+  and one through ``build_fg_multicall(n_calls=4)`` (the same J and
+  gradient), and three iterations with ``eval_device_calls=4``.
 
 Each phase prints one JSON line and raises on failure; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -5298,6 +5308,372 @@ def parallel_paths(cz_problem, ens_problem, smi):
     return counts_one
 
 
+# ---- the letter, the examples, the keywords ------------------------------
+
+# BASELINE config 5 at the letter (experiments/r5_flagship_ensemble.py):
+# 1024 samples of the CZ at dim 100, K = 4096 in 1024 groups of 4, N_T =
+# 2000, recompute storage (the segment rule's 40 segments of 50 steps),
+# gradgen, complex64, bounds +-0.5 (whose caps are the workspace's envelope)
+LETTER_SAMPLES = 1024
+LETTER_CALLS = 4
+LETTER_ITERS = 3
+LETTER_BOUND = 0.5
+LETTER_SEGMENTS = 40
+# multicall against one call: the same launches in the same order, so the
+# same bits are expected; the bound taken if not (stated before the first
+# run): recompute against full storage's limits
+TOL_LETTER_J, TOL_LETTER_GRAD = 1e-6, 1e-4
+# groups of the letter's segment held against the plain versions: the
+# first and the last, whose items sit past 2**31 bytes into the U stream
+LETTER_CHECK_GROUPS = ((0, 8), (1016, 1024))
+
+
+def letter_kernel_check(cp, amp_max, dev):
+    """K4, the grouped chi scan and K6 at the letter's segment shape (d =
+    100, G = 1024 groups of 4, a 50-step window; a U stream of 4.1 GB)
+    against their plain versions on the first and last 8 groups (groups
+    are independent), and their times there."""
+    from grape_tpu_torch.fg import _static_squarings
+    from grape_tpu_torch.ops import hopper_frechet as hf
+    from grape_tpu_torch.ops import hopper_prop as hp
+    from grape_tpu_torch.ops import plain_versions
+
+    c64 = lambda x: torch.tensor(x, dtype=torch.complex64, device=dev)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    seg = cp.n_timesteps // cp.storage_segments
+    s = _static_squarings(cp, amp_max)
+    H0g, opsg = c64(cp.H0), c64(cp.ops)
+    G, gs, d = H0g.shape[0], cp.gen_group_size, cp.dim
+    rng = np.random.default_rng(SEED)
+    eps = cp.guess_pulsevals[:, :seg] + 0.02 * rng.normal(
+        size=(cp.n_controls, seg))
+    coeffs = f32(np.einsum("ntl,ln->nt", cp.M[:seg], eps) + cp.Mfix[:seg])
+    dts = f32(np.diff(cp.tlist)[:seg])
+    psi0 = c64(cp.psi0)
+    chi0 = rng.normal(size=psi0.shape) + 1j * rng.normal(size=psi0.shape)
+    chi0 = c64(chi0 / np.linalg.norm(chi0, axis=1, keepdims=True))
+    st, U = hp.forward_scan_grouped(H0g, opsg, coeffs, dts, psi0, gs, s)
+    chis = hp.chi_scan_grouped(U, chi0)
+    psis = st[:-1].contiguous()
+    trj = hf.frechet_trace_pertraj(H0g, opsg, coeffs, dts, psis, chis, s,
+                                   group_size=gs)
+    torch.cuda.synchronize()
+    require(finite(st, U, chis, trj), "a letter kernel output is not finite")
+    err = dict.fromkeys(("forward_scan_grouped", "chi_scan_grouped",
+                         "frechet_trace_pertraj_factored"), 0.0)
+    for g0, g1 in LETTER_CHECK_GROUPS:
+        k0, k1 = g0 * gs, g1 * gs
+        with plain_versions():
+            st_p, U_p = hp.forward_scan_grouped(
+                H0g[g0:g1].contiguous(), opsg[g0:g1].contiguous(), coeffs,
+                dts, psi0[k0:k1].contiguous(), gs, s)
+            chis_p = hp.chi_scan_grouped(U[:, g0:g1].contiguous(),
+                                         chi0[k0:k1].contiguous())
+            trj_p = hf.frechet_trace_pertraj(
+                H0g[g0:g1].contiguous(), opsg[g0:g1].contiguous(), coeffs,
+                dts, psis[:, k0:k1].contiguous(),
+                chis[:, k0:k1].contiguous(), s, group_size=gs)
+        torch.cuda.synchronize()
+        scale = max(float(trj_p.abs().max()), 1.0)
+        e = {"forward_scan_grouped": max(max_abs(st[:, k0:k1], st_p),
+                                         max_abs(U[:, g0:g1], U_p)),
+             "chi_scan_grouped": max_abs(chis[:, k0:k1], chis_p),
+             "frechet_trace_pertraj_factored":
+                 max_abs(trj[:, k0:k1], trj_p) / scale}
+        for name, val in e.items():
+            tol = TOL_TRJ if name.startswith("frechet") else TOL_STATE
+            require(val < tol, f"{name} disagrees with its plain version "
+                    f"on groups {g0}..{g1} of the letter: {val} ({tol})")
+            err[name] = max(err[name], val)
+    ms = {
+        "forward_scan_grouped": median_ms(lambda: hp.forward_scan_grouped(
+            H0g, opsg, coeffs, dts, psi0, gs, s), reps=3),
+        "chi_scan_grouped": median_ms(
+            lambda: hp.chi_scan_grouped(U, chi0), reps=3),
+        "frechet_trace_pertraj_factored": median_ms(
+            lambda: hf.frechet_trace_pertraj(H0g, opsg, coeffs, dts, psis,
+                                             chis, s, group_size=gs),
+            reps=3),
+    }
+    out = {"shape": {"d": d, "G": G, "gs": gs, "K": G * gs, "N_T": seg,
+                     "T": opsg.shape[1], "s": s},
+           "u_stream_bytes": nbytes(U), "checked_groups": LETTER_CHECK_GROUPS,
+           "max_abs_err": err, "ms": ms}
+    del st, U, chis, psis, trj, H0g, opsg, psi0, chi0
+    torch.cuda.empty_cache()
+    return out
+
+
+def letter_paths(dev):
+    """Phase ``letter``: BASELINE config 5 at the letter through
+    ``build_fg`` and ``build_fg_multicall(n_calls=4)`` (one evaluation each
+    at the guess, then the one-call build's timed again: the same J and
+    gradient, ms an evaluation, peak memory, launches an evaluation), the
+    kernels at its segment shape against their plain versions, and
+    ``LETTER_ITERS`` iterations of ``optimize_problem(...,
+    eval_device_calls=4)`` with J_T falling.  Returns the launch counts of
+    its evaluations and the kernels' readings at the segment shape."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.fg import (
+        _seg_reuse_U, _vec_gradgen_enabled, build_fg_multicall,
+    )
+    from grape_tpu_torch.models import two_transmon_cz_ensemble_problem
+    from grape_tpu_torch.ops import (
+        hopper_cheby, hopper_frechet, hopper_matmul, hopper_prop,
+    )
+
+    mods = (hopper_prop, hopper_frechet, hopper_cheby, hopper_matmul)
+    t_phase = time.perf_counter()
+    kw = dict(dtype=np.complex64, storage_mode="recompute",
+              gradient_method="gradgen")
+    problem = two_transmon_cz_ensemble_problem(
+        n_samples=LETTER_SAMPLES, d=D_TRANSMON, n_steps=N_STEPS)
+    t0 = time.perf_counter()
+    cp = gt.compile_problem(problem.trajectories, problem.tlist, **kw,
+                            **problem.kwargs)
+    compile_s = time.perf_counter() - t0
+    S = cp.storage_segments
+    seg_u_bytes = ((cp.n_timesteps // S) * cp.H0.shape[0] * cp.dim ** 2
+                   * np.dtype(cp.psi0.dtype).itemsize)
+    require(S == LETTER_SEGMENTS and cp.n_traj == 4 * LETTER_SAMPLES
+            and cp.ops_grouped and cp.gen_group_size == 4
+            and cp.H0.shape[0] == LETTER_SAMPLES
+            and _vec_gradgen_enabled(cp), "unexpected letter routing")
+    amp_max = np.full(cp.n_controls, LETTER_BOUND)
+    seg = cp.n_timesteps // S
+    windows = -(-seg // hopper_prop._window_steps(cp.H0.shape[0], cp.dim,
+                                                  seg))
+    check = letter_kernel_check(cp, amp_max, dev)
+
+    x0 = cp.guess_pulsevals.reshape(-1)
+    fgs = {1: gt.build_fg(cp, amp_max=amp_max),
+           LETTER_CALLS: build_fg_multicall(cp, amp_max=amp_max,
+                                            n_calls=LETTER_CALLS)}
+    res_by_calls, per_eval = {}, {}
+    counts_all = None
+    for calls, fg in fgs.items():
+        zero_counts(*mods)
+        (J, g, aux), peak, first_ms = _peak_bytes(lambda: fg(x0))
+        counts, routes = read_launches(*mods)
+        ROUTE_READS.append((f"letter_calls_{calls}", routes))
+        counts_all = counts if counts_all is None else {
+            k: counts_all[k] + counts[k] for k in counts}
+        require(math.isfinite(float(J)) and bool(torch.isfinite(g).all())
+                and bool(aux["chi_ok"]),
+                f"letter, {calls} calls: not finite")
+        expect = dict.fromkeys(counts, 0)
+        expect.update({"forward_scan_grouped": 2 * S, "chi_scan_grouped": S,
+                       "frechet_trace_pertraj_factored": S})
+        require(counts == expect, f"letter launches, {calls} calls: "
+                f"{counts}, expected {expect}")
+        # a forward segment without its U stream forms the propagators in
+        # windows (hopper_prop._window_steps), a scan each; the recomputed
+        # segment keeps its stream: one launch
+        expect_routes = dict.fromkeys(routes, 0)
+        expect_routes.update({"propagators_cluster": S * (1 + windows),
+                              "state_scan_forward": S * (1 + windows),
+                              "state_scan_chi": S})
+        require(routes == expect_routes, f"letter routes, {calls} calls: "
+                f"{routes}, expected {expect_routes}")
+        res_by_calls[calls] = (float(J), g)
+        per_eval[calls] = {"first_ms": first_ms, "peak_bytes": peak,
+                           "launches": {k: v for k, v in counts.items()
+                                        if v},
+                           "route_launches": {k: v for k, v in
+                                              routes.items() if v}}
+        del aux
+    # the multicall evaluation above ran on a warm allocator; so does this
+    # second evaluation in one call (the first grew the allocator)
+    per_eval[1]["ms_per_eval"] = timed_ms(lambda: fgs[1](x0), 1)
+    per_eval[LETTER_CALLS]["ms_per_eval"] = per_eval[LETTER_CALLS][
+        "first_ms"]
+    del fgs
+    torch.cuda.empty_cache()
+    (J1, g1), (J4, g4) = res_by_calls[1], res_by_calls[LETTER_CALLS]
+    bits = J1 == J4 and bool(torch.equal(g1, g4))
+    dJ = abs(J1 - J4)
+    dg = max_abs(g1, g4) / float(g1.abs().max())
+    require(dJ <= TOL_LETTER_J and dg <= TOL_LETTER_GRAD,
+            f"letter: {LETTER_CALLS} calls against one: dJ {dJ}, dgrad {dg}")
+    del res_by_calls, g1, g4
+
+    # LETTER_ITERS iterations of the solve, the host loop ("auto")
+    series = []
+    zero_counts(*mods)
+    t0 = time.perf_counter()
+    res = gt.optimize_problem(
+        problem, iter_stop=LETTER_ITERS, print_iters=False,
+        rethrow_exceptions=True, eval_device_calls=LETTER_CALLS,
+        lower_bound=-LETTER_BOUND, upper_bound=LETTER_BOUND, **kw,
+        callback=lambda wrk, it: series.append(float(wrk.result.J_T)))
+    opt_s = time.perf_counter() - t0
+    counts_opt = read_counts(*mods)
+    expect = dict.fromkeys(counts_opt, 0)
+    expect.update({
+        "forward_scan_grouped": S * (2 * res.fg_calls + res.f_calls),
+        "chi_scan_grouped": S * res.fg_calls,
+        "frechet_trace_pertraj_factored": S * res.fg_calls})
+    require(counts_opt == expect, f"letter optimize launches {counts_opt}, "
+            f"expected {expect}")
+    require(len(series) == LETTER_ITERS + 1 and series[-1] < series[0]
+            and all(b <= a for a, b in zip(series, series[1:])),
+            f"letter: J_T does not fall: {series}")
+    counts_all = {k: counts_all[k] + counts_opt[k] for k in counts_all}
+    emit({"phase": "letter", "samples": LETTER_SAMPLES, "K": cp.n_traj,
+          "dim": cp.dim, "N_T": cp.n_timesteps, "segments": S,
+          "segment_steps": seg, "n_calls": LETTER_CALLS,
+          "forward_windows_per_segment": windows,
+          "compile_problem_seconds": compile_s,
+          "segment_u_bytes": seg_u_bytes,
+          "seg_reuse_U": bool(_seg_reuse_U(cp)),
+          "seg_reuse_U_limit_bytes": 4 * 1024 ** 3,
+          "J": J1, "bit_for_bit": bits, "J_abs_diff": dJ,
+          "grad_diff_of_max": dg,
+          "tol": {"J": TOL_LETTER_J, "grad_of_max": TOL_LETTER_GRAD},
+          "one_call": per_eval[1], "multicall": per_eval[LETTER_CALLS],
+          "flop_rate": flop_rate(cp, per_eval[1]["ms_per_eval"]),
+          "kernels_at_segment": check,
+          "optimize": {"J_T_series": series, "iterations": res.iter,
+                       "seconds": opt_s, "fg_calls": res.fg_calls,
+                       "f_calls": res.f_calls, "message": res.message,
+                       "launches": {k: v for k, v in counts_opt.items()
+                                    if v}},
+          "seconds": time.perf_counter() - t_phase})
+    return counts_all, check
+
+
+# the port's examples (grape_tpu_torch/examples), each main with its own
+# settings and assertions; the tutorial with the budget of its test
+EXAMPLE_MAINS = (
+    ("tls_state_transfer", "main", {}),
+    ("stirap_guard_penalty", "main", {}),
+    ("robust_ensemble", "main", {}),
+    ("robust_ensemble", "main_robust_gate", {}),
+    ("xgate_observables", "main", {}),
+    ("nonlinear_amplitude", "main", {}),
+    ("subspace_gate_fat_batch", "main", {}),
+    ("krotov_continuation", "main", {}),
+    ("tutorial", "main", {"iter_stop": 3, "converged_below": 0.5}),
+)
+
+
+def example_paths():
+    """Phase ``examples``: each example's ``main`` on the card in complex64
+    (its printout kept out of this script's output), its own assertions,
+    the kernels it launched; where an assertion fails in complex64, the
+    failure is recorded and the example runs again in complex128, which
+    must pass.  Returns the launches of the complex64 runs together."""
+    import contextlib
+    import importlib
+    import io
+
+    from grape_tpu_torch.ops import (
+        hopper_cheby, hopper_frechet, hopper_matmul, hopper_prop,
+    )
+
+    mods = (hopper_prop, hopper_frechet, hopper_cheby, hopper_matmul)
+    rows, total = [], {}
+    t_phase = time.perf_counter()
+    for module, name, extra in EXAMPLE_MAINS:
+        main_fn = getattr(importlib.import_module(
+            f"grape_tpu_torch.examples.{module}"), name)
+        row = {"example": f"{module}.{name}"}
+        for dtype in (np.complex64, np.complex128):
+            zero_counts(*mods)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    res = main_fn(dtype=dtype, **extra)
+            except AssertionError as exc:
+                require(dtype == np.complex64,
+                        f"{module}.{name} fails in complex128: {exc}")
+                row["complex64_assertion"] = str(exc) or "assert"
+                continue
+            counts, routes = read_launches(*mods)
+            ROUTE_READS.append((f"example_{module}_{name}", routes))
+            if dtype == np.complex64:
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+            row.update({
+                "dtype": np.dtype(dtype).name, "J_T": float(res.J_T),
+                "iterations": res.iter, "fg_calls": res.fg_calls,
+                "seconds": time.perf_counter() - t0,
+                "printed_lines": len(buf.getvalue().splitlines()),
+                "launches": {k: v for k, v in counts.items() if v},
+                "route_launches": {k: v for k, v in routes.items() if v}})
+            break
+        require(math.isfinite(row["J_T"]), f"{module}.{name}: J_T")
+        rows.append(row)
+    emit({"phase": "examples", "rows": rows,
+          "seconds": time.perf_counter() - t_phase})
+    return total
+
+
+def keyword_paths(cz_problem, dev):
+    """Phase ``keywords`` on the CZ (dim 100, K = 4, N_T = 2000): the
+    default build against ``use_pallas=False`` (no hand-written kernel
+    launched, every route count 0; J and gradient within the kernels-vs-
+    plain limits; ms an evaluation of each), the three values of
+    ``gradgen_pallas_precision`` (the same bits) and ``prewarm_envelope``
+    True / False (the same J_T series over 2 iterations)."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.ops import (
+        hopper_cheby, hopper_frechet, hopper_matmul, hopper_prop,
+    )
+
+    mods = (hopper_prop, hopper_frechet, hopper_cheby, hopper_matmul)
+    t_phase = time.perf_counter()
+
+    def build(**kw):
+        cp = gt.compile_problem(cz_problem.trajectories, cz_problem.tlist,
+                                dtype=np.complex64, **cz_problem.kwargs, **kw)
+        return cp, gt.build_fg(cp)
+
+    cp, fg = build()
+    x0 = cp.guess_pulsevals.reshape(-1)
+    J, g, _ = fg(x0)
+    ms_default = timed_ms(lambda: fg(x0), 3)
+    _, fg_x = build(use_pallas=False)
+    zero_counts(*mods)
+    J_x, g_x, aux_x = fg_x(x0)
+    torch.cuda.synchronize()
+    counts, routes = read_launches(*mods)
+    require(not any(counts.values()) and not any(routes.values()),
+            f"use_pallas=False launched a kernel: {counts} {routes}")
+    ms_plain = timed_ms(lambda: fg_x(x0), 2)
+    dJ = abs(float(J) - float(J_x))
+    dg = max_abs(g, g_x) / float(g.abs().max())
+    require(dJ < 1e-5 and dg < 2e-3 and bool(aux_x["chi_ok"]),
+            f"use_pallas=False against the kernels: dJ {dJ}, dgrad {dg}")
+    same = {}
+    for prec in ("high", "highest", "default"):
+        _, fg_p = build(gradgen_pallas_precision=prec)
+        J_p, g_p, _ = fg_p(x0)
+        same[prec] = float(J_p) == float(J) and bool(torch.equal(g_p, g))
+    require(all(same.values()), f"precision values differ: {same}")
+    series = {}
+    for prewarm in (True, False):
+        tr = []
+        gt.optimize_problem(
+            cz_problem, iter_stop=2, print_iters=False, dtype=np.complex64,
+            rethrow_exceptions=True, prewarm_envelope=prewarm,
+            callback=lambda wrk, it: tr.append(float(wrk.result.J_T)))
+        series[str(prewarm)] = tr
+    require(series["True"] == series["False"],
+            f"prewarm_envelope changes the series: {series}")
+    emit({"phase": "keywords", "J": float(J),
+          "use_pallas_false": {"J": float(J_x), "J_abs_diff": dJ,
+                               "grad_diff_of_max": dg,
+                               "launches": sum(counts.values()),
+                               "route_launches": sum(routes.values()),
+                               "ms_per_eval": ms_plain},
+          "ms_per_eval_default": ms_default,
+          "precision_same_bits": same,
+          "prewarm_envelope_series": series,
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: "
@@ -5767,6 +6143,13 @@ def main():
     # ---- trajectory sharding over torch.distributed -----------------------
     counts_par = parallel_paths(problem, ens_problem, smi)
 
+    # ---- the keywords, the examples, BASELINE config 5 at the letter ------
+    t_kel = time.perf_counter()
+    keyword_paths(problem, dev)
+    counts_examples = example_paths()
+    counts_letter, letter_check = letter_paths(dev)
+    kel_s = time.perf_counter() - t_kel
+
     prop_cu = "grape_tpu_torch/csrc/prop_cluster.cu"
     smalld_cu = "grape_tpu_torch/csrc/smalld_fused.cu"
     cheby_cu = "grape_tpu_torch/csrc/cheby_ring.cu"
@@ -5917,9 +6300,18 @@ def main():
                         ("observables", counts_obs),
                         ("hetero", counts_hetero),
                         ("krotov", counts_krotov),
-                        ("parallel_world_of_one", counts_par)):
+                        ("parallel_world_of_one", counts_par),
+                        ("examples", counts_examples),
+                        ("letter", counts_letter)):
             if c.get(name):
                 m[f"launches_{path}"] = c[name]
+    # the ensemble kernels at the letter's segment shape (G = 1024)
+    for name in ("forward_scan_grouped", "chi_scan_grouped",
+                 "frechet_trace_pertraj_factored"):
+        ens[name]["letter_segment"] = {
+            "shape": letter_check["shape"],
+            "ms": letter_check["ms"][name],
+            "max_abs_err_vs_plain": letter_check["max_abs_err"][name]}
     # launches on the taylor paths, beside the counted run of each kernel
     cz["forward_scan_shared"]["launches_cz_taylor"] = (
         counts_cz_taylor["forward_scan_shared"])
@@ -5958,6 +6350,7 @@ def main():
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "host_module_phases_seconds": slice_s,
           "hetero_krotov_phases_seconds": hetero_krotov_s,
+          "keywords_examples_letter_seconds": kel_s,
           "nvidia_smi": smi})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

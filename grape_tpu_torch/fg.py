@@ -111,8 +111,8 @@ from .ops.hopper_prop import (
 from .ops.newton import arnoldi_expmv
 
 __all__ = [
-    "CompiledProblem", "compile_problem", "build_fg", "build_f",
-    "uses_static_envelope",
+    "CompiledProblem", "compile_problem", "build_fg", "build_fg_multicall",
+    "build_f", "uses_static_envelope",
 ]
 
 # from this dimension on (and for few enough columns) the vectorized Taylor
@@ -231,19 +231,21 @@ class CompiledProblem:
     mesh_axis: Any = None
     traj_rows: Any = None
     global_problem: Any = None
+    # the reference's kernel switch: "auto" or True (the hand-written
+    # kernels on CUDA in complex64, their plain versions for CPU tensors)
+    # or False (no kernel: the plain PyTorch path complex128 takes)
+    use_pallas: Any = "auto"
+    # the reference's precision of its Fréchet kernel's products; the
+    # port's Fréchet kernels meet every value with float32 FMAs
+    gradgen_pallas_precision: str = "high"
 
     @property
     def dt(self):
         return np.diff(self.tlist)
 
 
-# keyword -> value that means "not asked for" (the reference's default);
-# anything else is an option the port does not support yet.  The Pallas
-# switches have no meaning here: the kernels run for CUDA tensors.
-_UNPORTED_DEFAULTS = {
-    "use_pallas": "auto",
-    "gradgen_pallas_precision": "high",
-}
+# the values the reference takes for the precision of its Fréchet kernel
+_PRECISIONS = ("high", "highest", "default")
 
 
 def _normalize_prop_method(prop_method):
@@ -325,8 +327,9 @@ def _merge_traj_prop_settings(trajectories, *given):
     return tuple(out)
 
 
-def _check_ported(gradient_method, storage_mode, options):
-    """Raise ``NotImplementedError`` naming the first unported option."""
+def _check_options(gradient_method, storage_mode, use_pallas,
+                   gradgen_pallas_precision):
+    """Raise ``ValueError`` for a value no entry point takes."""
     if gradient_method not in ("gradgen", "taylor", "auto"):
         raise ValueError(
             f"Unknown gradient_method: {gradient_method!r} "
@@ -337,16 +340,17 @@ def _check_ported(gradient_method, storage_mode, options):
             f"Unknown storage_mode: {storage_mode!r} "
             "(supported: 'full', 'recompute')"
         )
-    for key, val in options.items():
-        if key not in _UNPORTED_DEFAULTS:
-            raise TypeError(
-                f"compile_problem() got an unexpected keyword {key!r}"
-            )
-        default = _UNPORTED_DEFAULTS[key]
-        if val is not default and val != default:
-            raise NotImplementedError(
-                f"{key}= is not ported to grape_tpu_torch yet"
-            )
+    if not (isinstance(use_pallas, (bool, np.bool_))
+            or (isinstance(use_pallas, str) and use_pallas == "auto")):
+        raise ValueError(
+            f"Unknown use_pallas: {use_pallas!r} (supported: 'auto', "
+            "True, False)"
+        )
+    if gradgen_pallas_precision not in _PRECISIONS:
+        raise ValueError(
+            f"unknown precision {gradgen_pallas_precision!r} (supported: "
+            f"{', '.join(map(repr, _PRECISIONS))})"
+        )
 
 
 def compile_problem(
@@ -380,9 +384,10 @@ def compile_problem(
     vectorize_backward=True,
     fw_prop_callback=None,
     fw_prop_observables=None,
+    use_pallas="auto",
+    gradgen_pallas_precision="high",
     device=None,
     _controls=None,
-    **options,
 ):
     """Compile trajectories + tlist into a :class:`CompiledProblem`.
 
@@ -409,12 +414,29 @@ def compile_problem(
     :func:`_merge_traj_prop_settings`.  ``_controls`` (the heterogeneous
     compile's) gives the GLOBAL control list, so that every partition of an
     ensemble shares one pulse layout; a control that a partition's
-    generators do not couple to gets zero columns.  A keyword for a feature
-    that is not ported yet raises ``NotImplementedError``; an unknown
-    keyword raises ``TypeError``.
+    generators do not couple to gets zero columns.  An unknown keyword
+    raises ``TypeError``.
+
+    The reference's two kernel switches: ``use_pallas="auto"`` (the
+    default) and ``True`` run the hand-written kernels where the problem is
+    complex64 on CUDA, and their plain PyTorch versions for CPU tensors
+    (``True`` on the CPU is the counterpart of the reference's interpret
+    mode); ``False`` runs no hand-written kernel, the plain PyTorch path
+    that complex128 takes (the counterpart of the reference's XLA path).
+    ``False`` is taken only when asked for: a kernel that fails to build or
+    launch still raises under the other two.  ``gradgen_pallas_precision``
+    (``"high"``, ``"highest"`` or ``"default"``) chooses how many bf16
+    passes the reference's Fréchet kernel makes a product; the port's
+    Fréchet kernels use float32 FMAs, which meet each value as a floor on
+    precision, and do matrix-vector work (the factored kernel) that no
+    one-pass tensor-core product would speed up, so all three run the same
+    arithmetic.  Any other value of either raises ``ValueError``; an
+    unknown precision raises here, where the reference raises when its
+    kernel is traced.
     """
     device = resolve_device(device)
-    _check_ported(gradient_method, storage_mode, options)
+    _check_options(gradient_method, storage_mode, use_pallas,
+                   gradgen_pallas_precision)
     trajectories = list(trajectories)
     tlist = np.asarray(tlist, dtype=np.float64)
     N_T = len(tlist) - 1
@@ -571,6 +593,9 @@ def compile_problem(
             )
         ),
         ops_grouped=ops_grouped,
+        use_pallas=(use_pallas if isinstance(use_pallas, str)
+                    else bool(use_pallas)),
+        gradgen_pallas_precision=gradgen_pallas_precision,
         norm_cache=_make_norm_cache(H0, ops,
                                     with_spectral="cheby" in methods),
         device=device,
@@ -957,9 +982,12 @@ def uses_static_envelope(cp: CompiledProblem):
 
 def _kernels_enabled(cp: CompiledProblem):
     """The kernel wrappers (and, for CPU tensors, their plain versions)
-    serve complex64, as the TPU kernels are gated on it; complex128 takes
-    the plain Padé-13 path."""
-    return np.dtype(cp.psi0.dtype) == np.complex64
+    serve complex64, as the TPU kernels are gated on it, unless
+    ``use_pallas=False``; complex128 and ``use_pallas=False`` take the
+    plain path (Padé-13 in complex128, the degree-16 Taylor polynomial in
+    complex64)."""
+    return (cp.use_pallas is not False
+            and np.dtype(cp.psi0.dtype) == np.complex64)
 
 
 def _effective_group_size(cp: CompiledProblem):
@@ -1179,13 +1207,12 @@ def _prop_data_on(pds, device):
 
 def _cheby_kernel_enabled(cp: CompiledProblem, pd):
     """The Chebyshev-scan kernel serves the direction whose data is ``pd``:
-    the reference's gates without their TPU memory budgets (the port has
-    no ``use_pallas`` option, so nothing forbids it): a Chebyshev
+    the reference's gates without their TPU memory budgets: a Chebyshev
     direction, one shared generator with one coefficient table, the
-    kernels' precision, ``dim ≥ 256``; and the kernel's own ceiling,
-    ``dim ≤ CHEBY_MAX_DIM`` (its rows of H_n live in shared memory), above
-    which the plain series runs, as the reference's scan does above its
-    ceiling."""
+    kernels on (:func:`_kernels_enabled`), ``dim ≥ 256``; and the kernel's
+    own ceiling, ``dim ≤ CHEBY_MAX_DIM`` (its rows of H_n live in shared
+    memory), above which the plain series runs, as the reference's scan
+    does above its ceiling."""
     return (
         pd is not None and pd["kind"] == "cheby" and _kernels_enabled(cp)
         and cp.shared_generator and not cp.per_traj_coeffs
@@ -2230,6 +2257,55 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
             aux["fw_observables"] = _fw_observables(cp, consts, storage)
         return J, grad, aux
 
+    return fg
+
+
+def _grown_calls(S, n_calls):
+    """The reference's block count for ``S`` segments: ``n_calls`` grown
+    until it divides ``S``.  A count above ``S`` is taken as ``S`` (one
+    segment a block), where the reference's loop would never end."""
+    n_calls = int(n_calls)
+    if n_calls < 1:
+        raise ValueError(f"n_calls must be at least 1, got {n_calls}")
+    n_calls = min(n_calls, S)
+    while S % n_calls != 0:
+        n_calls += 1
+    return n_calls
+
+
+def build_fg_multicall(cp: CompiledProblem, amp_max=None, n_calls=4,
+                       device=None):
+    """:func:`build_fg` under the reference's contract for an evaluation
+    split into ``n_calls`` device calls: it raises ``ValueError`` unless
+    storage is recompute and the backward pass is segment-vectorized
+    (ExpProp gradgen, or taylor with a static order count), and grows
+    ``n_calls`` until it divides ``storage_segments`` (at most that many;
+    the grown count is ``fg.n_calls``).  Returns ``fg(pulsevals) -> (J,
+    grad, aux)``, :func:`build_fg`'s own.
+
+    The reference splits an evaluation (one forward call, then ``n_calls``
+    backward blocks with the co-state carried between them) so that no
+    single execution on its TPU platform passes the platform's time limit
+    (about a minute; the 1024-sample config-5 letter needs more).  A CUDA
+    device has no such limit, and the blocks would run the same segments
+    in the same order with no boundary between them, so the port runs one
+    evaluation: J and the gradient are :func:`build_fg`'s, bit for bit,
+    in the same time.
+    """
+    parts = cp.parts if hasattr(cp, "parts") else [cp]
+    for p in parts:
+        if p.storage_mode != "recompute":
+            raise ValueError(
+                "build_fg_multicall requires recompute storage")
+        vec_gg, n_orders, _ = _backward_plan(p, amp_max)
+        if not (vec_gg or n_orders is not None):
+            raise ValueError(
+                "build_fg_multicall requires the segment-vectorized "
+                "backward (ExpProp gradgen, or taylor with static orders)"
+            )
+    n_calls = _grown_calls(parts[0].storage_segments, n_calls)
+    fg = build_fg(cp, amp_max=amp_max, device=device)
+    fg.n_calls = n_calls
     return fg
 
 

@@ -135,7 +135,9 @@ class HeteroCompiledProblem:
     J_T_takes_tau: bool = False
     chi_takes_tau: bool = False
     has_targets: bool = False
-    fw_prop_callback: Callable = None   # refused by compile_heterogeneous
+    # refused by compile_heterogeneous; set on a rank's view of a sharded
+    # problem (parallel.mesh._rank_view)
+    fw_prop_callback: Callable = None
     taylor_grad_max_order: int = 100
     taylor_grad_tolerance: float = 1e-16
     env_cache: Any = field(default_factory=dict)
@@ -159,7 +161,9 @@ def compile_heterogeneous(trajectories, tlist, partition, *, J_T,
     :class:`HeteroCompiledProblem`: each partition of ``partition`` (from
     :func:`traj_prop_partition`) is ``compile_problem(sub, ...,
     _controls=<the global controls>, **settings)`` with placeholder
-    functionals.  ``fw_prop_callback`` and ``mesh=`` are refused by name.
+    functionals.  ``fw_prop_callback`` and ``mesh=`` are refused by name;
+    ``use_pallas`` and ``gradgen_pallas_precision`` reach every partition's
+    compile, as in the reference.
     ``device=None`` means the CUDA device and raises without one."""
     device = resolve_device(kwargs.get("device"))
     trajectories = list(trajectories)
@@ -312,6 +316,17 @@ def _global_chi_boundary(hp: HeteroCompiledProblem, tlist, psi_T, tau):
     return chi
 
 
+def _global_observables(hp: HeteroCompiledProblem, consts, per_part, comm):
+    """The per-step observables of a rank's block (the one partition of a
+    sharded view) over the GLOBAL stored states, gathered over the ranks:
+    every rank forms the values of the unsharded build."""
+    storage = per_part[0][2]
+    r0 = int(hp.part_idx[0][0])
+    full = comm.gather_states(storage, (r0, r0 + storage.shape[1]),
+                              hp.n_traj)
+    return _fg._fw_observables(hp.parts[0], consts[0], full)
+
+
 def build_fg_hetero(hp: HeteroCompiledProblem, amp_max=None, device=None,
                     _comm=None):
     """Function-and-gradient evaluation of a heterogeneous problem, with
@@ -319,7 +334,8 @@ def build_fg_hetero(hp: HeteroCompiledProblem, amp_max=None, device=None,
     ``device=None`` means the device the problem was compiled for.
     ``_comm`` (``parallel.mesh``) makes ``hp`` one rank's view of a sharded
     problem: ``J``, the gradient and the flags come out of its collectives,
-    identical on every rank."""
+    identical on every rank, and under ``fw_prop_callback`` the
+    observables are formed over the gathered global states."""
     device = hp.device if device is None else resolve_device(device)
     consts, pds = _part_setup(hp, amp_max, device)
     want_U = [_fg._backward_plan(p, amp_max)[2] for p in hp.parts]
@@ -368,6 +384,9 @@ def build_fg_hetero(hp: HeteroCompiledProblem, amp_max=None, device=None,
             "taylor_ok": taylor_ok,
             "chi_norms": rho,
         }
+        if hp.fw_prop_callback is not None:  # a rank's block
+            aux["fw_observables"] = _global_observables(hp, consts,
+                                                        per_part, _comm)
         return J, grad, aux
 
     return fg
@@ -384,7 +403,7 @@ def build_f_hetero(hp: HeteroCompiledProblem, amp_max=None, device=None,
     @torch.no_grad()
     def f(pulsevals):
         pulsevals = _fg._as_pulse(pulsevals, consts[0], device)
-        _pp, psi_T, tau, J_T_val, J_a_val, J_b_val = _global_forward(
+        per_part, psi_T, tau, J_T_val, J_a_val, J_b_val = _global_forward(
             hp, consts, pds, pulsevals, amp_max, want_U, _comm)
         if _comm is not None:
             (J_T_val, J_a_val), (J_b_val,), _ = _comm.reduce(
@@ -396,6 +415,9 @@ def build_f_hetero(hp: HeteroCompiledProblem, amp_max=None, device=None,
                     else _fg._zero_tau(hp, consts[0], device)),
             "psi_T": psi_T,
         }
+        if hp.fw_prop_callback is not None:  # a rank's block
+            aux["fw_observables"] = _global_observables(hp, consts,
+                                                        per_part, _comm)
         return J, aux
 
     return f

@@ -14,12 +14,13 @@ Krotov→GRAPE and GRAPE→Krotov continuation run for real).  Per iteration:
    state already propagated under the UPDATED pulse, then one step
    ``exp(-i dt H_n)`` with ``H_n`` formed from the new value.
 
-Routing.  The reference compiles Krotov with ``use_pallas=False``, so its
-forward pass and co-state chain are plain XLA.  The port's kernel wrappers
-serve every CUDA tensor in complex64, so phases 1 and 2 run the propagator
-and state-chain kernels there (the shared forward scan and χ scan, the
-grouped or per-trajectory scans, or the small-d kernel, by layout), exactly
-as an evaluation of ``build_fg`` does; a routing choice of the port.  The
+Routing.  The reference drops the caller's ``use_pallas`` and compiles
+Krotov with ``use_pallas=False``, so its forward pass and co-state chain
+are plain XLA.  The port drops the caller's value too but keeps the
+default, so in complex64 on the card phases 1 and 2 run the propagator and
+state-chain kernels (the shared forward scan and χ scan, the grouped or
+per-trajectory scans, or the small-d kernel, by layout), exactly as an
+evaluation of ``build_fg`` does; a routing choice of the port.  The
 sweep is plain PyTorch, one step after another, as the reference's
 ``lax.scan`` is.
 

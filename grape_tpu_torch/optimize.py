@@ -85,11 +85,14 @@ def optimize(trajectories, tlist, **kwargs):
     ``mesh=`` (``parallel.make_mesh()`` in a process group of
     ``parallel.init_distributed``, e.g. under ``torchrun``) shards the
     trajectories over the ranks: each rank evaluates its block and the
-    loop runs on every rank in lockstep on the reduced ``(J, grad)``;
-    ``max_embedded_constant_bytes`` has no effect.  Options of
-    ``grape_tpu.optimize`` that are not ported yet
-    (``eval_device_calls``) raise ``NotImplementedError`` naming the
-    option.
+    loop runs on every rank in lockstep on the reduced ``(J, grad)``.
+    ``eval_device_calls=n`` (recompute storage and a segment-vectorized
+    backward pass, else ``ValueError``) evaluates through
+    ``fg.build_fg_multicall``, the backward pass in ``n`` blocks with the
+    same arithmetic; ``use_pallas`` and ``gradgen_pallas_precision`` go to
+    :func:`~grape_tpu_torch.fg.compile_problem`;
+    ``max_embedded_constant_bytes`` and ``prewarm_envelope`` have no effect
+    (``workspace``).
     """
     if "update_hook" in kwargs or "info_hook" in kwargs:
         raise ValueError(
@@ -235,7 +238,8 @@ def _get_optimizer(wrk):
       the 8 × 4 ensemble, the 1024 qutrits; ``PERF.md``): its
       L-BFGS step is several hundred small tensor operations an
       iteration, each dispatched from Python, which cost as much as the
-      host loop's copies or more.
+      host loop's copies or more.  So ``"auto"`` takes the host loop
+      whenever ``eval_device_calls > 1`` too, as the reference does.
     """
     opt = wrk.kwargs.get("optimizer", None)
     name = opt if isinstance(opt, str) else None

@@ -218,10 +218,11 @@ def shard_problem(cp: CompiledProblem, mesh, axis=None):
     ``ValueError``, "divisible").  The kernels' route rules then see the
     local block, as the reference's per-shard gates do, and so does the
     stored-propagator budget, which binds on the rank's own card (the
-    reference takes it on the global ``K``).  A heterogeneous problem and
-    ``fw_prop_callback`` (whose global state block at every step would
-    need an all-gather of ``(N_T+1, K, d)``) raise
-    ``NotImplementedError``."""
+    reference takes it on the global ``K``).  Under ``fw_prop_callback``
+    each rank keeps its ``(N_T+1, K/n, d)`` stored states, and every
+    evaluation gathers them into the global block before the observables
+    are formed (:meth:`_TrajReduce.gather_states`).  A heterogeneous
+    problem raises ``NotImplementedError``, as in the reference."""
     if hasattr(cp, "parts"):
         raise NotImplementedError(
             "mesh sharding is not supported with heterogeneous "
@@ -230,11 +231,6 @@ def shard_problem(cp: CompiledProblem, mesh, axis=None):
         )
     if cp.mesh is not None:
         raise ValueError("the problem is already one rank's block")
-    if cp.fw_prop_callback is not None:
-        raise NotImplementedError(
-            "fw_prop_callback is not supported with mesh sharding: the "
-            "callback would need every rank's states at every time step"
-        )
     if axis is None:
         axis = traj_axes(mesh)
     n = _shard_count(mesh, axis)
@@ -261,6 +257,16 @@ class _TrajReduce:
         dist.all_reduce(torch.view_as_real(block) if block.is_complex()
                         else block)
         return block
+
+    def gather_states(self, storage, rows, n_traj):
+        """The global ``(N_T+1, K, d)`` stored states from this rank's
+        ``(N_T+1, K/n, d)`` block at the trajectory ``rows``: a zero-filled
+        block holding this rank's rows, all-reduced as in
+        :meth:`gather_rows` (exact: ``x + 0 = x``)."""
+        full = storage.new_zeros((storage.shape[0], n_traj)
+                                 + tuple(storage.shape[2:]))
+        full[:, rows[0]:rows[1]] = storage
+        return self.gather_rows(full)
 
     def reduce(self, lead, summed, vector=None):
         """One float64 all-reduce: the lead rank's values of ``lead``
@@ -297,7 +303,8 @@ def _rank_view(cp: CompiledProblem):
         chi_min_norm=gp.chi_min_norm, J_T_takes_tau=gp.J_T_takes_tau,
         chi_takes_tau=gp.chi_takes_tau, has_targets=gp.has_targets,
         taylor_grad_max_order=gp.taylor_grad_max_order,
-        taylor_grad_tolerance=gp.taylor_grad_tolerance, device=cp.device,
+        taylor_grad_tolerance=gp.taylor_grad_tolerance,
+        fw_prop_callback=cp.fw_prop_callback, device=cp.device,
     )
 
 
@@ -316,8 +323,8 @@ def build_fg_sharded(cp: CompiledProblem, mesh, axis=None, amp_max=None,
     """``(fg, block)``: the evaluation of this rank's block with the
     contract of ``fg.build_fg``, the pulse vector replicated in and
     ``(J, grad, aux)`` fully reduced out, identical on every rank (``tau``,
-    ``psi_T`` and ``chi_norms`` global).  With ``presharded``, ``cp`` is
-    already a block of :func:`shard_problem`."""
+    ``psi_T``, ``chi_norms`` and ``fw_observables`` global).  With
+    ``presharded``, ``cp`` is already a block of :func:`shard_problem`."""
     return _build_sharded(build_fg_hetero, cp, mesh, axis, amp_max,
                           presharded, device)
 

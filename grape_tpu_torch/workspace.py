@@ -15,10 +15,15 @@ Trajectories whose own propagator settings differ are partitioned first
 (``fg_hetero.traj_prop_partition``) and compiled into one problem per
 partition (``fg_hetero.compile_heterogeneous``), as the reference's
 workspace does.  After each evaluation the ``fw_prop_callback`` (if any)
-receives the per-step observables.  Left out on purpose, as workarounds of
-the TPU platform the port does not have: background pre-warm threads (there
-is no compile step to hide), multi-call evaluations and device-argument
-builds.
+receives the per-step observables.  ``eval_device_calls > 1`` builds every
+bucket's ``fg`` with ``fg.build_fg_multicall`` (its backward pass in that
+many blocks; the same arithmetic as ``build_fg``), as the reference does.
+``prewarm_envelope`` is accepted as ``True`` or ``False`` and has no
+effect: the reference's prewarm thread builds the next envelope bucket's
+programs in the background to hide its TPU's compile queue, and the port
+compiles nothing when a bucket grows (building one is ``build_fg``'s host
+work, which no thread needs to hide).  Device-argument builds are left out,
+as a workaround of the TPU platform the port does not have.
 
 ``mesh=`` (a ``DeviceMesh`` of ``parallel.make_mesh`` or
 ``make_host_chip_mesh``) shards the compiled problem ONCE
@@ -43,7 +48,10 @@ with ``_outside_envelope``, ``_ensure_envelope`` and ``_grow_envelope``.
 import numpy as np
 
 from .controls import discretize_on_midpoints
-from .fg import build_f, build_fg, compile_problem, uses_static_envelope
+from .fg import (
+    build_f, build_fg, build_fg_multicall, compile_problem,
+    uses_static_envelope,
+)
 from .fg_hetero import compile_heterogeneous, traj_prop_partition
 from .parallel import shard_problem
 from .result import GrapeResult
@@ -63,40 +71,21 @@ _OPTIMIZE_KEYS = frozenset({
     "lower_bound", "pulse_options", "check", "atexit_filename",
     "atexit_config_digest", "profile_dir", "device_loop_iters", "f_tol",
     "g_tol", "x_tol", "show_trace", "scipy_options", "allow_f_increases",
-    "mesh",
+    "mesh", "eval_device_calls",
 })
 
-# keywords of grape_tpu.optimize() whose feature is not ported yet
-_UNPORTED_OPTIMIZE_KEYS = frozenset({"eval_device_calls"})
 # keywords of grape_tpu.optimize() that have nothing to do here (see the
 # module docstring)
-_NO_EFFECT_KEYS = frozenset({"max_embedded_constant_bytes"})
-
-# keyword -> the reference's default, taken as "not asked for"; any other
-# value raises.  The prewarm threads hide the TPU's compile latency and the
-# port compiles nothing.  (``use_pallas`` and ``gradgen_pallas_precision``
-# go on to compile_problem, which takes their defaults alike.)
-_UNPORTED_OPTIMIZE_DEFAULTS = {"prewarm_envelope": True}
+_NO_EFFECT_KEYS = frozenset({"max_embedded_constant_bytes",
+                             "prewarm_envelope"})
 
 
 def _compile_kwargs(kwargs):
-    """The subset of ``optimize`` keywords that ``compile_problem`` takes;
-    raises for an unported or unknown one instead of ignoring it."""
-    out = {}
-    for key, val in kwargs.items():
-        if key in _OPTIMIZE_KEYS or key in _NO_EFFECT_KEYS:
-            continue
-        if key in _UNPORTED_OPTIMIZE_DEFAULTS:
-            default = _UNPORTED_OPTIMIZE_DEFAULTS[key]
-            if val is default or val == default:
-                continue
-        if key in _UNPORTED_OPTIMIZE_KEYS or key in (
-                _UNPORTED_OPTIMIZE_DEFAULTS):
-            raise NotImplementedError(
-                f"{key}= is not ported to grape_tpu_torch"
-            )
-        out[key] = val
-    return out
+    """The subset of ``optimize`` keywords that ``compile_problem`` takes
+    (an unknown one goes on, and ``compile_problem`` raises ``TypeError``
+    for it)."""
+    return {key: val for key, val in kwargs.items()
+            if key not in _OPTIMIZE_KEYS and key not in _NO_EFFECT_KEYS}
 
 
 def _to_numpy(x, dtype=None):
@@ -119,6 +108,8 @@ class GrapeWrk:
             )
         else:
             self.cp = compile_problem(trajectories, tlist, **compile_kwargs)
+        self.eval_device_calls = int(self.kwargs.get("eval_device_calls",
+                                                     1))
         self.mesh = self.kwargs.get("mesh", None)
         if self.mesh is not None:
             # this rank's block; the builds below run sharded over the mesh
@@ -242,12 +233,15 @@ class GrapeWrk:
         return tuple(np.where(use_cap, cap, grown))
 
     def _build_programs(self, key):
-        """Build (fg, f) for an envelope bucket `key`."""
+        """Build (fg, f) for an envelope bucket `key`; ``fg`` in
+        ``eval_device_calls`` blocks where that is above 1."""
         amp_max = np.asarray(key) if key is not None else None
-        return (
-            build_fg(self.cp, amp_max=amp_max),
-            build_f(self.cp, amp_max=amp_max),
-        )
+        if self.eval_device_calls > 1:
+            fg = build_fg_multicall(self.cp, amp_max=amp_max,
+                                    n_calls=self.eval_device_calls)
+        else:
+            fg = build_fg(self.cp, amp_max=amp_max)
+        return fg, build_f(self.cp, amp_max=amp_max)
 
     def _programs(self):
         key = self._amp_bucket

@@ -17,7 +17,13 @@ The cases of the reference's ``tests/test_parallel.py``,
   taylor; the 2D ``("host", "chip")`` mesh in the world of 4); bounds with a
   pulse running cost;
 - the device loop under the mesh against the plain device loop, 1e-9;
-- ``measure_weak_scaling``'s rows in the world of 4.
+- ``measure_weak_scaling``'s rows in the world of 4;
+- in the world of 2: ``fw_prop_callback``'s values (the stored states and
+  an observable, from ``fg`` and ``f``) against the unsharded build, bit
+  for bit; ``build_fg_multicall`` on a rank's block against
+  ``build_fg_sharded``, bit for bit; the sharded evaluation of
+  ``examples/03`` (``grape_tpu_torch.examples.robust_ensemble``) against
+  the reference's single build, J to 1e-12 and the gradient to 1e-10.
 
 Each world runs once per test session (a file lock in the session's shared
 temporary directory, so that pytest-xdist workers wait for one run): its
@@ -118,6 +124,54 @@ def _trace(store):
     return lambda wrk, it: store.append(float(wrk.result.J_T))
 
 
+def _pop1(Psi, tlist, n):
+    return Psi[..., 1].abs() ** 2
+
+
+def _observables_problem(gt):
+    """The TLS ensemble with a ``fw_prop_callback`` (full storage)."""
+    trajs, tlist, kw = _tls8(gt)
+    return trajs, tlist, dict(kw, fw_prop_callback=lambda v, tl: None)
+
+
+def _as_lists(values):
+    return [[np.real(v).tolist(), np.imag(v).tolist()]
+            for v in (x.numpy() for x in values)]
+
+
+def _world2_extra(gt, parallel, mesh):
+    """fw_prop_callback, build_fg_multicall and example 03 under the mesh."""
+    import torch
+
+    from grape_tpu_torch.examples import robust_ensemble
+    from grape_tpu_torch.fg import build_fg_multicall
+
+    out = {"observables": {}}
+    trajs, tlist, kw = _observables_problem(gt)
+    x = _pulse(trajs, tlist, gt)
+    for name, obs in (("states", None), ("pop1", [_pop1])):
+        cp = gt.compile_problem(trajs, tlist, device="cpu",
+                                fw_prop_observables=obs, **kw)
+        fg, _ = parallel.build_fg_sharded(cp, mesh)
+        f, _ = parallel.build_f_sharded(cp, mesh)
+        out["observables"][name] = {
+            "fg": _as_lists(fg(x)[2]["fw_observables"]),
+            "f": _as_lists(f(x)[1]["fw_observables"])}
+    trajs, tlist, kw = _tls8(gt)
+    cp = gt.compile_problem(trajs, tlist, device="cpu",
+                            storage_mode="recompute", **kw)
+    blk = parallel.shard_problem(cp, mesh)
+    J1, g1, _ = parallel.build_fg_sharded(blk, mesh, presharded=True)[0](x)
+    J2, g2, aux = build_fg_multicall(blk, n_calls=3)(x)
+    out["multicall"] = {"J": float(J2), "equal": bool(
+        float(J1) == float(J2) and torch.equal(g1, g2)),
+        "taylor_ok": bool(aux["taylor_ok"])}
+    trajs, tlist, _ = robust_ensemble.setup()
+    J, g = robust_ensemble.sharded_fg(trajs, tlist, device="cpu")
+    out["example03"] = {"J": J, "g": g.tolist()}
+    return out
+
+
 def _rank_main(rank, world, store, out_dir):
     import torch
 
@@ -167,6 +221,7 @@ def _rank_main(rank, world, store, out_dir):
             "mesh": tr_mesh, "plain": tr_plain,
             "controls_diff": max(float(np.max(np.abs(a - b))) for a, b in zip(
                 res_m.optimized_controls, res_p.optimized_controls))}
+        out.update(_world2_extra(gt, parallel, mesh))
     else:
         trajs, tlist, kw = _opt_kwargs(gt, "gradgen")
         tr = []
@@ -330,6 +385,52 @@ def test_device_loop_sharded_matches_plain(world2):
                                atol=1e-12)
     assert dl["controls_diff"] < 1e-9
     assert dl["mesh"][-1] < 0.5
+
+
+def test_fw_prop_callback_under_the_mesh(world2):
+    """The observables (and, without any, the stored states) that every
+    rank hands ``fw_prop_callback`` are the unsharded build's, bit for
+    bit, from ``fg`` and from ``f``."""
+    import grape_tpu_torch as gt
+
+    trajs, tlist, kw = _observables_problem(gt)
+    x = _pulse(trajs, tlist, gt)
+    for name, obs in (("states", None), ("pop1", [_pop1])):
+        cp = gt.compile_problem(trajs, tlist, device="cpu",
+                                fw_prop_observables=obs, **kw)
+        want = {"fg": _as_lists(gt.build_fg(cp)(x)[2]["fw_observables"]),
+                "f": _as_lists(gt.build_f(cp)(x)[1]["fw_observables"])}
+        for r in world2:
+            assert r["observables"][name] == want
+    shape = np.asarray(world2[0]["observables"]["states"]["fg"][0][0]).shape
+    assert shape == (len(tlist), 8, 2)
+
+
+def test_multicall_on_a_rank_block(world2):
+    """``build_fg_multicall`` on a rank's block dispatches to the sharded
+    build: ``build_fg_sharded``'s J and gradient, bit for bit, and the
+    reference's single build's J."""
+    J_ref, _ = _reference_fg("tls8")
+    for r in world2:
+        assert r["multicall"]["equal"] and r["multicall"]["taylor_ok"]
+        assert r["multicall"] == world2[0]["multicall"]
+        assert abs(r["multicall"]["J"] - J_ref) < 1e-12
+
+
+def test_example03_sharded_fg_matches_reference(world2):
+    import grape_tpu.models
+    from grape_tpu.fg import build_fg, compile_problem
+    from grape_tpu.functionals import J_T_sm
+
+    trajs = grape_tpu.models.transmon_ensemble_trajectories(
+        16, d=3, delta_spread=0.05, T=20.0)
+    cp = compile_problem(trajs, np.linspace(0, 20.0, 201), J_T=J_T_sm)
+    J, g, _ = build_fg(cp)(cp.guess_pulsevals.reshape(-1))
+    for r in world2:
+        assert r["example03"] == world2[0]["example03"]
+    assert abs(world2[0]["example03"]["J"] - float(J)) < 1e-12
+    assert np.max(np.abs(np.asarray(world2[0]["example03"]["g"])
+                         - np.asarray(g))) < 1e-10
 
 
 def test_weak_scaling_rows(world4):

@@ -55,6 +55,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "grape_tpu_torch/krotov.py",
             "grape_tpu_torch/parallel/mesh.py",
             "grape_tpu_torch/parallel/scaling.py"} <= rel
+    from grape_tpu_torch.examples import NAMES
+
+    assert {f"grape_tpu_torch/examples/{n}.py" for n in NAMES} <= rel
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -74,7 +77,11 @@ def test_importing_the_port_does_not_load_jax():
         "grape_tpu_torch.testing, grape_tpu_torch.flops, grape_tpu_torch.io, "
         "grape_tpu_torch.models.open, grape_tpu_torch.fg_hetero, "
         "grape_tpu_torch.krotov, grape_tpu_torch.parallel, "
-        "grape_tpu_torch.parallel.scaling;"
+        "grape_tpu_torch.parallel.scaling, grape_tpu_torch.examples;"
+        "from grape_tpu_torch.examples import NAMES;"
+        "import importlib;"
+        "[importlib.import_module('grape_tpu_torch.examples.' + n) "
+        "for n in NAMES];"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'grape_tpu', 'triton')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -92,7 +99,8 @@ ENTRY_POINTS = ["optimize", "optimize_problem", "compile_problem",
                 "compile_heterogeneous", "hetero_build_fg",
                 "hetero_optimize", "hetero_problem_from_numpy",
                 "init_distributed", "make_mesh", "make_host_chip_mesh",
-                "measure_weak_scaling"]
+                "measure_weak_scaling", "build_fg_multicall",
+                "example_main"]
 
 
 def _mixed_trajectories():
@@ -156,6 +164,15 @@ def test_device_none_raises_without_cuda(entry):
 
             measure_weak_scaling(n_devices_list=[1], traj_per_device=1,
                                  dim=2, n_steps=2)
+        elif entry == "build_fg_multicall":
+            cp = gt.compile_problem(trajs, tlist, J_T=J_T_sm, device="cpu",
+                                    storage_mode="recompute")
+            gt.fg.build_fg_multicall(cp, n_calls=2, device="cuda")(
+                cp.guess_pulsevals.reshape(-1))
+        elif entry == "example_main":
+            from grape_tpu_torch.examples import tls_state_transfer
+
+            tls_state_transfer.main()
         elif entry == "hetero_problem_from_numpy":
             gt.hetero_problem_from_numpy({"parts": [], "part_idx": []},
                                          J_T="J_T_sm")

@@ -288,13 +288,10 @@ def _excited_population(Psi, trajectories, tlist, n):
     return 1e-3 * Psi[..., 1].abs() ** 2
 
 
-UNPORTED = {
-    "eval_device_calls": 4,
-}
-
 # options that raised until they were ported: their cases stay, under the
 # same ids, and now hold the option to what it does
 PORTED = {
+    "eval_device_calls": 4,
     "gradient_method": "taylor",
     "reuse_propagators": False,
     "taylor_grad_max_order": 50,
@@ -313,7 +310,10 @@ PORTED = {
 # what a ported option's run also takes: a Krylov space that fits the TLS;
 # the running cost that an xi belongs to
 PORTED_WITH = {"fw_prop_method": {"newton_m": 6},
-               "xi": {"g_b": _excited_population}}
+               "xi": {"g_b": _excited_population},
+               "eval_device_calls": {"storage_mode": "recompute"}}
+# options the workspace holds rather than the compiled problem
+WORKSPACE_OPTIONS = ("optimizer", "eval_device_calls")
 
 
 @contextlib.contextmanager
@@ -328,18 +328,14 @@ def _cpu_mesh_of_one(path):
         torch.distributed.destroy_process_group()
 
 
-@pytest.mark.parametrize("option", sorted({**UNPORTED, **PORTED}))
+@pytest.mark.parametrize("option", sorted(PORTED))
 def test_unported_option_raises(option, tmp_path):
-    """An option that is not ported raises ``NotImplementedError`` naming
-    it.  An option that has been ported since (``PORTED``) is honoured: the
-    run reaches the TLS anchor and the compiled problem carries it."""
+    """Every option that once raised ``NotImplementedError`` has been
+    ported (``PORTED``) and is honoured: the run reaches the TLS anchor and
+    the compiled problem (or the workspace) carries it."""
     trajs, tlist = _tls_quickstart()
     kw = dict(J_T=J_T_sm, device="cpu", print_iters=False,
               rethrow_exceptions=True)
-    if option in UNPORTED:
-        with pytest.raises(NotImplementedError, match=option.split("_")[0]):
-            optimize(trajs, tlist, **kw, **{option: UNPORTED[option]})
-        return
     if option != "gradient_method":
         kw["gradient_method"] = "taylor"
     seen = []
@@ -353,84 +349,86 @@ def test_unported_option_raises(option, tmp_path):
                        **{option: value})
     assert res.J_T < 1e-3 and res.message.startswith("Reached maximum")
     # the compiled problem carries the option; the workspace the backend's
-    holder = seen[0] if option == "optimizer" else seen[0].cp
+    holder = seen[0] if option in WORKSPACE_OPTIONS else seen[0].cp
     assert getattr(holder, option) == value
     assert seen[0].cp.gradient_method == "taylor"
 
 
+def _case(entry, option, value, raised_before=False):
+    """A case of ``REFERENCE_DEFAULTS`` under the id it has always had; a
+    value that raised until the keyword was ported keeps its ``-False``
+    id and now holds the keyword to being taken."""
+    return pytest.param(entry, option, value,
+                        id=f"{entry}-{option}-{value}-{not raised_before}")
+
+
 REFERENCE_DEFAULTS = [
-    # (entry point, keyword, value, accepted): the reference's default of a
-    # TPU keyword means "not asked for"; any other value is refused by name
-    ("compile_problem", "use_pallas", "auto", True),
-    ("compile_problem", "use_pallas", False, False),
-    ("compile_problem", "use_pallas", True, False),
-    ("compile_problem", "gradgen_pallas_precision", "high", True),
-    ("compile_problem", "gradgen_pallas_precision", "highest", False),
-    ("optimize", "use_pallas", "auto", True),
-    ("optimize", "use_pallas", False, False),
-    ("optimize", "gradgen_pallas_precision", "high", True),
-    ("optimize", "gradgen_pallas_precision", "default", False),
-    ("optimize", "prewarm_envelope", True, True),
-    ("optimize", "prewarm_envelope", False, False),
+    # (entry point, keyword, value): every value the reference takes for
+    # its TPU keywords is taken (what each does: tests/test_torch_keywords.py)
+    _case("compile_problem", "use_pallas", "auto"),
+    _case("compile_problem", "use_pallas", False, raised_before=True),
+    _case("compile_problem", "use_pallas", True, raised_before=True),
+    _case("compile_problem", "gradgen_pallas_precision", "high"),
+    _case("compile_problem", "gradgen_pallas_precision", "highest",
+          raised_before=True),
+    _case("optimize", "use_pallas", "auto"),
+    _case("optimize", "use_pallas", False, raised_before=True),
+    _case("optimize", "gradgen_pallas_precision", "high"),
+    _case("optimize", "gradgen_pallas_precision", "default",
+          raised_before=True),
+    _case("optimize", "prewarm_envelope", True),
+    _case("optimize", "prewarm_envelope", False, raised_before=True),
 ]
 
 
-@pytest.mark.parametrize("entry,option,value,accepted", REFERENCE_DEFAULTS)
-def test_reference_defaults_of_tpu_keywords(entry, option, value, accepted):
+@pytest.mark.parametrize("entry,option,value", REFERENCE_DEFAULTS)
+def test_reference_defaults_of_tpu_keywords(entry, option, value):
     trajs, tlist = _tls_quickstart()
     tlist = tlist[:51]
-
-    def run():
-        if entry == "compile_problem":
-            return gt.compile_problem(trajs, tlist, J_T=J_T_sm, device="cpu",
-                                      **{option: value})
-        return optimize(trajs, tlist, J_T=J_T_sm, device="cpu",
-                        iter_stop=1, print_iters=False,
-                        rethrow_exceptions=True, **{option: value})
-
-    if not accepted:
-        with pytest.raises(NotImplementedError, match=option):
-            run()
-        return
-    out = run()
     if entry == "compile_problem":
-        assert out.n_timesteps == 50
+        out = gt.compile_problem(trajs, tlist, J_T=J_T_sm, device="cpu",
+                                 **{option: value})
+        assert out.n_timesteps == 50 and getattr(out, option) == value
     else:
+        out = optimize(trajs, tlist, J_T=J_T_sm, device="cpu", iter_stop=1,
+                       print_iters=False, rethrow_exceptions=True,
+                       **{option: value})
         assert out.iter == 1 and np.isfinite(out.J_T)
 
 
+def _keyword(option, value, raised_before=False):
+    """A case of ``OPTIMIZE_KEYWORDS`` under the id it has always had."""
+    return pytest.param(option, value,
+                        id=f"{option}-{value}-{not raised_before}")
+
+
 OPTIMIZE_KEYWORDS = [
-    # (keyword, value, accepted): keywords of grape_tpu.optimize that the
-    # port once refused; what is still not ported raises naming it
-    ("eval_device_calls", 2, False),
-    # accepted since the device loop was ported (ignored by the default
-    # backend on the CPU, as by the reference's); the case keeps the id it
-    # had while the keyword was refused
-    pytest.param("device_loop_iters", 8, True,
-                 id="device_loop_iters-8-False"),
-    # accepted with no effect since the parallel module was ported (the
-    # port always holds the operator arrays in device memory); the id is
-    # the one it had while the keyword was refused
-    pytest.param("max_embedded_constant_bytes", 1 << 20, True,
-                 id="max_embedded_constant_bytes-1048576-False"),
-    ("atexit_filename", "dump.pkl", True),
-    ("atexit_config_digest", "abc", True),
-    ("profile_dir", "prof", True),
+    # (keyword, value): keywords of grape_tpu.optimize that the port once
+    # refused, each accepted now; such a case keeps the id it had while the
+    # keyword was refused.  eval_device_calls since build_fg_multicall was
+    # ported (it needs recompute storage, as in the reference)
+    _keyword("eval_device_calls", 2, raised_before=True),
+    # since the device loop was ported (ignored by the default backend on
+    # the CPU, as by the reference's)
+    _keyword("device_loop_iters", 8, raised_before=True),
+    # with no effect since the parallel module was ported (the port always
+    # holds the operator arrays in device memory)
+    _keyword("max_embedded_constant_bytes", 1 << 20, raised_before=True),
+    _keyword("atexit_filename", "dump.pkl"),
+    _keyword("atexit_config_digest", "abc"),
+    _keyword("profile_dir", "prof"),
 ]
 
 
-@pytest.mark.parametrize("option,value,accepted", OPTIMIZE_KEYWORDS)
-def test_optimize_keywords_refused_or_accepted(tmp_path, option, value,
-                                               accepted):
+@pytest.mark.parametrize("option,value", OPTIMIZE_KEYWORDS)
+def test_optimize_keywords_refused_or_accepted(tmp_path, option, value):
     trajs, tlist = _tls_quickstart()
     if option in ("atexit_filename", "profile_dir"):
         value = str(tmp_path / value)
     kw = dict(J_T=J_T_sm, device="cpu", iter_stop=1, print_iters=False,
               rethrow_exceptions=True)
-    if not accepted:
-        with pytest.raises(NotImplementedError, match=option):
-            optimize(trajs, tlist[:51], **kw, **{option: value})
-        return
+    if option == "eval_device_calls":
+        kw["storage_mode"] = "recompute"
     res = optimize(trajs, tlist[:51], **kw, **{option: value})
     assert res.iter == 1 and np.isfinite(res.J_T)
     if option == "atexit_filename":

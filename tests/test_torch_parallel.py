@@ -9,7 +9,8 @@ not; a shared generator kept whole; ``M``/``Mfix`` rows under
 that every block keeps, the "divisible" refusal; the sharded build in a
 world of one equal to ``build_fg`` bit for bit; ``optimize(mesh=...)``;
 ``ensemble_trajectories`` against the reference's;
-``max_embedded_constant_bytes`` (no effect); the refusals.
+``max_embedded_constant_bytes`` (no effect); ``fw_prop_callback`` under
+the mesh; the refusals.
 """
 
 import contextlib
@@ -252,15 +253,24 @@ def test_optimize_mesh_in_a_world_of_one(world):
 
 
 def test_mesh_refuses_fw_prop_callback_and_partitions(world):
-    """``fw_prop_callback`` would need every rank's states at every step;
+    """``fw_prop_callback`` under a mesh (refused until the stored states
+    were gathered over the ranks) gives the unsharded run's values, bit
+    for bit, once per evaluation, with and without observables;
     per-trajectory propagator settings are refused as the reference
     refuses them."""
     trajs, tlist = _tls_ensemble(2)
     mesh = parallel.make_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="fw_prop_callback"):
-        gt.optimize(trajs, tlist, J_T=J_T_sm, mesh=mesh, device="cpu",
-                    fw_prop_callback=lambda values, tlist: None,
-                    iter_stop=1, print_iters=False, rethrow_exceptions=True)
+    for observables in (None, [lambda Psi, tl, n: Psi[..., 1].abs() ** 2]):
+        calls = [[], []]
+        for i, m in enumerate((None, mesh)):
+            gt.optimize(trajs, tlist, J_T=J_T_sm, mesh=m, device="cpu",
+                        fw_prop_callback=lambda v, tl, i=i: calls[i].append(v),
+                        fw_prop_observables=observables, iter_stop=2,
+                        print_iters=False, rethrow_exceptions=True)
+        assert len(calls[1]) == len(calls[0]) > 2
+        for a, b in zip(*calls):
+            assert len(a) == len(b) == 1
+            assert a[0].shape == b[0].shape and np.array_equal(a[0], b[0])
     mixed = [gt.Trajectory(t.initial_state, t.generator,
                            target_state=t.target_state, prop_method=m)
              for t, m in zip(trajs, ("cheby", "expprop"))]
