@@ -109,6 +109,7 @@ from .ops.hopper_prop import (
     forward_scan_smalld, taylor_order_for_bound,
 )
 from .ops.newton import arnoldi_expmv
+from .tracing import span
 
 __all__ = [
     "CompiledProblem", "compile_problem", "build_fg", "build_fg_multicall",
@@ -1286,10 +1287,11 @@ def _coeff_tables(cp: CompiledProblem, consts, eps):
     the CURRENT pulse values ``eps (L, N_T)``: ``(coeffs (N_T, T),
     dM (N_T, T, L))``, with a leading ``K`` axis when
     ``cp.per_traj_coeffs`` (see :func:`coefficient_columns`)."""
-    return coefficient_columns(
-        consts["M"], consts["Mfix"], consts["tlist"], eps, cp.custom_terms,
-        per_traj_coeffs=cp.per_traj_coeffs,
-    )
+    with span("grape.coefficients"):
+        return coefficient_columns(
+            consts["M"], consts["Mfix"], consts["tlist"], eps,
+            cp.custom_terms, per_traj_coeffs=cp.per_traj_coeffs,
+        )
 
 
 def coefficient_columns(M, Mfix, tlist, eps, custom_terms,
@@ -2055,13 +2057,16 @@ def _evaluate_forward(cp: CompiledProblem, consts, coeffs, amp_max, pds,
     of ``g_b`` over the grid, or None.  One entry point for ``build_fg``,
     ``build_f``, the heterogeneous builder (per partition) and Krotov's
     method."""
-    if cp.storage_mode == "recompute":
-        checkpoints, psi_T, gb_sum = _forward_checkpoints(
-            cp, consts, coeffs, amp_max, pds)
-        return None, checkpoints, psi_T, gb_sum, None
-    storage, Us = _forward(cp, consts, coeffs, amp_max, pds, want_U=want_U)
-    gb_sum = None if cp.g_b is None else _running_cost(cp, consts, storage)
-    return storage, None, storage[-1], gb_sum, Us
+    with span("grape.forward"):
+        if cp.storage_mode == "recompute":
+            checkpoints, psi_T, gb_sum = _forward_checkpoints(
+                cp, consts, coeffs, amp_max, pds)
+            return None, checkpoints, psi_T, gb_sum, None
+        storage, Us = _forward(cp, consts, coeffs, amp_max, pds,
+                               want_U=want_U)
+        gb_sum = (None if cp.g_b is None
+                  else _running_cost(cp, consts, storage))
+        return storage, None, storage[-1], gb_sum, Us
 
 
 def _backward_plan(cp: CompiledProblem, amp_max):
@@ -2093,33 +2098,37 @@ def _tau_grads_pass(cp: CompiledProblem, consts, coeffs, dM, amp_max, pds,
     with its propagators while ``_seg_reuse_U`` allows), then phases A and
     B over its window.  Shared by ``build_fg`` and the heterogeneous
     builder, which runs it per partition on its rows of ``chi_hat``."""
-    vec_gg, n_orders, reuse_U = _backward_plan(cp, amp_max)
-    if cp.storage_mode != "recompute":
-        if not reuse_U:
-            Us = None  # a forward scan may emit them unasked
-        tau_grads, taylor_ok, _ = _backward_window(
-            cp, consts, coeffs, dM, storage[:-1], Us, chi_hat, rho,
-            safe_rho, amp_max, pds, 0, vec_gg, n_orders)
+    with span("grape.backward"):
+        vec_gg, n_orders, reuse_U = _backward_plan(cp, amp_max)
+        if cp.storage_mode != "recompute":
+            if not reuse_U:
+                Us = None  # a forward scan may emit them unasked
+            tau_grads, taylor_ok, _ = _backward_window(
+                cp, consts, coeffs, dM, storage[:-1], Us, chi_hat, rho,
+                safe_rho, amp_max, pds, 0, vec_gg, n_orders)
+            return tau_grads, taylor_ok
+        S = cp.storage_segments
+        seg = cp.n_timesteps // S
+        tau_grads = torch.empty((cp.n_timesteps, cp.n_traj, cp.n_controls),
+                                dtype=consts["cdtype"],
+                                device=chi_hat.device)
+        taylor_ok = torch.ones((), dtype=torch.bool, device=chi_hat.device)
+        chi = chi_hat
+        for s in range(S - 1, -1, -1):
+            with span("grape.segment"):
+                n0 = s * seg
+                cs, co, dMw = _window(cp, consts, coeffs, dM, n0, n0 + seg)
+                states, Us_s = _forward(cp, cs, co, amp_max, pds,
+                                        want_U=reuse_U, psi0=checkpoints[s],
+                                        n0=n0)
+                if not reuse_U:
+                    Us_s = None  # a forward scan may emit them unasked
+                grads, ok, chi = _backward_window(
+                    cp, cs, co, dMw, states[:-1], Us_s, chi, rho, safe_rho,
+                    amp_max, pds, n0, vec_gg, n_orders)
+                tau_grads[n0:n0 + seg] = grads
+                taylor_ok = taylor_ok & ok
         return tau_grads, taylor_ok
-    S = cp.storage_segments
-    seg = cp.n_timesteps // S
-    tau_grads = torch.empty((cp.n_timesteps, cp.n_traj, cp.n_controls),
-                            dtype=consts["cdtype"], device=chi_hat.device)
-    taylor_ok = torch.ones((), dtype=torch.bool, device=chi_hat.device)
-    chi = chi_hat
-    for s in range(S - 1, -1, -1):
-        n0 = s * seg
-        cs, co, dMw = _window(cp, consts, coeffs, dM, n0, n0 + seg)
-        states, Us_s = _forward(cp, cs, co, amp_max, pds, want_U=reuse_U,
-                                psi0=checkpoints[s], n0=n0)
-        if not reuse_U:
-            Us_s = None  # a forward scan may emit them unasked
-        grads, ok, chi = _backward_window(
-            cp, cs, co, dMw, states[:-1], Us_s, chi, rho, safe_rho,
-            amp_max, pds, n0, vec_gg, n_orders)
-        tau_grads[n0:n0 + seg] = grads
-        taylor_ok = taylor_ok & ok
-    return tau_grads, taylor_ok
 
 
 def _fw_observables(cp: CompiledProblem, consts, storage):
@@ -2175,9 +2184,10 @@ def build_f(cp: CompiledProblem, amp_max=None, device=None):
         coeffs, _ = _coeff_tables(cp, consts, eps)
         storage, _, psi_T, gb_sum, _ = _evaluate_forward(
             cp, consts, coeffs, amp_max, pds, want_U=False)
-        J_T_val, J_a_val, J_b_val, tau = _J_parts(cp, pulsevals, psi_T,
-                                                  gb_sum)
-        J = J_T_val + J_a_val + J_b_val
+        with span("grape.boundary"):
+            J_T_val, J_a_val, J_b_val, tau = _J_parts(cp, pulsevals, psi_T,
+                                                      gb_sum)
+            J = J_T_val + J_a_val + J_b_val
         aux = {
             "J_parts": torch.stack([J_T_val, J_a_val, J_b_val]),
             "tau": tau if tau is not None else _zero_tau(cp, consts, device),
@@ -2230,12 +2240,12 @@ def build_fg(cp: CompiledProblem, amp_max=None, device=None):
         coeffs, dM = _coeff_tables(cp, consts, eps)
         storage, checkpoints, psi_T, gb_sum, Us = _evaluate_forward(
             cp, consts, coeffs, amp_max, pds, want_U=reuse_U)
-        J_T_val, J_a_val, J_b_val, tau = _J_parts(cp, pulsevals, psi_T,
-                                                  gb_sum)
-        J = J_T_val + J_a_val + J_b_val
-
-        chi_T = _chi_boundary(cp, consts, psi_T, tau).to(cdt)
-        rho, chi_ok, safe_rho, chi_hat = _normalized_costates(cp, chi_T)
+        with span("grape.boundary"):
+            J_T_val, J_a_val, J_b_val, tau = _J_parts(cp, pulsevals, psi_T,
+                                                      gb_sum)
+            J = J_T_val + J_a_val + J_b_val
+            chi_T = _chi_boundary(cp, consts, psi_T, tau).to(cdt)
+            rho, chi_ok, safe_rho, chi_hat = _normalized_costates(cp, chi_T)
         tau_grads, taylor_ok = _tau_grads_pass(
             cp, consts, coeffs, dM, amp_max, pds, storage, checkpoints, Us,
             chi_hat, rho, safe_rho)
@@ -2323,13 +2333,15 @@ def _assemble_grad(cp, pulsevals, grad_Tb):
     """``(grad, grad_J_Tb, grad_J_a)`` flat in the l-major layout from the
     ``(N_T, L)`` final-time gradient ``grad_Tb``, with ``λ_a ∇J_a`` added
     where there is a pulse running cost."""
-    grad_Tb_flat = grad_Tb.T.reshape(-1)  # l-major flat layout
-    grad = grad_Tb_flat
-    if cp.grad_J_a is not None:
-        grad_J_a_flat = torch.reshape(
-            torch.as_tensor(cp.grad_J_a(pulsevals, cp.tlist)), grad.shape,
-        ).to(grad.dtype)
-        grad = grad + cp.lambda_a * grad_J_a_flat
-    else:
-        grad_J_a_flat = torch.zeros_like(grad)
-    return grad, grad_Tb_flat, grad_J_a_flat
+    with span("grape.assemble"):
+        grad_Tb_flat = grad_Tb.T.reshape(-1)  # l-major flat layout
+        grad = grad_Tb_flat
+        if cp.grad_J_a is not None:
+            grad_J_a_flat = torch.reshape(
+                torch.as_tensor(cp.grad_J_a(pulsevals, cp.tlist)),
+                grad.shape,
+            ).to(grad.dtype)
+            grad = grad + cp.lambda_a * grad_J_a_flat
+        else:
+            grad_J_a_flat = torch.zeros_like(grad)
+        return grad, grad_Tb_flat, grad_J_a_flat

@@ -44,6 +44,7 @@ from . import fg as _fg
 from .config import resolve_device
 from .controls import discretize_on_midpoints, get_controls
 from .functionals import accepts_tau, make_chi, make_grad_J_a, make_xi, taus
+from .tracing import span
 
 __all__ = [
     "HeteroCompiledProblem", "traj_prop_partition", "compile_heterogeneous",
@@ -349,9 +350,11 @@ def build_fg_hetero(hp: HeteroCompiledProblem, amp_max=None, device=None,
         per_part, psi_T, tau, J_T_val, J_a_val, J_b_val = _global_forward(
             hp, consts, pds, pulsevals, amp_max, want_U, _comm)
 
-        chi_T = _global_chi_boundary(hp, consts[0]["tlist"], psi_T,
-                                     tau).to(cdt)
-        rho, chi_ok, safe_rho, chi_hat = _fg._normalized_costates(hp, chi_T)
+        with span("grape.boundary"):
+            chi_T = _global_chi_boundary(hp, consts[0]["tlist"], psi_T,
+                                         tau).to(cdt)
+            rho, chi_ok, safe_rho, chi_hat = _fg._normalized_costates(
+                hp, chi_T)
 
         grad_Tb = torch.zeros((hp.n_timesteps, hp.n_controls), dtype=rdt,
                               device=device)

@@ -8,11 +8,14 @@ L-BFGS-B consumes function/gradient values from the device evaluation.
 
 import contextlib
 import datetime
+import time
 import traceback
 
 import numpy as np
+import torch
 
 from .controls import discretize
+from .tracing import own_profiler, span
 from .workspace import GrapeWrk
 
 __all__ = ["optimize", "optimize_problem", "run_optimizer"]
@@ -66,9 +69,11 @@ def optimize(trajectories, tlist, **kwargs):
     process exit while the optimization is in flight, the in-progress
     result is saved there (``io.save_result``, tagged ``interrupted`` and
     with ``atexit_config_digest``), and ``io.optimize_or_load`` resumes
-    from it.  ``profile_dir`` traces the optimization loop with
-    ``torch.profiler`` (the host, and the card when the problem runs on
-    CUDA) and writes a Chrome trace into that directory.
+    from it.  ``profile_dir`` traces the whole call with ``torch.profiler``
+    (the host, and the card when the problem runs on CUDA) and writes a
+    Chrome trace into that directory, with the port's ``grape.*`` spans
+    (``tracing``) beside the kernels: the solve, its set-up, each L-BFGS-B
+    step, each evaluation and its stages.
 
     Trajectories may carry their own ``prop_method`` (and
     ``fw_/bw_/grad_prop_method``): an ensemble whose members differ is
@@ -99,83 +104,94 @@ def optimize(trajectories, tlist, **kwargs):
             "The `update_hook` and `info_hook` arguments have been "
             "superseded by the `callback` argument"
         )
-    callback = _wrap_callback(kwargs)
-    check_convergence = kwargs.get("check_convergence", lambda res: res)
+    with _profiled(kwargs.get("profile_dir", None),
+                   kwargs.get("device", None)), span("grape.solve",
+                                                     hooks=True):
+        with span("grape.setup"):
+            callback = _wrap_callback(kwargs)
+            check_convergence = kwargs.get("check_convergence",
+                                           lambda res: res)
 
-    if kwargs.get("check", True):
-        from .interfaces import check_problem
+            if kwargs.get("check", True):
+                from .interfaces import check_problem
 
-        check_problem(trajectories, tlist)
+                check_problem(trajectories, tlist)
 
-    wrk = GrapeWrk(trajectories, tlist, kwargs)
+            wrk = GrapeWrk(trajectories, tlist, kwargs)
 
-    if wrk.cp.J_a is None and "grad_J_a" in kwargs:
-        import warnings
-        warnings.warn("Argument `grad_J_a` was given without `J_a`. Ignoring")
+            if wrk.cp.J_a is None and "grad_J_a" in kwargs:
+                import warnings
+                warnings.warn(
+                    "Argument `grad_J_a` was given without `J_a`. Ignoring")
 
-    def fg(F, G, x):
-        """Reference ``fg!`` closure."""
-        if G is None:
-            return wrk.evaluate_functional(x)
-        J, _ = wrk.evaluate_gradient(x, G_out=G)
-        return J
+            def fg(F, G, x):
+                """Reference ``fg!`` closure."""
+                if G is None:
+                    return wrk.evaluate_functional(x)
+                J, _ = wrk.evaluate_gradient(x, G_out=G)
+                return J
 
-    optimizer = _get_optimizer(wrk)
-    atexit_filename = kwargs.get("atexit_filename", None)
-    atexit_hook = None
-    if atexit_filename is not None:
-        import atexit
-        from .io import save_result
+            optimizer = _get_optimizer(wrk)
+            atexit_filename = kwargs.get("atexit_filename", None)
+            atexit_hook = None
+            if atexit_filename is not None:
+                import atexit
+                from .io import save_result
 
-        def _crash_save():
-            # crash dump: tagged `interrupted` (+ the producing config's
-            # digest when known) so optimize_or_load resumes or re-runs
-            # instead of returning the partial result as final
-            save_result(
-                wrk.result, atexit_filename,
-                config_digest=kwargs.get("atexit_config_digest", None),
-                interrupted=True,
-            )
+                def _crash_save():
+                    # crash dump: tagged `interrupted` (+ the producing
+                    # config's digest when known) so optimize_or_load
+                    # resumes or re-runs instead of returning the partial
+                    # result as final
+                    save_result(
+                        wrk.result, atexit_filename,
+                        config_digest=kwargs.get("atexit_config_digest",
+                                                 None),
+                        interrupted=True,
+                    )
 
-        atexit.register(_crash_save)
-        atexit_hook = _crash_save
+                atexit.register(_crash_save)
+                atexit_hook = _crash_save
 
-    try:
-        with _profiled(kwargs.get("profile_dir", None), wrk.cp.device):
+        try:
             run_optimizer(optimizer, wrk, fg, callback, check_convergence)
-    except KeyboardInterrupt:
-        wrk.result.message = "Exception: InterruptException"
-    except Exception as exc:
-        if kwargs.get("rethrow_exceptions", False):
-            raise
-        wrk.result.message = f"Exception: {exc}"
-        if kwargs.get("verbose", False):
-            traceback.print_exc()
+        except KeyboardInterrupt:
+            wrk.result.message = "Exception: InterruptException"
+        except Exception as exc:
+            if kwargs.get("rethrow_exceptions", False):
+                raise
+            wrk.result.message = f"Exception: {exc}"
+            if kwargs.get("verbose", False):
+                traceback.print_exc()
 
-    finalize_result(wrk)
-    if atexit_hook is not None:
-        import atexit
-        atexit.unregister(atexit_hook)
+        finalize_result(wrk)
+        if atexit_hook is not None:
+            import atexit
+            atexit.unregister(atexit_hook)
     return wrk.result
 
 
+@contextlib.contextmanager
 def _profiled(profile_dir, device):
-    """A ``torch.profiler.profile`` context around the optimization loop
-    when ``profile_dir`` is given (host activity, and the card's where the
-    problem runs on CUDA), else a context that does nothing.  On exit it
-    writes one Chrome trace (``<host>_<pid>.<ns>.pt.trace.json``) into
-    ``profile_dir``."""
+    """A ``torch.profiler.profile`` context around the whole optimization
+    (set-up, loop and finalization) when ``profile_dir`` is given (host
+    activity, and the card's where ``device`` is a CUDA one, as ``None``
+    is), else a context that does nothing.  On exit it writes one Chrome
+    trace (``<host>_<pid>.<ns>.pt.trace.json``) into ``profile_dir``."""
     if profile_dir is None:
-        return contextlib.nullcontext()
+        yield
+        return
     from torch import profiler
 
     activities = [profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if (torch.device("cuda" if device is None else device).type == "cuda"
+            and torch.cuda.is_available()):
         activities.append(profiler.ProfilerActivity.CUDA)
-    return profiler.profile(
+    with profiler.profile(
         activities=activities,
         on_trace_ready=profiler.tensorboard_trace_handler(str(profile_dir)),
-    )
+    ), own_profiler():
+        yield
 
 
 def _wrap_callback(kwargs):
@@ -311,41 +327,46 @@ def apply_convergence_check(result, check_convergence):
 
 
 def update_result(wrk, i):
-    """Per-iteration result update."""
-    res = wrk.result
-    if wrk.states is not None:
-        res.states = [np.asarray(s) for s in wrk.states]
-    res.tau_vals = np.asarray(wrk.tau_vals).copy()
-    res.J_T_prev = res.J_T
-    res.J_T = wrk.J_parts[0]
-    res.J_a_prev = res.J_a
-    res.J_a = wrk.J_parts[1]
-    if res.J_a > 0.0:
-        lambda_a = wrk.kwargs.get("lambda_a", 1.0)
-        res.J_a /= lambda_a
-    res.J_b_prev = res.J_b
-    lambda_b = wrk.kwargs.get("lambda_b", 1.0)
-    g_b = wrk.kwargs.get("g_b", None)
-    if not (lambda_b == 0 and g_b is None):
-        res.J_b = wrk.J_parts[2] / lambda_b if lambda_b != 0 else 0.0
-    else:
-        res.J_b = 0.0
-    if i > 0:
-        res.iter = i
-    if i >= res.iter_stop:
-        res.converged = True
-        res.message = "Reached maximum number of iterations"
-    prev_time = res.end_local_time
-    res.end_local_time = datetime.datetime.now()
-    res.secs = (res.end_local_time - prev_time).total_seconds()
+    """Per-iteration result update.  ``secs`` is the time since the
+    previous update (or since the result was made), on the monotonic
+    ``time.perf_counter`` clock."""
+    with span("grape.update_result"):
+        res = wrk.result
+        if wrk.states is not None:
+            res.states = [np.asarray(s) for s in wrk.states]
+        res.tau_vals = np.asarray(wrk.tau_vals).copy()
+        res.J_T_prev = res.J_T
+        res.J_T = wrk.J_parts[0]
+        res.J_a_prev = res.J_a
+        res.J_a = wrk.J_parts[1]
+        if res.J_a > 0.0:
+            lambda_a = wrk.kwargs.get("lambda_a", 1.0)
+            res.J_a /= lambda_a
+        res.J_b_prev = res.J_b
+        lambda_b = wrk.kwargs.get("lambda_b", 1.0)
+        g_b = wrk.kwargs.get("g_b", None)
+        if not (lambda_b == 0 and g_b is None):
+            res.J_b = wrk.J_parts[2] / lambda_b if lambda_b != 0 else 0.0
+        else:
+            res.J_b = 0.0
+        if i > 0:
+            res.iter = i
+        if i >= res.iter_stop:
+            res.converged = True
+            res.message = "Reached maximum number of iterations"
+        now = time.perf_counter()
+        res.secs = now - res.clock_mark
+        res.clock_mark = now
+        res.end_local_time = datetime.datetime.now()
 
 
 def finalize_result(wrk):
     """Discretize final midpoint pulses back onto the time-grid points."""
-    res = wrk.result
-    res.end_local_time = datetime.datetime.now()
-    N_T = len(res.tlist) - 1
-    res.optimized_controls = [
-        discretize(wrk.pulsevals[l * N_T:(l + 1) * N_T], res.tlist)
-        for l in range(len(wrk.controls))
-    ]
+    with span("grape.finalize"):
+        res = wrk.result
+        res.end_local_time = datetime.datetime.now()
+        N_T = len(res.tlist) - 1
+        res.optimized_controls = [
+            discretize(wrk.pulsevals[l * N_T:(l + 1) * N_T], res.tlist)
+            for l in range(len(wrk.controls))
+        ]

@@ -20,6 +20,8 @@ import subprocess
 
 import numpy as np
 
+from ..tracing import span
+
 _LIB = None
 
 _SRC = os.path.abspath(
@@ -140,8 +142,10 @@ class LBFGSB:
             g = np.zeros(n)
             first_fg = True
             while True:
-                task = lib.lbfgsb_step(st, x, f, g, self.factr, self.pgtol)
-                msg = lib.lbfgsb_task_msg(st).decode()
+                with span("grape.lbfgsb"):
+                    task = lib.lbfgsb_step(st, x, f, g, self.factr,
+                                           self.pgtol)
+                    msg = lib.lbfgsb_task_msg(st).decode()
                 if task == _TASK_FG:
                     f = fg(f, g, x)
                     if first_fg:
@@ -149,19 +153,22 @@ class LBFGSB:
                         first_fg = False
                         wrk.gradient_guess[:] = g
                         update_result(wrk, 0)
-                        rec = callback(wrk, 0)
-                        wrk.fg_count[:] = 0
-                        if rec:
-                            wrk.result.records.append(rec)
+                        with span("grape.callback", hooks=True):
+                            rec = callback(wrk, 0)
+                            wrk.fg_count[:] = 0
+                            if rec:
+                                wrk.result.records.append(rec)
                 elif task == _TASK_NEW_X:
                     self._capture_introspection(lib, st, wrk)
                     it = wrk.result.iter + 1
                     update_result(wrk, it)
-                    rec = callback(wrk, wrk.result.iter)
-                    wrk.fg_count[:] = 0
-                    if rec:
-                        wrk.result.records.append(rec)
-                    apply_convergence_check(wrk.result, check_convergence)
+                    with span("grape.callback", hooks=True):
+                        rec = callback(wrk, wrk.result.iter)
+                        wrk.fg_count[:] = 0
+                        if rec:
+                            wrk.result.records.append(rec)
+                        apply_convergence_check(wrk.result,
+                                                check_convergence)
                     if wrk.result.converged:
                         break  # "STOP: NEW_X -> CONVERGED"
                     wrk.pulsevals_guess[:] = x

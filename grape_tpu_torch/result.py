@@ -10,6 +10,7 @@ for checkpointing (the reference's JLD2 path via ``@optimize_or_load``).
 """
 
 import datetime
+import time
 
 import numpy as np
 
@@ -38,6 +39,8 @@ class GrapeResult:
         self.states = [np.asarray(t.initial_state) for t in trajectories]
         self.start_local_time = datetime.datetime.now()
         self.end_local_time = datetime.datetime.now()
+        # time.perf_counter() at the last update: the origin of ``secs``
+        self.clock_mark = time.perf_counter()
         self.records = []
         self.converged = False
         self.f_calls = 0

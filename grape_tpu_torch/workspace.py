@@ -55,6 +55,7 @@ from .fg import (
 from .fg_hetero import compile_heterogeneous, traj_prop_partition
 from .parallel import shard_problem
 from .result import GrapeResult
+from .tracing import span
 
 __all__ = [
     "GrapeWrk", "step_width", "search_direction", "norm_search",
@@ -176,7 +177,9 @@ class GrapeWrk:
             result.iter_stop = int(self.kwargs.get("iter_stop", 5000))
             result.converged = False
             import datetime
+            import time
             result.start_local_time = datetime.datetime.now()
+            result.clock_mark = time.perf_counter()
             result.message = "in progress"
             self.pulsevals = np.concatenate(
                 [
@@ -246,7 +249,8 @@ class GrapeWrk:
     def _programs(self):
         key = self._amp_bucket
         if key not in self._program_cache:
-            self._program_cache[key] = self._build_programs(key)
+            with span("grape.build_programs"):
+                self._program_cache[key] = self._build_programs(key)
         return self._program_cache[key]
 
     def _amplitudes(self, x):
@@ -262,17 +266,19 @@ class GrapeWrk:
 
     def _ensure_envelope(self, x):
         """Grow the envelope bucket if the pulse exceeds it."""
-        if self._outside_envelope(x):
-            self._amp_bucket = self._bucket_for(
-                np.maximum(self._amplitudes(x), np.asarray(self._amp_bucket))
-            )
-            self.fg, self.f = self._programs()
+        with span("grape.envelope"):
+            if self._outside_envelope(x):
+                self._amp_bucket = self._bucket_for(np.maximum(
+                    self._amplitudes(x), np.asarray(self._amp_bucket)))
+                self.fg, self.f = self._programs()
 
     def _grow_envelope(self):
         """Double the envelope bucket: the Taylor safety net, where the
         series did not converge inside the envelope."""
-        self._amp_bucket = self._bucket_for(2.0 * np.asarray(self._amp_bucket))
-        self.fg, self.f = self._programs()
+        with span("grape.envelope"):
+            self._amp_bucket = self._bucket_for(
+                2.0 * np.asarray(self._amp_bucket))
+            self.fg, self.f = self._programs()
 
     # -- device evaluation entry points ------------------------------------
 
@@ -293,49 +299,64 @@ class GrapeWrk:
         values = tuple(_to_numpy(v) for v in aux["fw_observables"])
         self.cp.fw_prop_callback(values, self.tlist)
 
+    # Each evaluation is the span ``grape.evaluate_*``: the envelope check,
+    # ``grape.dispatch`` (the program's call, which enqueues the work on the
+    # card and returns its results as device tensors) and ``grape.readback``
+    # (everything after it: the first reads wait for the card).
+
     def evaluate_functional(self, x, count_call=True):
-        self._ensure_envelope(x)
-        J, aux = self.f(np.asarray(x, dtype=np.float64))
-        if count_call:
-            self.fg_count[1] += 1
-            self.result.f_calls += 1
-        self._store_common(aux)
-        self._dispatch_fw_prop_callback(aux)
-        return float(J)
+        with span("grape.evaluate_functional"):
+            self._ensure_envelope(x)
+            with span("grape.dispatch"):
+                J, aux = self.f(np.asarray(x, dtype=np.float64))
+            with span("grape.readback"):
+                if count_call:
+                    self.fg_count[1] += 1
+                    self.result.f_calls += 1
+                self._store_common(aux)
+                self._dispatch_fw_prop_callback(aux)
+                return float(J)
 
     def evaluate_gradient(self, x, G_out=None):
-        self._ensure_envelope(x)
-        J, G, aux = self.fg(np.asarray(x, dtype=np.float64))
-        if not bool(aux["taylor_ok"]) and self._amp_bucket:
-            # safety net: the static Taylor order was sized from the
-            # amplitude envelope; if the honest last-term check still
-            # fails (envelope bound too loose for this problem), grow the
-            # bucket once (more orders) before giving up
-            self._grow_envelope()
-            J, G, aux = self.fg(np.asarray(x, dtype=np.float64))
-        self.fg_count[0] += 1
-        self.result.fg_calls += 1
-        self._store_common(aux)
-        if not bool(aux["taylor_ok"]):
-            raise RuntimeError(
-                "Taylor gradient series did not converge within "
-                f"max_order={self.cp.taylor_grad_max_order} terms "
-                f"(tolerance={self.cp.taylor_grad_tolerance}); decrease the "
-                "time step or increase taylor_grad_max_order"
-            )
-        if not bool(aux["chi_ok"]):
-            raise RuntimeError(
-                f"The norm of a state χ(T) is below chi_min_norm="
-                f"{self.cp.chi_min_norm}: the gradient is zero"
-            )
-        G = _to_numpy(G, np.float64)
-        if G_out is not None:
-            G_out[:] = G
-        self.gradient[:] = G
-        self.grad_J_Tb[:] = _to_numpy(aux["grad_J_Tb"], np.float64)
-        self.grad_J_a[:] = _to_numpy(aux["grad_J_a"], np.float64)
-        self._dispatch_fw_prop_callback(aux)
-        return float(J), G
+        with span("grape.evaluate_gradient"):
+            self._ensure_envelope(x)
+            with span("grape.dispatch"):
+                J, G, aux = self.fg(np.asarray(x, dtype=np.float64))
+            with span("grape.readback"):
+                if not bool(aux["taylor_ok"]) and self._amp_bucket:
+                    # safety net: the static Taylor order was sized from
+                    # the amplitude envelope; if the honest last-term check
+                    # still fails (envelope bound too loose for this
+                    # problem), grow the bucket once (more orders) before
+                    # giving up
+                    self._grow_envelope()
+                    with span("grape.dispatch"):
+                        J, G, aux = self.fg(np.asarray(x, dtype=np.float64))
+                self.fg_count[0] += 1
+                self.result.fg_calls += 1
+                self._store_common(aux)
+                if not bool(aux["taylor_ok"]):
+                    raise RuntimeError(
+                        "Taylor gradient series did not converge within "
+                        f"max_order={self.cp.taylor_grad_max_order} terms "
+                        f"(tolerance={self.cp.taylor_grad_tolerance}); "
+                        "decrease the time step or increase "
+                        "taylor_grad_max_order"
+                    )
+                if not bool(aux["chi_ok"]):
+                    raise RuntimeError(
+                        f"The norm of a state χ(T) is below chi_min_norm="
+                        f"{self.cp.chi_min_norm}: the gradient is zero"
+                    )
+                G = _to_numpy(G, np.float64)
+                if G_out is not None:
+                    G_out[:] = G
+                self.gradient[:] = G
+                self.grad_J_Tb[:] = _to_numpy(aux["grad_J_Tb"],
+                                              np.float64)
+                self.grad_J_a[:] = _to_numpy(aux["grad_J_a"], np.float64)
+                self._dispatch_fw_prop_callback(aux)
+                return float(J), G
 
 
 # --------------------------------------------------------------------------
