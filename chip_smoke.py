@@ -16,6 +16,10 @@ every evaluation went through the kernels:
   trajectories in G = 8 generator groups of 4), and the same ensemble with
   one generator per trajectory (group size 1), whose propagator stream is
   past its storage budget and is formed again for the co-state chain;
+- the factored Fréchet kernel at s = 1, where it builds the doubling from
+  Krylov sets carried on to degree 31, at the benchmark cells' shapes
+  (the CZ, 32 samples x 4, and a recompute window of 50 steps) against the
+  dense traces in complex128, with the number of calls that took it;
 - a robust ensemble of 1024 qutrits (d = 3, one generator per trajectory,
   T = 2 control terms, N_T = 400 steps) with ``gradient_method="taylor"``:
   the small-dimension forward kernel, the co-state chain over its
@@ -252,22 +256,29 @@ def frechet_needed_flops(d, K, T, N_T, s):
     Krylov sets and 136 real-by-complex multiply-adds of vectors fold the
     coefficients in.  Each doubling ``L <- E_j L + L E_j`` doubles the
     rank: both sets are extended by ``E``, the degree-16 polynomial at
-    ``A / 2^s`` (six dense products, needed only then).  The traces are
-    ``sum_ab Op_t[a,b] Z[b,a]`` over ``Z = sum_r x_r w_r^+`` (``16 * 2^s``
-    outer products and ``T`` matrix-sized multiply-adds).  Where that count
-    exceeds the dense evaluation's (small d, large s), the dense one is
-    taken.  The count is held equal to the routing model of the wrappers
+    ``A / 2^s``.  At s = 1 E is a polynomial in A, so ``E u_i = sum_k c_k
+    u_{i+k}`` and ``E^+ y_i = sum_m D[i,m] v_m``: the sets run on to degree
+    31 (16 + 16 more products) and are folded (16 * 17 + 392 more
+    multiply-adds), no dense product; from s = 2 on E is formed (six dense
+    products) and applied.  The traces are ``sum_ab Op_t[a,b] Z[b,a]``
+    over ``Z = sum_r x_r w_r^+`` (``16 * 2^s`` outer products and ``T``
+    matrix-sized multiply-adds).  Where that count exceeds the dense
+    evaluation's (small d, large s), the dense one is taken.  The count is
+    held equal to the routing model of the wrappers
     (``hopper_frechet.frechet_flops``), so that neither moves unseen.
     """
-    from grape_tpu_torch.ops.hopper_frechet import frechet_flops
+    from grape_tpu_torch.ops.hopper_frechet import (
+        EXTENSION_S, frechet_flops,
+    )
 
     mv = 8.0 * d * d            # complex (d, d) by (d,) product
     cmm = 8.0 * d ** 3          # complex (d, d) by (d, d) product
     gen = (4.0 * T + 2.0) * d * d   # A_n = -i dt (H0 + sum_t c_t Op_t)
     rank = 16 * 2 ** s
-    factored = gen + (6 * cmm if s else 0.0) + K * (
+    folds = 136 + (16 * 17 + 392 if s == EXTENSION_S else 0)
+    factored = gen + (6 * cmm if s > EXTENSION_S else 0.0) + K * (
         30 * mv                     # A^i psi, (A^+)^j chi, i, j = 1..15
-        + 136 * 4.0 * d             # y_i = sum_j c_{i+j+1} v_j
+        + folds * 4.0 * d           # y_i; at s = 1 E u_i and E^+ y_i
         + 2 * 16 * (2 ** s - 1) * mv    # E^p u_i, (E^+)^q y_i
         + rank * mv                 # Z = sum_r x_r w_r^+
         + T * mv                    # tr(Op_t Z)
@@ -293,6 +304,8 @@ def zero_counts(*modules):
             mod.launches[key] = 0
         for key in getattr(mod, "route_launches", {}):
             mod.route_launches[key] = 0
+        if hasattr(mod, "krylov_extension_calls"):
+            mod.krylov_extension_calls = 0
 
 
 def read_launches(*modules):
@@ -379,6 +392,137 @@ def frechet_forced(route, H0, ops, coeffs, dts, psis, chis, s):
                                  coeffs, dts, psis, chis, s, route=route)
     return hf._frechet_trace("frechet_trace_pertraj", H0, ops, coeffs, dts,
                              psis, chis, s, route=route)
+
+
+def max_step_norm(H0, ops, coeffs, dts):
+    """``max_n dt_n ||H0 + sum_t c_nt Op_t||_1`` over the steps and the
+    generator groups of grouped kernel inputs, on the card."""
+    out = 0.0
+    for g in range(H0.shape[0]):
+        H = H0[g] + torch.einsum("nt,tij->nij", coeffs.to(H0.dtype), ops[g])
+        out = max(out, float((dts * H.abs().sum(dim=-2).amax(dim=-1)).max()))
+    return out
+
+
+def frechet_extension_phase(cp, dev):
+    """Phase ``frechet_extension``: the factored Frechet kernel at s = 1,
+    where it forms the doubling's blocks from the Krylov sets carried on to
+    degree 31 (the Krylov extension), at the benchmark cells' shapes: the
+    CZ (one generator, K = 4, N_T = 2000), the 32-sample ensemble (G = 32
+    groups of 4, N_T = 2000) and its recompute window (50 steps).  The
+    pulses fill the cells' bounds of +-0.5, so the squaring count of both
+    problems is 1, as in the cells (the squaring count follows the bounds;
+    the pulses' own max dt ||H_n||_1 is near 2); one more CZ check at the
+    top of s = 1's range, its steps lengthened to max dt ||H_n||_1 = 3.99
+    (s = 2 from 4 on).  Each kernel result is held against the plain dense traces in
+    complex128 on the card, and timed beside its bound; every call must
+    count one Krylov extension.  Then the 32-sample ensemble's main path at
+    the cells' bounds (gradgen, full storage and recompute in 40 segments,
+    two L-BFGS-B iterations each): every Frechet call must take the
+    factored kernel with the extension."""
+    import grape_tpu_torch as gt
+    from grape_tpu_torch.fg import _static_squarings
+    from grape_tpu_torch.models import two_transmon_cz_ensemble_problem
+    from grape_tpu_torch.ops import hopper_cheby, hopper_frechet as hf
+    from grape_tpu_torch.ops import hopper_prop
+
+    rng = np.random.default_rng(SEED + 18)
+    ens = two_transmon_cz_ensemble_problem(n_samples=32, d=D_TRANSMON,
+                                           n_steps=N_STEPS)
+    cp_ens = gt.compile_problem(ens.trajectories, ens.tlist,
+                                dtype=np.complex64, **ens.kwargs)
+    c64 = lambda x: torch.tensor(np.ascontiguousarray(x),
+                                 dtype=torch.complex64, device=dev)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    bounds = (0.5,) * cp.n_controls
+    checks = []
+    for name, cq, n_steps, top in (("cz", cp, N_STEPS, None),
+                                   ("ensemble32", cp_ens, N_STEPS, None),
+                                   ("ensemble32_window", cp_ens, 50, None),
+                                   ("cz_top_of_s1", cp, N_STEPS, 3.99)):
+        s = _static_squarings(cq, bounds)
+        require(s == 1, f"{name}: squaring count {s} at the bounds, not 1")
+        d, K, L = cq.dim, cq.n_traj, cq.n_controls
+        H0 = c64(cq.H0 if cq.H0.ndim == 3 else cq.H0[None])
+        ops = c64(cq.ops if cq.ops.ndim == 4 else cq.ops[None])
+        G, T = ops.shape[0], ops.shape[1]
+        gs = K // G
+        eps = rng.uniform(-0.5, 0.5, size=(L, cq.n_timesteps))
+        coeffs = f32(np.einsum("ntl,ln->nt", cq.M, eps)
+                     + cq.Mfix)[:n_steps].contiguous()
+        dts = f32(np.diff(cq.tlist))[:n_steps].contiguous()
+        if top is not None:
+            dts = dts * (top / max_step_norm(H0, ops, coeffs, dts))
+        step_norm = max_step_norm(H0, ops, coeffs, dts)
+        require(step_norm / 2 <= 2.0 + 1e-5,
+                f"{name}: max dt ||H_n||_1 {step_norm} is past s = 1's range")
+
+        def unit():
+            v = (rng.normal(size=(n_steps, K, d))
+                 + 1j * rng.normal(size=(n_steps, K, d)))
+            return c64(v / np.linalg.norm(v, axis=-1, keepdims=True))
+
+        psis, chis = unit(), unit()
+        args = (H0, ops, coeffs, dts, psis, chis)
+        require(hf.frechet_route(d, T, gs, s) == "factored",
+                f"{name}: the Frechet traces must take the factored kernel")
+        zero_counts(hf)
+        call = lambda: hf._frechet_trace("frechet_trace_pertraj", *args, s)
+        trj = call()
+        torch.cuda.synchronize()
+        require((hf.krylov_extension_calls,
+                 hf.launches["frechet_trace_pertraj_factored"]) == (1, 1),
+                f"{name}: the call did not count one Krylov extension")
+        wide = [x.to(torch.complex128) for x in (H0, ops)] + [
+            coeffs.double(), dts.double()] + [
+            x.to(torch.complex128) for x in (psis, chis)]
+        ref = hf._frechet_trace_plain(*wide, s)
+        scale = max(float(ref.abs().max()), 1.0)
+        err = float((trj.to(torch.complex128) - ref).abs().max()) / scale
+        del ref, wide
+        require(finite(trj) and err < TOL_TRJ,
+                f"{name}: the Krylov extension disagrees with the complex128 "
+                f"traces: {err} of the scale (tolerance {TOL_TRJ})")
+        ms = median_ms(call, reps=5)
+        flops = G * frechet_needed_flops(d, gs, T, n_steps, s)
+        b_ms, by = bound(flops, nbytes(*args, trj))
+        checks.append({
+            "shape": name, "d": d, "G": G, "gs": gs, "T": T, "N_T": n_steps,
+            "s": s, "max_step_norm": step_norm, "err_of_scale": err,
+            "trj_scale": scale, "ms": ms, "bound_ms": b_ms, "bound_by": by,
+            "gflop": flops / 1e9, "share_of_bound": b_ms / ms,
+            "krylov_extension_calls": 1,
+            "plan": hf.factored_plan(d, T, gs, s, n_steps * G)})
+        del psis, chis, trj
+    # the ensemble's main path at the cells' bounds: every count set to 0
+    # just before and read just after
+    mods = (hopper_prop, hf, hopper_cheby)
+    main_path = []
+    for storage in ({"storage_mode": "full"},
+                    {"storage_mode": "recompute", "storage_segments": 40}):
+        zero_counts(*mods)
+        res = gt.optimize_problem(
+            ens, iter_stop=2, dtype=np.complex64, print_iters=False,
+            rethrow_exceptions=True, gradient_method="gradgen",
+            lower_bound=-0.5, upper_bound=0.5, **storage)
+        torch.cuda.synchronize()
+        counts = read_counts(*mods)
+        frechet = {k: v for k, v in counts.items() if "frechet" in k}
+        n = frechet.get("frechet_trace_pertraj_factored", 0)
+        require(n > 0 and hf.krylov_extension_calls == n
+                and sum(frechet.values()) == n,
+                f"ensemble main path {storage}: Frechet launches {frechet}, "
+                f"Krylov extensions {hf.krylov_extension_calls}")
+        main_path.append({**storage, "iterations": res.iter,
+                          "fg_calls": res.fg_calls,
+                          "frechet_launches": frechet,
+                          "krylov_extension_calls":
+                              hf.krylov_extension_calls})
+    emit({"phase": "frechet_extension", "tol_of_scale": TOL_TRJ,
+          "reference": "plain dense traces, complex128", "checks": checks,
+          "ensemble_main_path": main_path})
+    zero_counts(*mods)
+    torch.cuda.synchronize()
 
 
 def ensemble_kernel_phases(cp, s_main, rng, dev):
@@ -684,6 +828,7 @@ def factored_shapes_phase(hf, rng, dev):
     """Phase ``kernel_shapes_factored``: the factored Frechet kernel against
     its plain version and against the dense kernel at ragged shapes, each
     forced onto the factored route: the matrix in global memory (d = 160,
+    at s = 0 and at s = 1, the Krylov extension through generic pointers,
     and d = 200 with the sets too), the sets in global memory (d = 100,
     s = 4), the chunk of directions cut to fit (gs = 7 at s = 3: chunks of
     2, 2, 2 and 1), tiny d, one step, a table per group."""
@@ -692,6 +837,7 @@ def factored_shapes_phase(hf, rng, dev):
     checks = []
     for (d_, G_, gs_, T_, N_, s_, h_, pg_) in [
             (160, 2, 3, 2, 12, 0, 10.0, False),
+            (160, 1, 2, 2, 6, 1, 10.0, False),
             (200, 1, 2, 1, 4, 3, 60.0, True),
             (100, 2, 5, 3, 10, 4, 100.0, False),
             (37, 1, 7, 1, 9, 3, 60.0, False),
@@ -1887,14 +2033,16 @@ def cluster_shapes_phase(dev):
 
 def phase_clock_phase(dev):
     """Phase ``cluster_phase_clock``: where the time of the two cluster
-    kernels and the Chebyshev ring kernel goes, from their phase clocks (a
-    second build of their sources with ``-DGRAPE_PHASE_CLOCK``; block 0's
-    SM cycles per phase, per item, step or term, a phase that ends at a
-    wait including the wait): the propagator kernel at K1's shape (one
+    kernels, the Chebyshev ring kernel and the factored Frechet kernel
+    goes, from their phase clocks (a second build of their sources with
+    ``-DGRAPE_PHASE_CLOCK``; block 0's SM cycles per phase, per item, step
+    or term, a phase that ends at a wait including the wait): the
+    propagator kernel at K1's shape (one
     generator, 2000 steps) at s = 0 and 2, the state scan at the CZ's shape
     both ways and at 8 x 4 and 32 x 1 forward, the ring kernel forward at
-    dim 1024 (K = 4 and 64) and dim 256 (K = 4), with the SM clock read
-    under load."""
+    dim 1024 (K = 4 and 64) and dim 256 (K = 4), the factored Frechet
+    kernel at K3's (1 x 4) and K6's (8 x 4) shapes at s = 0 and 1, with the
+    SM clock read under load."""
     import ctypes
 
     from grape_tpu_torch.ops import _build
@@ -2008,9 +2156,46 @@ def phase_clock_phase(dev):
             "row_forming_cycles_per_step": t[6] / (reps * N_c),
             "forming_warp_waits_per_step": t[4] / (reps * N_c)})
         del ring, flags, out_c, planes
+    # the factored Frechet kernel at K3's and K6's shapes: block 0's
+    # cycles per item (step, group), its chunks of directions summed
+    frechet_names = {0: "planes_or_E", 1: "load_directions",
+                     2: "krylov_chains", 3: "folds", 4: "extension_by_E",
+                     5: "traces", 6: "warp_sums_and_store"}
+    frechets = []
+    for (G, gs) in [(1, 4), (8, 4)]:
+        Hs, Os, cs, ts, psis, chis = frechet_inputs(
+            rng, dev, d, G, gs, 4, N_T, 10.0, False)
+        trj = torch.empty((N_T, G * gs, 4), dtype=torch.complex64,
+                          device=dev)
+        for s in (0, 1):
+            out = (ctypes.c_int * 5)()
+            floats = ctypes.c_longlong()
+            require(lib.grape_frechet_factored_plan(
+                d, 4, gs, s, N_T * G, out, ctypes.byref(floats)) == 0,
+                "clocked Frechet plan failed")
+            chunk, m_sh, s_sh, smem, blocks = list(out)
+            scratch = torch.empty(max(1, blocks * floats.value),
+                                  dtype=torch.float32, device=dev)
+            t = run(lambda: lib.grape_frechet_factored(
+                Hs.data_ptr(), Os.data_ptr(), cs.data_ptr(), ts.data_ptr(),
+                psis.data_ptr(), chis.data_ptr(), 4, d, N_T, G * gs, G, gs,
+                0, s, chunk, m_sh, s_sh, smem, scratch.data_ptr(),
+                floats.value, blocks, trj.data_ptr(), stream),
+                lib.grape_frechet_factored_clock)
+            items = reps * -(-N_T * G // blocks)
+            per_item = {name: t[i] / items
+                        for i, name in frechet_names.items()}
+            frechets.append({"G": G, "gs": gs, "s": s, "chunk": chunk,
+                             "blocks": blocks,
+                             "cycles_per_item": per_item,
+                             "cycles_per_item_total":
+                                 sum(per_item.values())})
+            del scratch
+        del Hs, Os, cs, ts, psis, chis, trj
     emit({"phase": "cluster_phase_clock", "build_seconds": build_s,
           "resident_clusters": resident, "propagators": props,
           "state_scans": scans, "cheby_ring": rings,
+          "frechet_factored": frechets,
           "under_load": under_load(lambda: launch_k1(0), 50)})
     zero_counts(hp)
     torch.cuda.synchronize()
@@ -5966,6 +6151,7 @@ def main():
             "unexpected ensemble-path shape")
     s_ens = _static_squarings(cp_ens)
     ens = ensemble_kernel_phases(cp_ens, s_ens, rng, dev)
+    frechet_extension_phase(cp, dev)
 
     # ---- the two redesigned kernels: routes forced, layouts ---------------
     k_prop, k_wide = prop_routes_phase(cp, cp_ens, s_cz, dev)

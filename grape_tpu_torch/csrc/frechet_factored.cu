@@ -22,15 +22,23 @@
 //
 // a sum of 16 * 2^s outer products.  Per item (step n, group g) the kernel
 // builds A once; for each chunk of up to four of the group's directions it
-// runs the two Krylov sets as 15 + 15 matrix-vector products with the
-// chunk's directions side by side, folds v into y, extends both sets by E
-// (formed once per item by six dense products, only for s > 0) and reduces
+// runs the two Krylov sets with the chunk's directions side by side, folds
+// v into y, forms the doubling's blocks and reduces
 //   tr(Op_t L_s) = sum_{a,b} Op_t[a, b] Z[b, a],   Z = sum_r x_r w_r^dagger
-// tile by tile, without storing Z.
+// tile by tile, without storing Z.  The blocks, by s:
+//
+//   s = 0   none: 15 + 15 matrix-vector products, the fold;
+//   s = 1   E is a polynomial in A, so E u_i = sum_{k<=16} c_k u_{i+k} and
+//           E^dagger y_i = sum_m D[i, m] v_m with D[i, m] = sum_{j+k=m}
+//           c_{i+j+1} c_k (a constant 16 x 32 table): both sets carried on
+//           to degree 31 (31 + 31 products) and folded, E never formed;
+//   s >= 2  E formed once per item by six dense products, then both sets
+//           extended by it, 32 (2^s - 1) products (carrying the sets to
+//           degree 16 2^s - 1 would grow them as ||A||^j).
 //
 // Bound on this card: float32 FMA operations.  Per direction
 // (30 + 32 (2^s - 1) + 16 * 2^s + T) d^2 complex multiply-adds, plus six
-// d^3 products per item for s > 0, against a few KB of input per item (the
+// d^3 products per item for s >= 2, against a few KB of input per item (the
 // bytes are about 0.03 ms for the robust ensemble); at s = 0 a thirteenth
 // of the dense algorithm's count.  Full float32 FMAs, no tensor cores.
 // Design: the matrix of the products (A, then E) lives in shared memory as
@@ -38,20 +46,60 @@
 // reading a column (A^dagger v) or a row (A u) hits 32 banks; the two sets
 // (complex vectors) live beside it, and every product reads the matrix once
 // per chunk of directions, each thread one row for all of the chunk's
-// directions (no predicates: the chunk width is a template argument).  The Op_t, shared by all items of a group, are read from L2
-// in the trace epilogue.  Nothing of the working set depends on the launch
+// directions (no predicates: the chunk width is a template argument).  The
+// Op_t, shared by all items of a group, are read from L2 in the trace
+// epilogue.  Nothing of the working set depends on the launch
 // length.  Where the matrix and the sets do not fit the 227 KB of one block
 // (large d or s), the chunk shrinks first, then the matrix and then the
 // sets move to a per-block global scratch (the same code, through generic
-// pointers).
+// pointers); where both fit, a second instance of the code addresses them
+// as shared memory (at d = 100 a fifth less time: generic loads of shared
+// data cost more).  The products and the traces are unrolled so that the
+// loads of the next terms are in flight while the FMAs of this one run: at
+// d = 100 one block of 8 warps is resident on an SM, too few to hide
+// shared-memory latency otherwise.  A profile build (-DGRAPE_PHASE_CLOCK)
+// adds block 0's SM cycles per phase of an item to a table
+// (phase_clock.cuh).
 
 #include "cmat.cuh"
+#include "phase_clock.cuh"
 
 namespace grape {
 
 constexpr int kSet = 16;      // vectors per Krylov set: degree 16
 constexpr int kMaxChunk = 4;  // directions side by side
 constexpr int kWarps = kThreads / 32;
+// the doublings whose blocks come from the Krylov sets carried to degree
+// 2 * kSet - 1 (the Krylov extension) instead of from E
+constexpr int kExtS = 1;
+
+GRAPE_CLOCK_TABLE(g_clock_frf)
+
+// D[i][m] = sum_{j+k=m, j<=15-i, k<=16} c_{i+j+1} c_k, so that
+// E^dagger y_i = sum_m D[i][m] v_m; zero for m > 31 - i.  Summed in double
+// at compile time and rounded once.
+struct FrExtTable {
+    float d[kSet][2 * kSet];
+};
+
+constexpr FrExtTable fr_ext_table() {
+    double c[kSet + 1] = {};
+    c[0] = 1.0;
+    for (int k = 1; k <= kSet; ++k) c[k] = c[k - 1] / k;
+    FrExtTable t = {};
+    for (int i = 0; i < kSet; ++i) {
+        for (int m = 0; m < 2 * kSet; ++m) {
+            double acc = 0.0;
+            for (int j = 0; j + i < kSet && j <= m; ++j) {
+                if (m - j <= kSet) acc += c[i + j + 1] * c[m - j];
+            }
+            t.d[i][m] = (float)acc;
+        }
+    }
+    return t;
+}
+
+static __constant__ FrExtTable c_ext = fr_ext_table();
 
 // row pitch of the matrix planes, odd: conflict-free rows and columns
 __host__ __device__ inline int fr_pitch(int d) { return d | 1; }
@@ -60,7 +108,8 @@ __host__ __device__ inline long long fr_matrix_floats(int d) {
     return 2LL * d * fr_pitch(d);
 }
 
-// x and w sets, complex: 2 * 16 * 2^s * chunk vectors of d float2
+// x and w sets, complex: 2 * 16 * 2^s * chunk vectors of d float2 (at
+// s = kExtS the Krylov vectors u_0..u_31 and v_0..v_31 before the fold)
 __host__ __device__ inline long long fr_set_floats(int d, int s, int chunk) {
     return 4LL * kSet * (1LL << s) * chunk * d;
 }
@@ -78,7 +127,8 @@ struct FrView {
 };
 
 // Copy an interleaved d x d matrix (global scratch) into the planes.
-__device__ void fr_load_planes(const FrView& v, const float2* src, int d) {
+__device__ __forceinline__ void fr_load_planes(const FrView& v,
+                                               const float2* src, int d) {
     const int P = fr_pitch(d);
     for (int idx = threadIdx.x; idx < d * d; idx += kThreads) {
         const int r = idx / d;
@@ -92,7 +142,7 @@ __device__ void fr_load_planes(const FrView& v, const float2* src, int d) {
 
 // The planes of A = -i f (H0 + sum_t c_t Op_t), f = dt 2^-s, summed in the
 // order of build_generator: Ar = f Hi, Ai = -f Hr.
-__device__ void fr_build_planes(const FrView& v,
+__device__ __forceinline__ void fr_build_planes(const FrView& v,
                                 const float2* __restrict__ H0,
                                 const float2* __restrict__ ops,
                                 const float* __restrict__ coeffs_n, float f,
@@ -121,7 +171,8 @@ __device__ void fr_build_planes(const FrView& v,
 // neighbouring threads on neighbouring rows; the NC slots' entries are
 // broadcast reads.
 template <int NC>
-__device__ void fr_apply(const FrView& v, int d, int src, int dst, int nc) {
+__device__ __forceinline__ void fr_apply(const FrView& v, int d, int src,
+                                         int dst, int nc) {
     const int P = fr_pitch(d);
     const int ncg = nc / NC;
     const int n_tasks = 2 * d * ncg;
@@ -146,7 +197,7 @@ __device__ void fr_apply(const FrView& v, int d, int src, int dst, int nc) {
             ar[c] = 0.f;
             ai[c] = 0.f;
         }
-#pragma unroll 4
+#pragma unroll 8
         for (int k = 0; k < d; ++k) {
             const float mr = mrp[k * mstep];
             const float mi = sgn * mip[k * mstep];
@@ -169,8 +220,8 @@ __device__ void fr_apply(const FrView& v, int d, int src, int dst, int nc) {
 
 // The chain step over the chunk's slots src.. (all chunk of them: unused
 // directions hold zeros).
-__device__ void fr_chain_step(const FrView& v, int d, int src, int dst,
-                              int chunk) {
+__device__ __forceinline__ void fr_chain_step(const FrView& v, int d,
+                                              int src, int dst, int chunk) {
     switch (chunk) {
         case 1: fr_apply<1>(v, d, src, dst, 1); break;
         case 2: fr_apply<2>(v, d, src, dst, 2); break;
@@ -181,7 +232,8 @@ __device__ void fr_chain_step(const FrView& v, int d, int src, int dst,
 
 // y_i = sum_{j <= 15 - i} c_{i+j+1} v_j in place in the w slots i * chunk + g
 // of the chunk's first ng directions (j ascending).
-__device__ void fr_fold(const FrView& v, int d, int chunk, int ng) {
+__device__ __forceinline__ void fr_fold(const FrView& v, int d, int chunk,
+                                        int ng) {
     for (int idx = threadIdx.x; idx < ng * d; idx += kThreads) {
         const int g = idx / d;
         const int k = idx - g * d;
@@ -200,6 +252,62 @@ __device__ void fr_fold(const FrView& v, int d, int chunk, int ng) {
                 yi = fmaf(c_fact_inv[i + j + 1], vj[j].y, yi);
             }
             v.w[((size_t)i * chunk + g) * d + k] = make_float2(yr, yi);
+        }
+    }
+    __syncthreads();
+}
+
+// s = kExtS: the doubling's blocks from the sets carried to degree 31, in
+// place in the slots j * chunk + g of the chunk's first ng directions:
+// x slot 16 + i <- E u_i = sum_{k<=16} c_k u_{i+k}; w slot i <- y_i (as
+// fr_fold) and w slot 16 + i <- E^dagger y_i = sum_m D[i][m] v_m (k and m
+// descending: the small terms first).  One task per (side, direction,
+// entry); the 32 entries of a task are read before any is written.
+__device__ __forceinline__ void fr_fold_ext(const FrView& v, int d,
+                                            int chunk, int ng) {
+    const int per_side = ng * d;
+    const size_t step = (size_t)chunk * d;
+    for (int idx = threadIdx.x; idx < 2 * per_side; idx += kThreads) {
+        const int side = idx / per_side;
+        const int rest = idx - side * per_side;
+        const int g = rest / d;
+        const int k = rest - g * d;
+        float2* base = (side ? v.w : v.x) + (size_t)g * d + k;
+        float2 e[2 * kSet];
+#pragma unroll
+        for (int j = 0; j < 2 * kSet; ++j) e[j] = base[j * step];
+        if (side == 0) {
+#pragma unroll
+            for (int i = 0; i < kSet; ++i) {
+                float xr = 0.f;
+                float xi = 0.f;
+#pragma unroll
+                for (int q = kSet; q >= 0; --q) {
+                    xr = fmaf(c_fact_inv[q], e[i + q].x, xr);
+                    xi = fmaf(c_fact_inv[q], e[i + q].y, xi);
+                }
+                base[(kSet + i) * step] = make_float2(xr, xi);
+            }
+        } else {
+#pragma unroll
+            for (int i = 0; i < kSet; ++i) {
+                float yr = 0.f;
+                float yi = 0.f;
+#pragma unroll
+                for (int j = 0; j + i < kSet; ++j) {
+                    yr = fmaf(c_fact_inv[i + j + 1], e[j].x, yr);
+                    yi = fmaf(c_fact_inv[i + j + 1], e[j].y, yi);
+                }
+                float zr = 0.f;
+                float zi = 0.f;
+#pragma unroll
+                for (int m = 2 * kSet - 1 - i; m >= 0; --m) {
+                    zr = fmaf(c_ext.d[i][m], e[m].x, zr);
+                    zi = fmaf(c_ext.d[i][m], e[m].y, zi);
+                }
+                base[i * step] = make_float2(yr, yi);
+                base[(kSet + i) * step] = make_float2(zr, zi);
+            }
         }
     }
     __syncthreads();
@@ -230,9 +338,10 @@ __device__ __forceinline__ void fr_op_tile(float2 (&op)[4][4],
 // Op_{t+1}'s while the sum of Op_t is reduced); each lane's sum is reduced
 // over its warp and added by lane 0 to the warp's own slot, tile after
 // tile, so the order of every sum is fixed.
-__device__ void fr_traces(const FrView& v, float* red, int d, int chunk,
-                          int ng, int nb, const float2* __restrict__ ops_g,
-                          int T) {
+__device__ __forceinline__ void fr_traces(const FrView& v, float* red,
+                                          int d, int chunk, int ng, int nb,
+                                          const float2* __restrict__ ops_g,
+                                          int T) {
     const int tid = threadIdx.x;
     const int tx = tid & 15;
     const int ty = tid >> 4;
@@ -256,6 +365,7 @@ __device__ void fr_traces(const FrView& v, float* red, int d, int chunk,
                 }
                 for (int p = 0; p < nb; ++p) {
                     const int q = nb - 1 - p;
+#pragma unroll 2
                     for (int r = 0; r < kSet; ++r) {
                         const float2* xs =
                             v.x + ((size_t)(p * kSet + r) * chunk + g) * d;
@@ -318,19 +428,19 @@ __device__ void fr_traces(const FrView& v, float* red, int d, int chunk,
     __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-frechet_factored_kernel(const float2* __restrict__ H0,
-                        const float2* __restrict__ ops,
-                        const float* __restrict__ coeffs,
-                        const float* __restrict__ dts,
-                        const float2* __restrict__ psis,
-                        const float2* __restrict__ chis, int T, int d,
-                        int N_T, int K, int G, int gs,
-                        size_t coeff_group_stride, int s, int chunk,
-                        int m_shared, int sets_shared, float* scratch,
-                        long long scratch_floats, float2* trj) {
-    extern __shared__ float4 fr_smem4[];
-    float* smem = reinterpret_cast<float*>(fr_smem4);
+// The kernel's work for one layout.  kShared: the matrix and the sets are
+// both in shared memory (then every access to them is a shared-memory load;
+// through pointers that may also point to global scratch it is a generic
+// one).
+template <bool kShared>
+__device__ __forceinline__ void fr_items(
+    float* smem, const float2* __restrict__ H0,
+    const float2* __restrict__ ops, const float* __restrict__ coeffs,
+    const float* __restrict__ dts, const float2* __restrict__ psis,
+    const float2* __restrict__ chis, int T, int d, int N_T, int K, int G,
+    int gs, size_t coeff_group_stride, int s, int chunk, int m_shared,
+    int sets_shared, float* scratch, long long scratch_floats,
+    float2* trj) {
     const int tid = threadIdx.x;
     const size_t dd = (size_t)d * d;
     const int nb = 1 << s;
@@ -341,13 +451,14 @@ frechet_factored_kernel(const float2* __restrict__ H0,
     const long long n_red = fr_red_floats(T, chunk);
     float* sp = smem + n_red;
     float* gp = scratch + (size_t)blockIdx.x * scratch_floats;
-    // the dense products of E (s > 0) stage their tiles where the planes
-    // and the sets go: E is formed before either is filled
+    // the dense products of E (s > kExtS) stage their tiles where the
+    // planes and the sets go: E is formed before either is filled
+    const bool dense_e = s > kExtS;
     GemmSmem& gsm = *reinterpret_cast<GemmSmem*>(sp);
     float2* Aint = reinterpret_cast<float2*>(gp);  // A, A2, A3, A4, Ea, Eb
-    if (s > 0) gp += 12 * dd;
+    if (dense_e) gp += 12 * dd;
     FrView v;
-    float* mb = m_shared ? sp : gp;
+    float* mb = kShared || m_shared ? sp : gp;
     v.Mr = mb;
     v.Mi = mb + (size_t)d * fr_pitch(d);
     if (m_shared) {
@@ -356,10 +467,13 @@ frechet_factored_kernel(const float2* __restrict__ H0,
         gp += fr_matrix_floats(d);
     }
     const size_t set = (size_t)kSet * nb * chunk * d;
-    float* sb = sets_shared ? sp : gp;
+    float* sb = kShared || sets_shared ? sp : gp;
     v.x = reinterpret_cast<float2*>(sb);
     v.w = reinterpret_cast<float2*>(sb + 2 * set);
+    // products of each Krylov chain: to degree 15, or 31 for the extension
+    const int n_chain = s == kExtS ? 2 * kSet - 1 : kSet - 1;
 
+    GRAPE_CLOCK_START
     const size_t n_items = (size_t)N_T * G;
     for (size_t item = blockIdx.x; item < n_items; item += gridDim.x) {
         const int n = (int)(item / G);
@@ -368,7 +482,7 @@ frechet_factored_kernel(const float2* __restrict__ H0,
         const float* co = coeffs + (size_t)g * coeff_group_stride +
                           (size_t)n * T;
         const float2* Eint = nullptr;
-        if (s == 0) {
+        if (!dense_e) {
             fr_build_planes(v, H0 + (size_t)g * dd, ops_g, co, dts[n] * scale,
                             T, d);
         } else {
@@ -392,10 +506,11 @@ frechet_factored_kernel(const float2* __restrict__ H0,
             cgemm(Eb, A4, Ea, d, true, gsm);
             Eint = Eb;
         }
+        if (tid == 0) GRAPE_CLOCK_MARK(0)
         const int k_end = (g + 1) * gs;
         for (int k0 = g * gs; k0 < k_end; k0 += chunk) {
             const int ng = min(chunk, k_end - k0);
-            if (s > 0) fr_load_planes(v, Aint, d);
+            if (dense_e) fr_load_planes(v, Aint, d);
             // ---- u_0 = 2^-s psi, v_0 = chi; zero for unused slots -------
             for (int idx = tid; idx < chunk * d; idx += kThreads) {
                 const int j = idx / d;
@@ -412,20 +527,29 @@ frechet_factored_kernel(const float2* __restrict__ H0,
             for (int idx = tid; idx < 2 * kWarps * chunk * T; idx += kThreads)
                 red[idx] = 0.f;
             __syncthreads();
+            if (tid == 0) GRAPE_CLOCK_MARK(1)
             // ---- the Krylov sets u_i = A u_{i-1}, v_i = A^dagger v_{i-1} -
-            for (int i = 1; i < kSet; ++i) {
+            for (int i = 1; i <= n_chain; ++i) {
                 fr_chain_step(v, d, (i - 1) * chunk, i * chunk, chunk);
             }
-            fr_fold(v, d, chunk, ng);
-            // ---- the doublings: E^p u_i and (E^dagger)^q y_i -----------
-            if (s > 0) {
+            if (tid == 0) GRAPE_CLOCK_MARK(2)
+            if (s == kExtS) {
+                fr_fold_ext(v, d, chunk, ng);
+            } else {
+                fr_fold(v, d, chunk, ng);
+            }
+            if (tid == 0) GRAPE_CLOCK_MARK(3)
+            // ---- s > kExtS, the doublings: E^p u_i and (E^dagger)^q y_i -
+            if (dense_e) {
                 fr_load_planes(v, Eint, d);
                 const int blk = kSet * chunk;
                 for (int p = 1; p < nb; ++p) {
                     fr_apply<4>(v, d, (p - 1) * blk, p * blk, blk);
                 }
             }
+            if (tid == 0) GRAPE_CLOCK_MARK(4)
             fr_traces(v, red, d, chunk, ng, nb, ops_g, T);
+            if (tid == 0) GRAPE_CLOCK_MARK(5)
             // ---- sum the warps' shares in a fixed order ------------------
             for (int idx = tid; idx < ng * T; idx += kThreads) {
                 const int j = idx / T;
@@ -440,7 +564,33 @@ frechet_factored_kernel(const float2* __restrict__ H0,
                 trj[((size_t)n * K + k0 + j) * T + t] = make_float2(sr, si);
             }
             __syncthreads();
+            if (tid == 0) GRAPE_CLOCK_MARK(6)
         }
+    }
+    if (tid == 0) GRAPE_CLOCK_FLUSH(g_clock_frf)
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+frechet_factored_kernel(const float2* __restrict__ H0,
+                        const float2* __restrict__ ops,
+                        const float* __restrict__ coeffs,
+                        const float* __restrict__ dts,
+                        const float2* __restrict__ psis,
+                        const float2* __restrict__ chis, int T, int d,
+                        int N_T, int K, int G, int gs,
+                        size_t coeff_group_stride, int s, int chunk,
+                        int m_shared, int sets_shared, float* scratch,
+                        long long scratch_floats, float2* trj) {
+    extern __shared__ float4 fr_smem4[];
+    float* smem = reinterpret_cast<float*>(fr_smem4);
+    if (m_shared && sets_shared) {
+        fr_items<true>(smem, H0, ops, coeffs, dts, psis, chis, T, d, N_T, K,
+                       G, gs, coeff_group_stride, s, chunk, m_shared,
+                       sets_shared, scratch, scratch_floats, trj);
+    } else {
+        fr_items<false>(smem, H0, ops, coeffs, dts, psis, chis, T, d, N_T,
+                        K, G, gs, coeff_group_stride, s, chunk, m_shared,
+                        sets_shared, scratch, scratch_floats, trj);
     }
 }
 
@@ -454,12 +604,13 @@ struct FrLayout {
 
 // Shared memory first: the matrix and the sets at the largest chunk that
 // fits, else the sets alone (the matrix global), else the matrix alone,
-// else neither.  E's dense products stage their tiles in the same space.
+// else neither.  E's dense products (s > kExtS) stage their tiles in the
+// same space.
 static FrLayout fr_layout(int d, int T, int gs, int s, long long max_smem) {
     const int c0 = gs < kMaxChunk ? gs : kMaxChunk;
     const long long m = fr_matrix_floats(d);
     const long long gemm =
-        s > 0 ? (long long)(sizeof(GemmSmem) + 3) / 4 : 0;
+        s > kExtS ? (long long)(sizeof(GemmSmem) + 3) / 4 : 0;
     auto bytes = [&](int chunk, long long shared) {
         const long long f = fr_red_floats(T, chunk) +
                             (shared > gemm ? shared : gemm);
@@ -482,7 +633,7 @@ static FrLayout fr_layout(int d, int T, int gs, int s, long long max_smem) {
     if (!done && bytes(c0, m) <= max_smem) {
         L = {c0, 1, 0, bytes(c0, m), 0};
     }
-    long long g = s > 0 ? 12LL * d * d : 0;
+    long long g = s > kExtS ? 12LL * d * d : 0;
     if (!L.m_shared) g += m;
     if (!L.sets_shared) g += fr_set_floats(d, s, L.chunk);
     L.scratch_floats = (g + 3) / 4 * 4;
@@ -490,6 +641,8 @@ static FrLayout fr_layout(int d, int T, int gs, int s, long long max_smem) {
 }
 
 }  // namespace grape
+
+GRAPE_CLOCK_READER(grape_frechet_factored_clock, grape::g_clock_frf)
 
 extern "C" {
 

@@ -25,7 +25,8 @@ _CSRC = os.path.join(_PKG, "csrc")
 _LIB = None
 _CLOCK_LIB = None
 # the kernels that carry phase clocks (csrc/phase_clock.cuh)
-_CLOCKED = ("prop_cluster.cu", "state_scan.cu", "cheby_ring.cu")
+_CLOCKED = ("prop_cluster.cu", "state_scan.cu", "cheby_ring.cu",
+            "frechet_factored.cu")
 # {"seconds": float, "rebuilt": bool, "log": str} of the latest load
 last_build = {}
 
@@ -191,8 +192,18 @@ def _declare_clocked(lib):
         p, p, p, p, ctypes.c_float, ctypes.c_float, p, i, i, i, i, i, i, i,
         i, i, i, i, i, p, p, p, p,
     ]
+    lib.grape_frechet_factored_plan.restype = i
+    lib.grape_frechet_factored_plan.argtypes = [
+        i, i, i, i, ll, ctypes.POINTER(i), ctypes.POINTER(ll),
+    ]
+    lib.grape_frechet_factored.restype = i
+    lib.grape_frechet_factored.argtypes = [
+        p, p, p, p, p, p, i, i, i, i, i, i, ll, i, i, i, i, i, p, ll, i, p,
+        p,
+    ]
     for fn in (lib.grape_propagators_cluster_clock,
-               lib.grape_state_scan_clock, lib.grape_cheby_ring_clock):
+               lib.grape_state_scan_clock, lib.grape_cheby_ring_clock,
+               lib.grape_frechet_factored_clock):
         fn.restype = i
         fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
 
@@ -222,14 +233,16 @@ def load_kernels(verbose=False):
 
 def load_phase_clock():
     """The two cluster kernels (``csrc/prop_cluster.cu``,
-    ``csrc/state_scan.cu``) and the Chebyshev ring kernel
-    (``csrc/cheby_ring.cu``) built again with their phase clocks
+    ``csrc/state_scan.cu``), the Chebyshev ring kernel
+    (``csrc/cheby_ring.cu``) and the factored Fréchet kernel
+    (``csrc/frechet_factored.cu``) built again with their phase clocks
     (``-DGRAPE_PHASE_CLOCK``) into a library of their own, for
     measurements only: the same entry points, each launch also adding the
     SM cycles of block 0 per phase to a table that
     ``grape_propagators_cluster_clock`` / ``grape_state_scan_clock`` /
-    ``grape_cheby_ring_clock`` copy out (16 counters) and clear.  Built at
-    first use, like :func:`load_kernels`."""
+    ``grape_cheby_ring_clock`` / ``grape_frechet_factored_clock`` copy out
+    (16 counters) and clear.  Built at first use, like
+    :func:`load_kernels`."""
     global _CLOCK_LIB
     if _CLOCK_LIB is not None:
         return _CLOCK_LIB

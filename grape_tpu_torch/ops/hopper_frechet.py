@@ -23,7 +23,11 @@ the same rule for the kernels and for the plain versions):
   ``u_i = Aⁱ 2^-s ψ``, ``y_i = Σ_j c_{i+j+1} (A†)ʲ χ``, and after the
   doublings ``L_s = Σ_{p<2^s} Eᵖ L_0 E^{2^s−1−p}``, E the same polynomial:
   two Krylov sets of matrix-vector products, extended by E, and the traces
-  ``Σ_ab Op_t[a,b] Z[b,a]`` of ``Z = Σ_r x_r w_r†``, rank ``16·2^s``.
+  ``Σ_ab Op_t[a,b] Z[b,a]`` of ``Z = Σ_r x_r w_r†``, rank ``16·2^s``.  At
+  ``s = 1`` E is never formed (the Krylov extension): both sets run on to
+  degree 31 and ``E u_i = Σ_{k≤16} c_k u_{i+k}``,
+  ``E† y_i = Σ_m D[i, m] v_m`` (:func:`_ext_tables`); at ``s ≥ 2`` E is
+  formed by six dense products and applies ``2^s − 1`` times a block.
 
 The ``(K, d, d)`` Fréchet factors never reach device memory as an output.
 
@@ -53,7 +57,7 @@ from .hopper_prop import (
 __all__ = [
     "frechet_trace_shared", "frechet_trace_shared_plain",
     "frechet_trace_pertraj", "frechet_trace_pertraj_plain",
-    "frechet_flops", "frechet_route", "launches",
+    "frechet_flops", "frechet_route", "launches", "krylov_extension_calls",
 ]
 
 # wrapper calls that launched a kernel, per wrapper and route: the dense
@@ -62,6 +66,11 @@ launches = {
     "frechet_trace_shared": 0, "frechet_trace_pertraj": 0,
     "frechet_trace_shared_factored": 0, "frechet_trace_pertraj_factored": 0,
 }
+
+# wrapper calls routed to the factored algorithm at s == EXTENSION_S (the
+# kernel or, on CPU tensors, the plain version), which form the doubling's
+# blocks by the Krylov extension
+krylov_extension_calls = 0
 
 # directions (step, trajectory) per batched product of the plain versions,
 # so the (chunk, K, d, d) intermediates stay bounded
@@ -80,6 +89,11 @@ _ITEMS_PER_LAUNCH = 2048
 # vectors per Krylov set of the factored algorithm (degree 16)
 _SET = 16
 
+# the doublings whose blocks the factored algorithm forms from the Krylov
+# sets carried on to degree 2·_SET − 1 instead of from E (the kernel's
+# kExtS); past it the Krylov vectors would grow as ‖A‖ʲ
+EXTENSION_S = 1
+
 
 def frechet_flops(d, T, gs, s):
     """Float32 operations per (step, group) item of each algorithm,
@@ -89,17 +103,23 @@ def frechet_flops(d, T, gs, s):
 
     Both build ``A_n`` (``(4T + 2)·d²``).  Dense: ``5 + s`` products for the
     base and the ladder, per direction ``12 + 2s`` products and ``T``
-    traces.  Factored: six products for ``E`` where ``s > 0``, per direction
-    30 matrix-vector products for the two Krylov sets, the 136-term fold,
-    ``32·(2^s − 1)`` products to extend the sets, ``16·2^s`` outer products
-    into ``Z`` and ``T`` traces."""
+    traces.  Factored: per direction 30 matrix-vector products for the two
+    Krylov sets, ``32·(2^s − 1)`` more to extend them, the real-by-complex
+    multiply-adds of the folds (136 for ``y_i = Σ_j c_{i+j+1} v_j``, and at
+    ``s = EXTENSION_S`` 16·17 for ``E u_i = Σ_k c_k u_{i+k}`` and the 392
+    nonzero entries of D), ``16·2^s`` outer products into ``Z`` and ``T``
+    traces; the extension is by E, six products an item, where
+    ``s > EXTENSION_S``, and at ``s = EXTENSION_S`` by carrying the Krylov
+    sets on, with no dense product."""
+    s = int(s)
     mv = 8.0 * d * d
     cmm = 8.0 * d ** 3
     gen = (4.0 * T + 2.0) * d * d
-    nb = 2 ** int(s)
+    nb = 2 ** s
     dense = gen + (5 + s) * cmm + gs * ((12 + 2 * s) * cmm + T * mv)
-    factored = gen + (6 * cmm if s else 0.0) + gs * (
-        (30 + 32 * (nb - 1) + _SET * nb + T) * mv + 4.0 * 136 * d
+    folds = 136 + (16 * 17 + 392 if s == EXTENSION_S else 0)
+    factored = gen + (6 * cmm if s > EXTENSION_S else 0.0) + gs * (
+        (30 + 32 * (nb - 1) + _SET * nb + T) * mv + 4.0 * folds * d
     )
     return {"dense": dense, "factored": factored}
 
@@ -118,6 +138,23 @@ def _hankel(cdtype, device):
         for j in range(_SET - i):
             C[i, j] = _FACT_INV[i + j + 1]
     return C.to(device=device, dtype=cdtype)
+
+
+def _ext_tables(cdtype, device):
+    """The folds of the Krylov extension, ``(Cx, D)`` of shape (16, 32):
+    ``E u_i = Σ_m Cx[i, m] u_m`` with ``Cx[i, i+k] = c_k`` (``k ≤ 16``) and
+    ``E† y_i = Σ_m D[i, m] v_m`` with
+    ``D[i, m] = Σ_{j+k=m, j≤15−i, k≤16} c_{i+j+1} c_k``."""
+    Cx = torch.zeros((_SET, 2 * _SET), dtype=torch.float64)
+    D = torch.zeros((_SET, 2 * _SET), dtype=torch.float64)
+    for i in range(_SET):
+        for k in range(_SET + 1):
+            Cx[i, i + k] = _FACT_INV[k]
+        for j in range(_SET - i):
+            for k in range(_SET + 1):
+                D[i, j + k] += _FACT_INV[i + j + 1] * _FACT_INV[k]
+    return (Cx.to(device=device, dtype=cdtype),
+            D.to(device=device, dtype=cdtype))
 
 
 def _plain_generators(H0, ops, coeffs, dts, sl, scale, cdtype):
@@ -162,14 +199,18 @@ def _frechet_trace_factored_plain(H0, ops, coeffs, dts, psis, chis,
     ``y_i = Σ_j c_{i+j+1} v_j``, the extension by ``E`` (block ``p`` of
     the x set is ``Eᵖ u``, block ``q`` of the w set ``(E†)^q y``), and
     ``tr(Op_t Z)`` with ``Z[b, a] = Σ_{p,i} x_{p,i}[b] conj(w_{Q−p,i}[a])``,
-    ``Q = 2^s − 1``."""
+    ``Q = 2^s − 1``.  At ``s = EXTENSION_S`` block 1 comes from the sets
+    carried on to degree 31, folded by :func:`_ext_tables`."""
     cdtype = psis.dtype
     N_T, K, d = psis.shape
     G, T = ops.shape[0], ops.shape[1]
     gs = _group_size(K, G)
     s = int(n_squarings)
+    ext = s == EXTENSION_S
     scale = 2.0 ** (-s)
     C = _hankel(cdtype, psis.device)
+    if ext:
+        Cx, D = _ext_tables(cdtype, psis.device)
     trj = torch.empty((N_T, K, T), dtype=cdtype, device=psis.device)
     chunk = max(1, _PLAIN_CHUNK // K)
     for c0 in range(0, N_T, chunk):
@@ -180,14 +221,18 @@ def _frechet_trace_factored_plain(H0, ops, coeffs, dts, psis, chis,
         u = scale * psis[sl].reshape(-1, G, gs, d, 1)
         v = chis[sl].reshape(-1, G, gs, d, 1)
         us, vs = [u], [v]
-        for _ in range(_SET - 1):
+        for _ in range((2 if ext else 1) * _SET - 1):
             us.append(Ab @ us[-1])
             vs.append(AHb @ vs[-1])
-        X = torch.cat(us, dim=-1)   # (n, G, gs, d, 16): column i = u_i
+        U = torch.cat(us, dim=-1)   # (n, G, gs, d, 16 or 32): u_i
         V = torch.cat(vs, dim=-1)
-        Y = V @ C.T                 # column i = y_i = Σ_j C[i, j] v_j
+        X = U[..., :_SET]
+        Y = V[..., :_SET] @ C.T     # column i = y_i = Σ_j C[i, j] v_j
         xs, ws = [X], [Y]
-        if s:
+        if ext:
+            xs.append(U @ Cx.T)     # E u_i
+            ws.append(V @ D.T)      # E† y_i
+        elif s:
             Eb = expm_taylor_ps(A)[:, :, None]
             for _ in range((1 << s) - 1):
                 xs.append(Eb @ xs[-1])
@@ -263,6 +308,7 @@ def _frechet_trace(name, H0, ops, coeffs, dts, psis, chis, n_squarings,
     ``ops (G, T, d, d)``) by ``route``, ``"dense"`` or ``"factored"``
     (``None``: :func:`frechet_route`, as the wrappers call it; a route is
     forced only to check or time one kernel against the other)."""
+    global krylov_extension_calls
     _require(precision in _PRECISIONS, f"unknown precision {precision!r}")
     s = _squarings(n_squarings)
     G, T, d = ops.shape[0], ops.shape[1], ops.shape[-1]
@@ -270,6 +316,8 @@ def _frechet_trace(name, H0, ops, coeffs, dts, psis, chis, n_squarings,
     if route is None:
         route = frechet_route(d, T, gs, s)
     _require(route in _PLAIN, f"unknown route {route!r}")
+    if route == "factored" and s == EXTENSION_S:
+        krylov_extension_calls += 1
     if psis.device.type == "cpu" or plain_forced():
         return _PLAIN[route](H0, ops, coeffs, dts, psis, chis, s)
     G, T, d, N_T, stride = _check_group_args(H0, ops, coeffs, dts)

@@ -37,7 +37,9 @@ C64 = np.complex64
 
 
 def _inputs(G, gs, seed, s, per_group_coeffs=False, d=D):
-    """Seeded grouped inputs; the drift scale keeps |dt| ||H|| 2^-s <= 2."""
+    """Seeded grouped inputs; the drift scale keeps |dt| ||H|| 2^-s <= 2
+    (at s = 1 with |dt| ||H|| between 3.1 and 3.6 at d = 8, where s = 1 is
+    the squaring count the problems take)."""
     rng = np.random.default_rng(seed)
     K = G * gs
     hscale = 4.0 if s else 1.0
@@ -143,7 +145,7 @@ def test_chi_scan_grouped_plain_matches_pallas(G, gs):
 
 @pytest.mark.parametrize("per_group_coeffs", [False, True],
                          ids=["shared_table", "table_per_group"])
-@pytest.mark.parametrize("s", [0, 2])
+@pytest.mark.parametrize("s", [0, 1, 2])
 @pytest.mark.parametrize("G,gs", [(3, 1), (2, 3), (2, 4)])
 def test_frechet_trace_pertraj_plain_matches_pallas(G, gs, s,
                                                     per_group_coeffs,
@@ -224,6 +226,99 @@ def test_frechet_route_by_operation_count():
     assert torch.equal(trj, hopper_frechet._frechet_trace_factored_plain(
         H0, ops, coeffs, dts, psis, chis, s))
     assert before == hopper_frechet.launches
+
+
+def _extension_error_at(step_norm):
+    """The float32 factored plain traces at d = 100, s = 1, with the
+    largest dt·‖H_n‖₁ scaled to ``step_norm``, against the complex128 dense
+    traces: ``(error, scale)``."""
+    G, gs, d, s = 2, 2, 100, 1
+    H0, ops, coeffs, dts, _, _ = _inputs(G, gs, 1200, s, d=d)
+    H = H0[None] + np.einsum("nt,gtij->ngij", coeffs, ops)
+    norm = np.max(dts[:, None] * np.abs(H).sum(axis=-2).max(axis=-1))
+    H0 = (H0 * (step_norm / norm)).astype(C64)
+    ops = (ops * (step_norm / norm)).astype(C64)
+    H = H0[None] + np.einsum("nt,gtij->ngij", coeffs, ops)
+    step = dts[:, None] * np.abs(H).sum(axis=-2).max(axis=-1)
+    assert step_norm - 0.1 < step.max() <= step_norm + 1e-5
+    rng = np.random.default_rng(1201)
+    K = G * gs
+    psis = (rng.normal(size=(N_T, K, d))
+            + 1j * rng.normal(size=(N_T, K, d))) / np.sqrt(2 * d)
+    chis = (rng.normal(size=(N_T, K, d))
+            + 1j * rng.normal(size=(N_T, K, d))) / np.sqrt(2 * d)
+    args = _t(H0, ops, coeffs, dts, psis.astype(C64), chis.astype(C64))
+    before = hopper_frechet.krylov_extension_calls
+    trj = hopper_frechet._frechet_trace("frechet_trace_pertraj", *args, s,
+                                        route="factored")
+    assert hopper_frechet.krylov_extension_calls == before + 1
+    assert trj.dtype == torch.complex64
+    args128 = [x.to(torch.complex128) if x.is_complex() else x.double()
+               for x in args[:4]] + _t(psis, chis)
+    ref = hopper_frechet._frechet_trace_plain(*args128, s)
+    return _err(trj, ref), max(float(ref.abs().max()), 1.0)
+
+
+def test_krylov_extension_float32_at_the_cells_norm():
+    """At s = 1 the factored algorithm carries both Krylov sets on to
+    degree 31 and folds them into the doubling's blocks instead of forming
+    E.  In float32 at d = 100 with dt·‖H_n‖₁ up to 2 (‖A/2‖₁ near 1, where
+    the benchmark's CZ and ensemble cells run) its traces stay within the
+    plain versions' float32 tolerance of the complex128 dense traces."""
+    err, scale = _extension_error_at(2.0)
+    assert err < 2e-5 * scale
+
+
+def test_krylov_extension_float32_at_the_top_of_its_range():
+    """s = 1 is taken up to dt·‖H_n‖₁ = 4, where ‖A/2‖₁ reaches 2 and the
+    degree-31 Krylov vectors grow as 2^j: just under 4 the float32 traces
+    of the extension stay within the same tolerance of complex128 dense."""
+    err, scale = _extension_error_at(3.99)
+    assert err < 2e-5 * scale
+
+
+def test_krylov_extension_counter_and_operation_count():
+    """An s = 1 call on the CPU path takes the Krylov extension and counts
+    it, an s = 0 call does not; at s = 1 the factored operation count holds
+    no d³ term (its third difference in d is zero, as it is not at s = 2),
+    and it is the count ``chip_smoke.py`` holds the kernel's time against."""
+    import importlib.util
+    import os
+
+    G, gs, d = 2, 3, 16
+    assert hopper_frechet.frechet_route(d, T, gs, 1) == "factored"
+    calls = hopper_frechet.krylov_extension_calls
+    launches = dict(hopper_frechet.launches)
+    for s, taken in ((1, 1), (0, 0), (2, 0)):
+        H0, ops, coeffs, dts, psi0, chi0 = _t(
+            *_inputs(G, gs, 1300 + s, s, d=d))
+        psis = psi0[None].repeat(N_T, 1, 1)
+        chis = chi0[None].repeat(N_T, 1, 1)
+        frechet_trace_pertraj(H0, ops, coeffs, dts, psis, chis, s,
+                              group_size=gs)
+        assert hopper_frechet.krylov_extension_calls == calls + taken
+        calls = hopper_frechet.krylov_extension_calls
+    assert launches == hopper_frechet.launches
+
+    def factored(d_, s_):
+        return hopper_frechet.frechet_flops(d_, 4, 4, s_)["factored"]
+
+    def third_difference(s_):
+        return (factored(103, s_) - 3 * factored(102, s_)
+                + 3 * factored(101, s_) - factored(100, s_))
+
+    assert third_difference(0) == 0.0 and third_difference(1) == 0.0
+    assert third_difference(2) == 6 * 6 * 8.0
+    assert factored(100, 1) < factored(100, 2) - 6 * 8.0 * 100 ** 3
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    for s in (0, 1, 2):
+        assert chip_smoke.frechet_needed_flops(100, 4, 4, 2000, s) == (
+            2000 * factored(100, s))
 
 
 @pytest.mark.parametrize("steps_per_window", [1, 4])

@@ -58,6 +58,9 @@ CASES = [
     (8, 1, 0, 1.0), (8, 3, 0, 1.0), (16, 3, 0, 1.0),
     (8, 3, 2, 4.0), (16, 1, 2, 4.0), (16, 3, 2, 4.0),
     (8, 11, 2, 4.0),  # K > 8: no K-blocking artefact of the TPU kernel
+    # s = 1 with |dt| ||H|| in (2, 4], where the problems take s = 1: the
+    # factored algorithm's Krylov extension against the TPU kernel
+    (8, 3, 1, 4.0), (16, 3, 1, 2.0),
 ]
 
 
