@@ -7,11 +7,15 @@ the largest program reading and the smallest control reading of each
 number.
 
     python benchmark/control.py --workload <cell> --seeds 1 2 3 --seconds 8
+
+A cell on several cards runs as its ranks, as ``run.py`` runs it
+(``harness/ranks.py``), all seeds in one start of them.
 """
 
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -23,13 +27,26 @@ sys.path.insert(0, os.path.dirname(HERE))
 
 
 def readings(workload, seeds, seconds, device="cuda", **kw):
-    """``[{"seed", "program": {...}, "control": {...}}]`` of each seed."""
-    from benchmark.harness import cell
+    """``[{"seed", "program": {...}, "control": {...}}]`` of each seed (on
+    rank 0; empty on the others where ``kw`` holds ``ranks``).  A cell on
+    several cards called without ``ranks`` runs this script, which starts
+    its ranks, and reads its lines."""
+    from benchmark.harness import cell, spec
 
+    chips = int(spec.cell_spec(workload)["cell"]["chips"])
+    if "ranks" not in kw and chips > 1:
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--workload",
+             workload, "--seeds", *map(str, seeds), "--seconds",
+             str(seconds)], capture_output=True, text=True, check=True)
+        return [json.loads(t) for t in out.stdout.splitlines()
+                if t.startswith('{"seed"')]
     out = []
     for seed in seeds:
         line, _ = cell.run(workload, seed, seconds, False, device=device,
                               control=True, **kw)
+        if line is None:
+            continue
         out.append({"seed": seed, "correct": line["correct"],
                     "program": {k: v["value"]
                                 for k, v in line["checks"].items()},
@@ -44,13 +61,19 @@ def main(argv=None):
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--seconds", type=float, default=8.0)
-    args = ap.parse_args(argv)
-    import torch
+    from benchmark.harness import ranks, spec
 
-    if not torch.cuda.is_available():
-        print("control: no CUDA card", file=sys.stderr)
-        return 2
-    rows = readings(args.workload, args.seeds, args.seconds)
+    ranks.add_arguments(ap)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = ap.parse_args(argv)
+    n = int(spec.cell_spec(args.workload)["cell"]["chips"])
+    code, rows = ranks.run_ranks(
+        n, args, [sys.executable, os.path.abspath(__file__)] + argv,
+        lambda group, _: readings(args.workload, args.seeds, args.seconds,
+                                  ranks=group),
+        t0=T_PROCESS, who="control")
+    if rows is None:
+        return code
     for row in rows:
         print(json.dumps(row), flush=True)
     keys = rows[0]["program"].keys()

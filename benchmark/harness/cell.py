@@ -2,8 +2,13 @@
 readings of a traced run, and the check against the reference.  Returns
 the result line and the lines that report each compared number beside its
 limit.  The per-layer readers get a namespace of the window, the traced
-run's recorder, the traffic, the counted structure of the problem and the
-window's peak memory."""
+run's recorder, the traffic, the counted structure of the problem (one
+card's share of it) and the window's peak memory.
+
+On several cards each rank runs this in lockstep (``ranks``): the same
+set-up, warm-up and solves, each solve sharded over the mesh; rank 0 alone
+times, profiles and checks, and returns the line, the others ``(None,
+None)``."""
 
 import gc
 import importlib.util
@@ -17,13 +22,12 @@ import numpy as np
 
 from . import check, inputs, spec
 from .breakdown import breakdown as make_breakdown
+from .ranks import FORBIDDEN, RankedReference, Solo, card_share
 from .tracing import Recorder
 from .window import Window
 
 __all__ = ["run", "FORBIDDEN"]
 
-# top-level module names that must not be loaded in the measuring process
-FORBIDDEN = ("jax", "jaxlib", "flax", "grape_tpu")
 
 
 def base_name(name):
@@ -44,8 +48,11 @@ def _load_reader(name):
     return module.read
 
 
-def _solve(gt, problem, traffic, window, device, dtype, iter_stop):
+def _solve(gt, problem, traffic, window, device, dtype, iter_stop,
+           mesh=None):
     options = dict(traffic["options"])
+    if mesh is not None:
+        options["mesh"] = mesh
     if traffic.get("bounds") is not None:
         options["lower_bound"] = -float(traffic["bounds"])
         options["upper_bound"] = float(traffic["bounds"])
@@ -60,7 +67,7 @@ def _solve(gt, problem, traffic, window, device, dtype, iter_stop):
 
 
 def run(name, seed, seconds, trace, device="cuda", t0=None, config=None,
-        dtype=None, control=False, t_torch=None):
+        dtype=None, control=False, t_torch=None, ranks=None):
     """One run of cell ``name``.  ``config`` replaces the cell's
     configuration (the CPU tests' small sizes), ``dtype`` the
     configuration's (complex128 on the CPU).  ``control``: also put the
@@ -68,8 +75,11 @@ def run(name, seed, seconds, trace, device="cuda", t0=None, config=None,
     products (at the same iterates, and along its own L-BFGS-B path), and
     report its numbers under ``control`` (the check's control; never in
     the benchmark's runs).  ``t0``: when the process started; ``t_torch``:
-    when its import of torch ended (the set-up's parts report both)."""
+    when its import of torch ended (the set-up's parts report both).
+    ``ranks``: this process's place among the ranks of a cell on several
+    cards (``ranks.Group``, not yet connected); None: one card."""
     t0 = time.perf_counter() if t0 is None else t0
+    ranks = ranks or Solo()
     marks = [("start", time.perf_counter())]
     import torch
 
@@ -88,14 +98,18 @@ def run(name, seed, seconds, trace, device="cuda", t0=None, config=None,
 
         _build.load_kernels()
     marks.append(("kernels", time.perf_counter()))
+    ranks.connect(device)
+    if ranks.world > 1:
+        marks.append(("join", time.perf_counter()))
 
     # set-up: the inputs, the operators, one short solve on the cell's shapes
     raw = inputs.draw(config, seed)
     program = programs.load(config["kind"]).Program(config, raw)
-    structure = program.structure()
+    structure = card_share(program.structure(), ranks.world)
     marks.append(("inputs", time.perf_counter()))
     _solve(gt, program.problem(inputs.warmup_guess(config, traffic, seed)),
-           traffic, None, device, dtype, int(traffic["warmup_iter_stop"]))
+           traffic, None, device, dtype, int(traffic["warmup_iter_stop"]),
+           ranks.mesh)
     setup_peak = None
     if cuda:
         torch.cuda.synchronize()
@@ -105,11 +119,15 @@ def run(name, seed, seconds, trace, device="cuda", t0=None, config=None,
     recorder = None
     n_random = int(cell_check["checked_iterates"]["random"])
     path_iterations = int(cell_check.get("path_iterations", 0))
-    window = Window(seconds, inputs.rng(seed, 5), n_random, path_iterations)
-    if trace:
+    window = Window(seconds, inputs.rng(seed, 5), n_random, path_iterations,
+                    decide=ranks.decide)
+    if trace and ranks.lead:
         recorder = Recorder(cell_check["trace_slice"], seconds)
         recorder.install()
         window.on_iteration = recorder.on_iteration
+    ranks.barrier()  # the window opens once the slowest rank is ready
+    if ranks.world > 1:
+        marks.append(("ranks_ready", time.perf_counter()))
     setup_s = time.perf_counter() - t0
     setup_parts = ([("before", marks[0][1] - t0)] if t_torch is None else
                    [("torch", t_torch - t0), ("look", marks[0][1] - t_torch)])
@@ -122,7 +140,7 @@ def run(name, seed, seconds, trace, device="cuda", t0=None, config=None,
         res = _solve(gt, program.problem(inputs.guess(config, traffic, seed,
                                                       i)),
                      traffic, window, device, dtype,
-                     int(traffic["solve_iter_stop"]))
+                     int(traffic["solve_iter_stop"]), ranks.mesh)
         window.solves.append({"iterations": int(res.iter),
                               "fg_calls": int(res.fg_calls),
                               "f_calls": int(res.f_calls),
@@ -131,8 +149,9 @@ def run(name, seed, seconds, trace, device="cuda", t0=None, config=None,
                               "message": str(res.message)})
         i += 1
         now = time.perf_counter()
-        if (not window.closed and
-                now - window.t_start - window.excluded_s >= seconds):
+        if not window.closed and window.decide(
+                now - window.t_start - window.excluded_s >= seconds, (i, -1),
+                wait=True):
             window.closed, window.t_end = True, now
     if recorder is not None:
         recorder.stop()
@@ -144,11 +163,20 @@ def run(name, seed, seconds, trace, device="cuda", t0=None, config=None,
     window_s = window.t_end - window.t_start - window.excluded_s
     failed = sum(s["message"].startswith("Exception")
                  for s in window.solves)
+    records = window.records()
+    # what every rank saw, on rank 0: its checked iterates, its solves and
+    # its card's peak
+    states = ranks.gather({
+        "records": records,
+        "solves": [(s["iterations"], s["J_T"], s["message"])
+                   for s in window.solves],
+        "peak": int(max(setup_peak or 0, window_peak or 0)),
+        "cores": sorted(os.sched_getaffinity(0))})
 
     # the metrics, each reported under every name of its quantity that the
     # cell has
     metrics = {}
-    if not trace:
+    if ranks.lead and not trace:
         values = {"setup_s": setup_s,
                   "iters_per_s": window.n_iters / window_s}
         if len(window.iter_s) >= 2:
@@ -161,7 +189,7 @@ def run(name, seed, seconds, trace, device="cuda", t0=None, config=None,
     ctx = SimpleNamespace(window=window, recorder=recorder, traffic=traffic,
                           structure=structure,
                           window_peak_bytes=window_peak)
-    if trace:
+    if ranks.lead and trace:
         for m in sp["per_layer"]:
             v = _load_reader(m["name"])(ctx)
             if v is not None:
@@ -169,17 +197,17 @@ def run(name, seed, seconds, trace, device="cuda", t0=None, config=None,
     device_info = {"platform": "gpu" if cuda else "cpu",
                    "kind": (torch.cuda.get_device_name(0) if cuda
                             else "cpu"),
-                   "count": 1,
-                   "memory_peak_bytes": int(max(setup_peak or 0,
-                                                window_peak or 0))}
+                   "count": ranks.world,
+                   "memory_peak_bytes": (max(st["peak"] for st in states)
+                                         if ranks.lead else None)}
     breakdown = None
-    if trace and recorder.events:
+    if trace and recorder is not None and recorder.events:
         breakdown, busy_s, span_s = make_breakdown(recorder.events)
         device_info["busy_s"] = busy_s
         device_info["window_s"] = span_s
 
-    # the check, with the program's state freed
-    records = window.records()
+    # the check, with the program's state freed; on several cards each
+    # rank computes the reference on its block of the samples
     path_at = min(path_iterations, max(window.path, default=0))
     path = window.path.get(path_at) if path_at else None
     guess0 = inputs.guess(config, traffic, seed, 0)
@@ -189,38 +217,55 @@ def run(name, seed, seconds, trace, device="cuda", t0=None, config=None,
         torch.cuda.empty_cache()
     kind = reference.load(config["kind"])
 
-    def numbers_of(ref, recs, own_path):
-        numbers = dict(check.compare(ref, recs),
-                       J_T_rise=check.rise(window.solves))
-        if path_iterations:
-            numbers.update(check.path_gaps(ref_path, own_path, guess0))
-        return numbers
+    def with_reference(use, **kwargs):
+        """``use(reference)`` on rank 0, the reference's blocks served by
+        the others."""
+        ref = RankedReference(kind, config, raw, device, ranks, **kwargs)
+        if not ranks.lead:
+            ref.serve()
+            return None
+        try:
+            return use(ref)
+        finally:
+            ref.close()
+
+    def numbers_of(recs, own_path, gap):
+        def use(ref):
+            numbers = dict(check.compare(ref, recs),
+                           J_T_rise=check.rise(window.solves), rank_gap=gap)
+            if path_iterations:
+                numbers.update(check.path_gaps(
+                    check.lbfgsb_path(ref.value_and_grad, guess0,
+                                      traffic.get("bounds"), path_at)
+                    if path is not None else None, own_path, guess0))
+            return numbers
+        return with_reference(use)
 
     t_check = time.perf_counter()
-    ref = kind.Reference(config, raw, device)
-    ref_path = None
-    if path is not None:
-        ref_path = check.lbfgsb_path(ref.value_and_grad, guess0,
-                                     traffic.get("bounds"), path_at)
-    numbers = numbers_of(ref, records, (path["J_T"], path["pulses"])
-                         if path is not None else None)
+    numbers = numbers_of(records, (path["J_T"], path["pulses"])
+                         if path is not None else None,
+                         check.rank_gap(states) if ranks.lead else None)
     check_s = time.perf_counter() - t_check
     control_numbers = None
     if control:
-        ctl = kind.Reference(config, raw, device, dtype=torch.complex64,
-                             tf32=True)
-        ctl_records = []
-        for rec in records:
-            J, g = ctl.value_and_grad(rec["pulses"])
-            ctl_records.append(dict(rec, J_T=J, gradient=g))
-        ctl_path = None
-        if path is not None:
-            ctl_path = check.lbfgsb_path(ctl.value_and_grad, guess0,
-                                         traffic.get("bounds"), path_at)
-        del ctl
+        def control_run(ctl):
+            ctl_records = []
+            for rec in records:
+                J, g = ctl.value_and_grad(rec["pulses"])
+                ctl_records.append(dict(rec, J_T=J, gradient=g))
+            ctl_path = None
+            if path is not None:
+                ctl_path = check.lbfgsb_path(ctl.value_and_grad, guess0,
+                                             traffic.get("bounds"), path_at)
+            return ctl_records, ctl_path
+
+        ctl_out = with_reference(control_run, dtype=torch.complex64,
+                                 tf32=True)
         # TF32 was the control's; the reference turns it off again
-        ref = kind.Reference(config, raw, device)
-        control_numbers = numbers_of(ref, ctl_records, ctl_path)
+        ctl_records, ctl_path = ctl_out or (None, None)
+        control_numbers = numbers_of(ctl_records, ctl_path, 0.0)
+    if not ranks.lead:
+        return None, None
     correct = (check.passes(numbers, limits) and failed == 0
                and bool(records))
     line = {"correct": bool(correct), "attempted": len(window.solves),
@@ -237,6 +282,17 @@ def run(name, seed, seconds, trace, device="cuda", t0=None, config=None,
         f"{s['iterations']} it, {s['fg_calls'] + s['f_calls']} evals, "
         f"J_T {s['J_T_guess'] if s['J_T_guess'] is not None else math.nan:.4e}"
         f" -> {s['J_T']:.4e}, {s['message']}" for s in window.solves))
+    if ranks.world > 1:
+        sync = ranks.sync_times()
+        lines.append(
+            f"ranks {ranks.world} peaks "
+            + " ".join(str(st["peak"]) for st in states)
+            + " cores " + " ".join(",".join(map(str, st["cores"]))
+                                   for st in states)
+            + f" decisions {len(sync)} decision_ms_mean "
+            f"{1e3 * statistics.fmean(sync) if sync else math.nan!r} "
+            f"decision_ms_min {1e3 * min(sync, default=math.nan)!r} "
+            f"decision_ms_max {1e3 * max(sync, default=math.nan)!r}")
     lines.append(f"checked_iterates {len(records)} path_iterations "
                  f"{path_at} solves {len(window.solves)} failed {failed} "
                  f"iterations {window.n_iters} window_s {window_s!r} "

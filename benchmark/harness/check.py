@@ -14,7 +14,12 @@ gives limits for:
   L-BFGS-B run from the same guess on the reference's ``value_and_grad``,
   with the program's settings (``m = 10``, ``factr = 1e1``, ``pgtol =
   1e-15``): the gap of J_T, and the largest gap of a pulse value over the
-  largest distance that the reference's pulses travelled from the guess.
+  largest distance that the reference's pulses travelled from the guess;
+- ``rank_gap``: on several cards, the largest difference of any rank's
+  checked iterates (pulses, J_T, gradient) and solves (iterations, J_T)
+  from rank 0's: the port promises the same bits on every rank (limit 0;
+  infinite where the ranks hold other iterates or solves, or a solve
+  ended otherwise).
 """
 
 import math
@@ -22,9 +27,10 @@ import math
 import numpy as np
 
 __all__ = ["NUMBERS", "compare", "rise", "lbfgsb_path", "path_gaps",
-           "passes"]
+           "rank_gap", "passes"]
 
-NUMBERS = ("J_T_gap", "grad_gap", "J_T_rise", "path_J_gap", "path_x_gap")
+NUMBERS = ("J_T_gap", "grad_gap", "J_T_rise", "path_J_gap", "path_x_gap",
+           "rank_gap")
 
 # the program's L-BFGS-B settings (grape_tpu_torch.optimizers.lbfgsb)
 LBFGSB_M, LBFGSB_FACTR, LBFGSB_PGTOL = 10, 1e1, 1e-15
@@ -91,6 +97,30 @@ def path_gaps(ref_path, path, guess):
     if not (math.isfinite(J) and math.isfinite(J_ref)):
         return {"path_J_gap": math.inf, "path_x_gap": math.inf}
     return {"path_J_gap": abs(J - J_ref), "path_x_gap": x_gap}
+
+
+def rank_gap(states):
+    """``rank_gap`` of ``states``, one a rank in rank order, each with
+    ``records`` (as ``compare`` takes them, with ``solve`` and
+    ``iteration``) and ``solves`` (``(iterations, J_T, message)``)."""
+    lead = states[0]
+    worst = 0.0
+    for other in states[1:]:
+        if (len(other["records"]) != len(lead["records"])
+                or len(other["solves"]) != len(lead["solves"])):
+            return math.inf
+        for a, b in zip(lead["records"], other["records"]):
+            if (a["solve"], a["iteration"]) != (b["solve"], b["iteration"]):
+                return math.inf
+            for key in ("pulses", "J_T", "gradient"):
+                gap = float(np.max(np.abs(np.asarray(a[key], np.float64)
+                                          - np.asarray(b[key], np.float64))))
+                worst = max(worst, gap if gap == gap else math.inf)
+        for a, b in zip(lead["solves"], other["solves"]):
+            if a[0] != b[0] or a[2] != b[2]:
+                return math.inf
+            worst = max(worst, abs(a[1] - b[1]))
+    return worst
 
 
 def passes(numbers, limits):

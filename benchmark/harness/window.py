@@ -10,7 +10,13 @@ iterates that ``correct`` is judged on are kept as they pass (each
 iteration's accepted iterate and each solve's guess): the last one, and a
 sample drawn from the seed by reservoir sampling; each solve's J_T at its
 guess; and the first solve's iterates up to ``path_iterations``, which the
-check follows with the reference's own L-BFGS-B."""
+check follows with the reference's own L-BFGS-B.
+
+On several cards every rank keeps a window of its own, and rank 0's clock
+alone closes them all: ``decide(flag, where, wait)`` gives each rank rank
+0's ``flag`` (``ranks.Group.decide``, which reads it an iteration after
+it was posted, so the window closes at the first callback after the one
+past its seconds; on one card the flag itself, at once)."""
 
 import time
 
@@ -21,12 +27,14 @@ __all__ = ["Window"]
 
 class Window:
     def __init__(self, seconds, rng, n_random, path_iterations=0,
-                 on_iteration=None):
+                 on_iteration=None, decide=None):
         self.seconds = float(seconds)
         self.path_iterations = int(path_iterations)
         self.rng = rng
         self.n_random = int(n_random)
         self.on_iteration = on_iteration  # traced runs: the profiler slice
+        self.decide = decide or (lambda flag, where, wait=False:
+                                      bool(flag))
         self.iter_s = []        # wall seconds of each iteration
         self.iter_end = []      # perf_counter at each iteration's end
         self.excluded_s = 0.0   # time the harness itself spent (profiler)
@@ -89,7 +97,8 @@ class Window:
                 self.sampled[r] = (j, record)
 
     def check_convergence(self, result):
-        if self.t_mark - self.t_start - self.excluded_s >= self.seconds:
+        due = self.t_mark - self.t_start - self.excluded_s >= self.seconds
+        if self.decide(due, (len(self.solves), int(result.iter))):
             self.closed = True
             self.t_end = self.t_mark
             return True

@@ -20,7 +20,7 @@ exact to the working precision, with no series of the program's.
 import numpy as np
 import torch
 
-__all__ = ["Reference", "operators", "logical_states"]
+__all__ = ["Reference", "operators", "logical_states", "blocks", "combine"]
 
 N_CONTROLS = 4
 
@@ -61,6 +61,28 @@ def logical_states(config):
         initial[k, i * d + j] = 1.0
     targets = initial * np.array([1.0, 1.0, 1.0, -1.0])[:, None]
     return initial, targets
+
+
+def blocks(inputs, n):
+    """The raw inputs cut into ``n`` blocks of contiguous samples, for a
+    reference computed on several cards (an empty block: None).  The
+    functional is a mean over the samples, so it splits by sample."""
+    det = np.asarray(inputs["detunings"], dtype=np.float64)
+    return [{"detunings": b} if len(b) else None
+            for b in np.array_split(det, n)]
+
+
+def combine(blocks, parts):
+    """``(J_T, gradient)`` of every sample from each block's ``(J_T,
+    gradient)``: ``1 - J_T`` and the gradient are means over the samples,
+    so each block weighs by its share of them."""
+    sizes = [len(b["detunings"]) for b in blocks]
+    total = float(sum(sizes))
+    J, g = 1.0, 0.0
+    for size, (J_b, g_b) in zip(sizes, parts):
+        J -= size / total * (1.0 - J_b)
+        g = g + size / total * np.asarray(g_b, dtype=np.float64)
+    return J, g
 
 
 class Reference:

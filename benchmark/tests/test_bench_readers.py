@@ -157,4 +157,4 @@ def test_per_layer_metrics_name_their_layer_and_cells():
     for m in BENCH["per_layer"]:
         assert set(m["workloads"]) <= cells
         assert m["layer"] in ("outer loop", "evaluation", "kernels",
-                              "device")
+                              "collectives", "device")

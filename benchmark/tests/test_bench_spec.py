@@ -56,6 +56,11 @@ def test_entries_have_just_their_keys_and_valid_names():
         assert m["better"] in ("lower", "higher")
 
 
+def test_at_most_a_quarter_of_the_cells_take_four_cards():
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(CELLS) // 4), four
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_files_are_found_by_name(cell):
     sp = spec.cell_spec(cell)

@@ -7,10 +7,10 @@ import numpy as np
 from benchmark.harness import cell, spec
 
 
-def config(name):
+def config(name, samples=2):
     cfg = dict(spec.cell_spec(name)["config"], levels=3, n_steps=40, T=20.0)
     if cfg["n_samples"] > 1:
-        cfg["n_samples"] = 2
+        cfg["n_samples"] = samples
     return cfg
 
 
