@@ -131,6 +131,10 @@ _CHEBY_MIN_DIM = 256
 # call per product that costs far more than the bytes it moves
 _ELEMENTWISE_MAX_DIM = 4
 
+# the order count of the time-vectorized Taylor passes: the last pass's,
+# and the sum over every pass since the process started
+taylor_orders = {"last": 0, "total": 0}
+
 
 @dataclass
 class CompiledProblem:
@@ -1752,6 +1756,8 @@ def _backward_vectorized(cp: CompiledProblem, consts, coeffs, dM, psis,
 
     Returns ``(tau_grads (N_T, K, L) [ρ-scaled], taylor_ok)``.
     """
+    taylor_orders["last"] = int(n_orders)
+    taylor_orders["total"] += int(n_orders)
     cdt = consts["cdtype"]
     H0, ops = consts["H0"], consts["ops"]
     G, T = ops.shape[0], ops.shape[1]
@@ -2005,18 +2011,20 @@ def _backward_window(cp: CompiledProblem, consts, coeffs, dM, psis, Us,
     if not (vec_gg or n_orders is not None):
         return _backward_per_step(cp, consts, coeffs, dM, psis, Us, chi,
                                   rho, amp_max, pds, src, n0)
-    if Us is not None:
-        chis, chi_out = _chi_trajectory(cp, Us, chi, src)
-    else:
-        chis, chi_out = _chi_prop_scan(cp, consts, coeffs, chi, amp_max,
-                                       pds, src, n0)
+    with span("grape.costates"):
+        if Us is not None:
+            chis, chi_out = _chi_trajectory(cp, Us, chi, src)
+        else:
+            chis, chi_out = _chi_prop_scan(cp, consts, coeffs, chi, amp_max,
+                                           pds, src, n0)
     if vec_gg:
         taylor_ok = torch.ones((), dtype=torch.bool, device=chi.device)
         tau_grads = _backward_vectorized_gradgen(
             cp, consts, coeffs, dM, psis, chis, rho, amp_max)
     else:
-        tau_grads, taylor_ok = _backward_vectorized(
-            cp, consts, coeffs, dM, psis, chis, rho, amp_max, n_orders)
+        with span("grape.taylor_pass"):
+            tau_grads, taylor_ok = _backward_vectorized(
+                cp, consts, coeffs, dM, psis, chis, rho, amp_max, n_orders)
     return tau_grads, taylor_ok, chi_out
 
 

@@ -29,7 +29,8 @@ co-resident grid, one CTA per SM; :func:`cheby_route` picks one:
 The wrapper launches a kernel for CUDA tensors (or raises) and runs the
 plain version only for CPU tensors; ``launches`` counts the calls that
 launched, ``launches_by_direction`` the same calls by direction and
-``route_launches`` the launches of each kernel.  The kernels take complex64
+``route_launches`` the launches of each kernel, ``terms`` the series work
+of every call (terms × steps × states).  The kernels take complex64
 only (full float32 FMAs).  The TPU's budget helper
 ``cheby_stream_row_blocks`` has no counterpart: no VMEM budget applies here.
 """
@@ -48,6 +49,7 @@ from .hopper_prop import _check_tensor, _require, _sm_count, _stream
 __all__ = [
     "cheby_scan", "cheby_scan_plain", "cheby_scan_layout", "cheby_route",
     "CHEBY_MAX_DIM", "launches", "launches_by_direction", "route_launches",
+    "terms",
 ]
 
 # wrapper calls that launched a kernel
@@ -55,6 +57,10 @@ launches = {"cheby_scan": 0}
 launches_by_direction = {"forward": 0, "adjoint": 0}
 # kernel launches per route: the ring kernel, the grid-barrier kernel
 route_launches = {"cheby_ring": 0, "cheby_grid": 0}
+# the series work of the calls: Σ terms (the table's width, padded terms
+# included) × steps × states, launched or, for CPU tensors, in the plain
+# version
+terms = {"cheby_scan": 0}
 
 # the route forced for checks and timings (see _forced_route)
 _forced = {"route": None}
@@ -199,6 +205,7 @@ def cheby_scan(H0, ops, coeffs, tab, ph, shift, dE, psi0, adjoint=False):
     it is never launched.
     """
     if psi0.device.type == "cpu" or plain_forced():
+        terms["cheby_scan"] += tab.shape[1] * coeffs.shape[0] * psi0.shape[0]
         return cheby_scan_plain(H0, ops, coeffs, tab, ph, shift, dE, psi0,
                                 adjoint)
     device = psi0.device
@@ -255,5 +262,6 @@ def cheby_scan(H0, ops, coeffs, tab, ph, shift, dE, psi0, adjoint=False):
             ), "Chebyshev scan kernel launch")
         route_launches["cheby_grid"] += 1
     launches["cheby_scan"] += 1
+    terms["cheby_scan"] += n_cheby * N_T * K
     launches_by_direction["adjoint" if adjoint else "forward"] += 1
     return out

@@ -36,7 +36,11 @@ Every name starts with ``grape.``:
   its results, where the host waits for the card);
 - the stages inside ``grape.dispatch``: ``grape.coefficients``,
   ``grape.forward``, ``grape.boundary``, ``grape.backward`` (with one
-  ``grape.segment`` per recompute segment) and ``grape.assemble``.
+  ``grape.segment`` per recompute segment) and ``grape.assemble``;
+- inside ``grape.backward`` (or its segment), for a window whose co-states
+  are chained apart from the gradient: ``grape.costates`` (the co-state
+  chain: the χ scans, or the adjoint Chebyshev scan) and
+  ``grape.taylor_pass`` (the time-vectorized Taylor pass).
 """
 
 import contextlib

@@ -1,7 +1,8 @@
 """The port's ``grape.*`` spans (``grape_tpu_torch.tracing``): the tree that
 ``optimize(..., profile_dir=...)`` exports, one ``grape.update_result`` and
 one ``grape.callback`` an iteration, one ``grape.segment`` per recompute
-segment of each backward pass; no ``record_function`` at all while no
+segment of each backward pass, the co-state chain and the Taylor pass
+apart inside it; no ``record_function`` at all while no
 profiler records; J, the gradient and the iterates bit for bit the same
 with the profiler on or off; spans that straddle the profiler's start or
 stop; and ``GrapeResult.secs`` on the monotonic clock."""
@@ -41,6 +42,12 @@ CASES = {
     "recompute": (lambda: two_transmon_cz_ensemble_problem(
         n_samples=2, d=3, n_steps=60, T=10.0),
         dict(storage_mode="recompute", storage_segments=SEGMENTS)),
+    # the CZ under Chebyshev propagation with the time-vectorized Taylor
+    # gradient: the co-state chain and the pass apart
+    "cheby_taylor": (lambda: two_transmon_cz_problem(d=3, n_steps=40,
+                                                     T=10.0),
+                     dict(prop_method="cheby", gradient_method="taylor",
+                          storage_mode="full")),
 }
 
 EVALUATIONS = ("grape.evaluate_gradient", "grape.evaluate_functional")
@@ -64,6 +71,8 @@ PARENTS = {
     "grape.backward": ("grape.dispatch",),
     "grape.assemble": ("grape.dispatch",),
     "grape.segment": ("grape.backward",),
+    "grape.costates": ("grape.backward", "grape.segment"),
+    "grape.taylor_pass": ("grape.backward", "grape.segment"),
 }
 
 
@@ -166,6 +175,25 @@ def test_segments_of_each_backward_pass(traced, case):
     passes = [i for i, s in enumerate(spans) if s[0] == "grape.backward"]
     expected = SEGMENTS if case == "recompute" else 0
     assert [per_pass.get(i, 0) for i in passes] == [expected] * len(passes)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_the_costates_and_the_taylor_pass_apart(traced, case):
+    """Each window's co-state chain is a ``grape.costates`` span of its
+    own; under the Taylor gradient the vectorized pass that follows it is a
+    ``grape.taylor_pass``, after it and inside the same backward pass."""
+    _, _, spans = traced[case]
+    names = Counter(name for name, *_ in spans)
+    windows = SEGMENTS if case == "recompute" else 1
+    assert names["grape.costates"] == windows * names["grape.backward"]
+    taylor = CASES[case][1].get("gradient_method") == "taylor"
+    assert names["grape.taylor_pass"] == (names["grape.costates"] if taylor
+                                          else 0)
+    if taylor:
+        chains = [s for s in spans if s[0] == "grape.costates"]
+        passes = [s for s in spans if s[0] == "grape.taylor_pass"]
+        for (_, a0, b0, p0), (_, a1, b1, p1) in zip(chains, passes):
+            assert p0 == p1 == "grape.backward" and b0 <= a1 + 1e-3
 
 
 @pytest.mark.parametrize("case", list(CASES))
