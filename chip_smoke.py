@@ -2,6 +2,10 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase taylor_order   # the device, the build
+                                                 # and that phase alone
+    python3 chip_smoke.py --phase cheby          # the dim-1024 Chebyshev
+                                                 # paths, then that phase
 
 Builds the CUDA kernels from ``grape_tpu_torch/csrc`` and holds each wrapper
 against its plain PyTorch version on the card at the shapes of the paths
@@ -31,7 +35,11 @@ every evaluation went through the kernels:
   taylor gradient: the
   Chebyshev-scan kernel forward and for the co-state chain, 27 terms per
   step, and the vectorized Taylor pass; beside it 64 basis states of the
-  same register and the per-step extended-state gradgen at dim 256;
+  same register and the per-step extended-state gradgen at dim 256; the
+  Taylor-order kernel (one launch an order of the pass at large d)
+  against its plain version, the static-operator einsums it replaced and
+  complex128, at dim 1024 (52 orders) and 256 and five ragged layouts,
+  and the share of the orders it runs on the two Taylor cells' paths;
 - the two kernels outside the optimizer: the per-trajectory forward scan
   without the propagator stream (``forward_scan_time``) and the probe of
   chained complex products (``python -m
@@ -2644,6 +2652,286 @@ def cheby_routes_phase(cp_cz, cp_sub, cp_256, rng, dev):
           "sm_count": sms, "shapes": rows})
     return main
 
+# the Taylor-order kernel's ragged shapes: (d, N_T, G, gs, L, T,
+# per-trajectory tables) — a ragged row tile and chunk, one table a
+# trajectory, N_T not a multiple of 8, three groups, one and three
+# controls
+TAYLOR_ORDER_SHAPES = (
+    (136, 10, 2, 2, 4, 4, False), (130, 9, 2, 1, 4, 4, True),
+    (200, 17, 1, 4, 2, 2, False), (258, 8, 3, 2, 2, 2, False),
+    (1000, 12, 1, 4, 4, 4, False), (150, 11, 1, 4, 3, 3, False),
+    (144, 5, 2, 2, 1, 1, False), (132, 7, 3, 1, 3, 3, True),
+)
+# the order count of cz1024.cheby's passes (the benchmark's mean)
+CZ1024_ORDERS = 52
+
+
+def taylor_order_phase(rng, dev):
+    """Phase ``taylor_order``: the Taylor-order kernel
+    (``csrc/taylor_order.cu``) against its plain version and against the
+    static-operator einsum pass it replaced.
+
+    ``passes``: the CZ at dim 1024 (cz1024.cheby's shapes: K = 4, L = T =
+    4, N_T = 100, 52 orders) and at dim 256 (N_T = 200, the guess's order
+    count), pulses at the guess plus seeded noise, seeded co-states and
+    states: the whole pass of ``fg._backward_vectorized`` on the kernel's
+    route against the same pass with the plain order (``plain_versions``)
+    and with the route forced to the static einsums; ms an order of the
+    kernel (a loop of its launches alone), of the static pass
+    (``library_ms``) and the plain pass, the bound (the needed operations
+    at 67 TFLOP/s), the kernel's own operations, the counters (launches,
+    ``taylor_orders["kernel"]``) and the last wave's split timed at 1, 3,
+    5 and 8 ranges.
+    ``shapes``: eight ragged layouts, ``M`` orders by direct launches,
+    acc, φ and Hm against the plain version, with the plan's split and
+    with the last wave's tiles forced into three ranges.
+    ``kernel_share``: the share of the orders the kernel runs in one
+    gradient evaluation of each large-d Taylor configuration the repo runs,
+    with its layouts.  Returns the kernels line's entry (an order at
+    cz1024.cheby's shapes)."""
+    import ctypes
+
+    import grape_tpu_torch as gt
+    import grape_tpu_torch.fg as F
+    from grape_tpu_torch.models import two_transmon_cz_problem
+    from grape_tpu_torch.ops import _build, hopper_taylor, plain_versions
+
+    c64 = torch.complex64
+    # the layout rule's shared bytes and sums against the built kernel's
+    lib = _build.load_kernels()
+    for gs, L, T in sorted(hopper_taylor.TAYLOR_LAYOUTS):
+        out = (ctypes.c_int * 2)()
+        require(lib.grape_taylor_order_plan(gs, L, T, out) == 0,
+                f"the Taylor-order kernel is not built for {(gs, L, T)}")
+        plan = hopper_taylor.taylor_plan(1024, 100, 1, gs, L, T)
+        require((plan["smem"], plan["sums"]) == tuple(out),
+                f"layout {(gs, L, T)}: rule {plan}, kernel {list(out)}")
+    passes = []
+    for name, (dlev, steps, T_end, orders) in (
+            ("cz1024", (CHEBY_D, CHEBY_STEPS, CHEBY_T, CZ1024_ORDERS)),
+            ("d256", (CHEBY256_D, CHEBY256_STEPS, CHEBY256_T, None))):
+        problem = two_transmon_cz_problem(d=dlev, n_steps=steps, T=T_end)
+        kwargs = dict(problem.kwargs, prop_method="cheby",
+                      gradient_method="taylor")
+        cp = gt.compile_problem(problem.trajectories, problem.tlist,
+                                dtype=np.complex64, **kwargs)
+        consts = F._device_constants(cp, dev)
+        d, K, N, L = cp.dim, cp.n_traj, cp.n_timesteps, cp.n_controls
+        G, T = consts["ops"].shape[0], consts["ops"].shape[1]
+        M = orders or F._vectorized_taylor_orders(cp)
+        require(F._taylor_pass_route(d, K, G, L, T, c64, "cuda") == "kernel",
+                f"{name}: the pass must take the Taylor-order kernel")
+        eps = cp.guess_pulsevals + 0.3 * rng.normal(size=(L, N))
+        coeffs, dM = F._coeff_tables(
+            cp, consts, torch.as_tensor(eps, dtype=torch.float32,
+                                        device=dev))
+
+        def unit(shape):
+            v = (torch.randn(shape, dtype=torch.float32, device=dev)
+                 + 1j * torch.randn(shape, dtype=torch.float32, device=dev))
+            return (v / v.norm(dim=-1, keepdim=True)).to(c64).contiguous()
+
+        torch.manual_seed(int(rng.integers(1 << 30)))
+        psis, chis = unit((N, K, d)), unit((N, K, d))
+        rho = torch.ones(K, dtype=torch.float32, device=dev)
+        args = (cp, consts, coeffs, dM, psis, chis, rho, None, M)
+
+        hopper_taylor.launches["taylor_order"] = 0
+        k0 = F.taylor_orders["kernel"]
+        g_k, ok_k = F._backward_vectorized(*args)
+        torch.cuda.synchronize()
+        counts = {"launches": hopper_taylor.launches["taylor_order"],
+                  "taylor_orders_kernel": F.taylor_orders["kernel"] - k0,
+                  "orders": M}
+        require(counts["launches"] == M and counts["taylor_orders_kernel"]
+                == M, f"{name}: one launch an order: {counts}")
+        pass_ms = median_ms(lambda: F._backward_vectorized(*args), reps=5)
+        with plain_versions():
+            g_p, ok_p = F._backward_vectorized(*args)
+            plain_ms = median_ms(lambda: F._backward_vectorized(*args),
+                                 reps=1)
+        route = F._taylor_pass_route
+        F._taylor_pass_route = lambda *a: "static"
+        try:
+            g_s, ok_s = F._backward_vectorized(*args)
+            library_ms = median_ms(lambda: F._backward_vectorized(*args),
+                                   reps=3)
+        finally:
+            F._taylor_pass_route = route
+        # the same pass in complex128 (the static einsums: complex128
+        # takes no kernel), the yardstick of the three float32 passes
+        c128 = torch.complex128
+        consts128 = dict(consts, H0=consts["H0"].to(c128),
+                         ops=consts["ops"].to(c128), cdtype=c128,
+                         dt=consts["dt"].double())
+        g_x, _ = F._backward_vectorized(
+            cp, consts128, coeffs.double(), dM.double(), psis.to(c128),
+            chis.to(c128), rho.double(), None, M)
+        torch.cuda.synchronize()
+        for g in (g_k, g_p, g_s):
+            require(bool(torch.isfinite(torch.view_as_real(g)).all()),
+                    f"{name}: a pass is not finite")
+        scale = float(g_x.abs().max())
+        errs = {"kernel_vs_plain": max_abs(g_k, g_p) / scale,
+                "kernel_vs_static": max_abs(g_k, g_s) / scale,
+                "static_vs_plain": max_abs(g_s, g_p) / scale,
+                "kernel_vs_complex128": max_abs(g_k.to(c128), g_x) / scale,
+                "plain_vs_complex128": max_abs(g_p.to(c128), g_x) / scale,
+                "static_vs_complex128": max_abs(g_s.to(c128), g_x) / scale}
+        emit({"phase": "taylor_order_errors", "name": name, **errs})
+        require(bool(ok_k) and bool(ok_p) and bool(ok_s),
+                f"{name}: a pass did not converge")
+        # each float32 pass against complex128: the kernel's sums may not
+        # stray further than twice the farther of the other two
+        require(errs["kernel_vs_complex128"] < 2 * max(
+            errs["plain_vs_complex128"], errs["static_vs_complex128"]),
+            f"{name}: {errs}")
+        # the orders alone: the kernel's launches back to back
+        h = max(F._h_norm_bound(cp, None), 1e-30)
+        co32, dM32 = coeffs.float().contiguous(), dM.float().contiguous()
+        H0, ops = consts["H0"], consts["ops"]
+        dts = consts["dt"].float()
+
+        def run_orders(work=None):
+            return hopper_taylor.taylor_pass(H0, ops, co32, dM32, chis, dts,
+                                             h, M, False, work=work)
+
+        layouts = {}
+        for kp in (1, 3, 5, 8):
+            work = hopper_taylor.order_workspace(d, N, G, K // G, L, T, dev,
+                                                 kparts=kp)
+            layouts[f"kparts{kp}"] = median_ms(lambda: run_orders(work),
+                                               reps=3) / M
+        order_ms = median_ms(run_orders, reps=5) / M
+        needed = N * (K * (L + 1) + K * L) * 8.0 * d * d
+        done = N * G * d * d * (2.0 * T + 4.0 * (K // G) * (L + 1 + T)) * 2
+        plan = hopper_taylor.taylor_plan(d, N, G, K // G, L, T,
+                                         torch.cuda.get_device_properties(
+                                             dev).multi_processor_count)
+        passes.append({
+            "name": name, "d": d, "K": K, "L": L, "T": T, "N_T": N,
+            "orders": M, "plan": plan, "errors": errs,
+            "ms_per_order": order_ms,
+            "bound_ms_per_order": needed / 67e12 * 1e3,
+            "needed_gflop_per_order": needed / 1e9,
+            "kernel_gflop_per_order": done / 1e9,
+            "roofline_pct": needed / 67e12 * 1e3 / order_ms * 100,
+            "pass_ms": pass_ms, "library_ms_per_order": library_ms / M,
+            "library_pass_ms": library_ms,
+            "plain_ms_per_order": plain_ms / M, "layouts_ms": layouts,
+            "counts": counts})
+    shapes = []
+    for d, N, G, gs, L, T, per in TAYLOR_ORDER_SHAPES:
+        K = G * gs
+        Gc = K if per else G
+
+        def herm(*shape, scale=1.0):
+            A = torch.randn(*shape, d, d, dtype=c64, device=dev)
+            return scale * (A + A.conj().transpose(-1, -2)) / (2 * d ** 0.5)
+
+        H0, ops = herm(Gc), herm(Gc, T, scale=0.5)
+        co = torch.randn(*((Gc,) if per else ()), N, T, device=dev)
+        dM = torch.randn(*((Gc,) if per else ()), N, T, L, device=dev)
+        chis = torch.randn(N, K, d, dtype=c64, device=dev)
+        chis = chis / chis.norm(dim=-1, keepdim=True)
+        dts = torch.full((N,), 0.05, device=dev)
+        h = float(H0.abs().sum(-2).amax() + co.abs().amax()
+                  * ops.abs().sum(-2).amax(-1).sum(-1).amax())
+        M = 12
+        with plain_versions():
+            ref = hopper_taylor.taylor_pass(H0, ops, co, dM, chis, dts, h, M,
+                                            per, hm_last=True)[:3]
+        row = {"d": d, "N_T": N, "G": Gc, "gs": 1 if per else gs, "L": L,
+               "T": T, "per": per, "orders": M}
+        for label, kp in (("plan", None), ("kparts3", 3)):
+            work = hopper_taylor.order_workspace(d, N, Gc, 1 if per else gs,
+                                                 L, T, dev, kparts=kp)
+            plan = work[0]
+            got = hopper_taylor.taylor_pass(H0, ops, co, dM, chis, dts, h, M,
+                                            per, work=work,
+                                            hm_last=True)[:3]
+            torch.cuda.synchronize()
+            errs = [max_abs(a, b) / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(got, ref)]
+            require(max(errs) < TOL_TRJ,
+                    f"Taylor order at {row} ({label}): errors {errs}")
+            row[label] = {"kparts": plan["kparts"], "full": plan["full"],
+                          "tiles": plan["tiles"], "acc_phi_hm_err": errs}
+        shapes.append(row)
+    # the share of orders the kernel runs on the paths of the large-d
+    # Taylor configurations the repo runs (one gradient evaluation each at
+    # the guess): the benchmark's two Taylor cells (cz.taylor at dim 100:
+    # the formed-H_n branch), the mixed dim-1024 CZ (PERF.md's cell still to
+    # come: two partitions of two basis states), the CZ at dim 144 and 256,
+    # and 64 basis states at dim 1024 (too many columns: formed)
+    from grape_tpu_torch.fg_hetero import (
+        compile_heterogeneous, traj_prop_partition,
+    )
+    from grape_tpu_torch.models import two_transmon_subspace_gate_problem
+
+    def compiled(problem, **kw):
+        return gt.compile_problem(problem.trajectories, problem.tlist,
+                                  dtype=np.complex64,
+                                  **dict(problem.kwargs, **kw))
+
+    cheby_taylor = dict(prop_method="cheby", gradient_method="taylor")
+    trajs, tlist, kw, _ = hetero_problem(CHEBY_D, CHEBY_STEPS, CHEBY_T)
+    configs = {
+        "cz1024.cheby": compiled(two_transmon_cz_problem(
+            d=CHEBY_D, n_steps=CHEBY_STEPS, T=CHEBY_T), **cheby_taylor),
+        "cz.taylor": compiled(two_transmon_cz_problem(
+            d=D_TRANSMON, n_steps=N_STEPS), gradient_method="taylor"),
+        "mixed1024.taylor": compile_heterogeneous(
+            trajs, tlist, traj_prop_partition(trajs, kw),
+            dtype=np.complex64, **kw),
+        "cz_dim144.taylor": compiled(two_transmon_cz_problem(
+            d=DIM144_LEVELS), gradient_method="taylor"),
+        "cz_dim256.cheby": compiled(two_transmon_cz_problem(
+            d=CHEBY256_D, n_steps=CHEBY256_STEPS, T=CHEBY256_T),
+            **cheby_taylor),
+        "subspace1024.cheby": compiled(two_transmon_subspace_gate_problem(
+            d=CHEBY_D, n_basis=SUBSPACE_BASIS, n_steps=CHEBY_STEPS,
+            T=CHEBY_T), **cheby_taylor),
+    }
+    share = {}
+    for name, cp in configs.items():
+        parts = getattr(cp, "parts", [cp])
+        before = dict(F.taylor_orders)
+        gt.build_fg(cp)(cp.guess_pulsevals.reshape(-1))
+        torch.cuda.synchronize()
+        got = {k: F.taylor_orders[k] - before[k] for k in ("total", "kernel")}
+        share[name] = {
+            **got, "share": got["kernel"] / max(got["total"], 1),
+            "layouts": [{"d": q.dim, "K": q.n_traj, "L": q.n_controls,
+                         "T": int(q.ops.shape[-3]),
+                         "gs": q.n_traj // int(q.H0.shape[0])}
+                        for q in parts]}
+    want = {"cz1024.cheby": 1.0, "cz.taylor": 0.0, "mixed1024.taylor": 1.0,
+            "cz_dim144.taylor": 1.0, "cz_dim256.cheby": 1.0,
+            "subspace1024.cheby": 0.0}
+    require(all(share[k]["share"] == v and share[k]["total"] > 0
+                for k, v in want.items()),
+            f"the kernel's share of the orders: {share}")
+    emit({"phase": "taylor_order", "passes": passes, "shapes": shapes,
+          "kernel_share": share})
+    # the kernels line's entry: an order at cz1024.cheby's shapes
+    main = passes[0]
+    d, K, L, T, N = (main[k] for k in ("d", "K", "L", "T", "N_T"))
+    return {
+        "err": main["errors"]["kernel_vs_plain"],
+        "ms": main["ms_per_order"],
+        "plain_ms": main["plain_ms_per_order"],
+        "flops": main["needed_gflop_per_order"] * 1e9,
+        # the operators once, φ and Hm read and written, the sum read and
+        # written
+        "bytes": 8.0 * ((T + 1) * d * d + N * K * d * (4 * L + 2)),
+        "library_ms": main["library_ms_per_order"],
+        "library_call": "the static-operator einsum order of "
+                        "fg._backward_vectorized (cuBLAS), the route it "
+                        "replaced",
+        "per": "one order at d = 1024, N_T = 100, K = L = T = 4",
+        "passes": passes, "kernel_share": share}
+
 
 def cheby_paths(rng, dev):
     """The fourth path: phases ``kernel_check_cheby``, ``fg_cheby``,
@@ -2657,9 +2945,12 @@ def cheby_paths(rng, dev):
     from grape_tpu_torch.models import (
         two_transmon_cz_problem, two_transmon_subspace_gate_problem,
     )
-    from grape_tpu_torch.ops import hopper_cheby, hopper_frechet, hopper_prop
+    from grape_tpu_torch.ops import (
+        hopper_cheby, hopper_frechet, hopper_prop, hopper_taylor,
+        plain_forced,
+    )
 
-    modules = (hopper_prop, hopper_frechet, hopper_cheby)
+    modules = (hopper_prop, hopper_frechet, hopper_cheby, hopper_taylor)
 
     def compiled(problem, dtype=np.complex64, **kw):
         kwargs = dict(problem.kwargs, prop_method="cheby")
@@ -2708,6 +2999,16 @@ def cheby_paths(rng, dev):
     zero_counts(*modules)
     for key in hopper_cheby.launches_by_direction:
         hopper_cheby.launches_by_direction[key] = 0
+    # every Taylor pass of the run: (under plain_versions, its orders)
+    by_order = F._taylor_pass_by_order
+    passes = []
+
+    def pass_counted(*args):
+        passes.append((plain_forced(), args[-1]))
+        return by_order(*args)
+
+    F._taylor_pass_by_order = pass_counted
+    orders0 = dict(F.taylor_orders)
     fg = gt.build_fg(cp)
     J, g, aux, dJ, dg = fg_against_plain(fg, x0, "fg_cheby")
     n_fg = 1
@@ -2754,12 +3055,18 @@ def cheby_paths(rng, dev):
         wrks[:] = [wrk]
 
     t0 = time.perf_counter()
-    res = gt.optimize_problem(problem, iter_stop=ITER_STOP, print_iters=False,
-                              rethrow_exceptions=True, callback=record)
-    torch.cuda.synchronize()
+    try:
+        res = gt.optimize_problem(problem, iter_stop=ITER_STOP,
+                                  print_iters=False, rethrow_exceptions=True,
+                                  callback=record)
+        torch.cuda.synchronize()
+    finally:
+        F._taylor_pass_by_order = by_order
     opt_s = time.perf_counter() - t0
     counts = read_counts(*modules)
     routes_cheby = ROUTE_READS[-1][1]
+    orders_run = {k: F.taylor_orders[k] - orders0[k]
+                  for k in ("total", "kernel")}
     by_dir = dict(hopper_cheby.launches_by_direction)
     n_fg += res.fg_calls
     n_f += res.f_calls
@@ -2774,14 +3081,23 @@ def cheby_paths(rng, dev):
             and all(b <= a for a, b in zip(series, series[1:]))
             and series[-1] < series[0],
             f"dim-1024 J_T does not fall monotonically: {series}")
+    # one Taylor pass a gradient evaluation, each on the kernel's route
+    # (one launch an order), and the plain evaluation's pass beside them
+    kernel_orders = [m for plain, m in passes if not plain]
     expect = dict.fromkeys(counts, 0)
     expect["cheby_scan"] = 2 * n_fg + n_f
+    expect["taylor_order"] = sum(kernel_orders)
     require(counts == expect and by_dir == {"forward": n_fg + n_f,
                                             "adjoint": n_fg}
             and routes_cheby["cheby_ring"] == expect["cheby_scan"]
-            and routes_cheby["cheby_grid"] == 0,
-            f"dim-1024 launch counts {counts} {by_dir} {routes_cheby} do "
-            f"not match the evaluations: {n_fg} fg, {n_f} f")
+            and routes_cheby["cheby_grid"] == 0
+            and len(kernel_orders) == n_fg
+            and min(kernel_orders) >= n_orders
+            and orders_run == {"total": sum(m for _, m in passes),
+                               "kernel": sum(kernel_orders)},
+            f"dim-1024 launch counts {counts} {by_dir} {routes_cheby} "
+            f"(Taylor passes {passes}, orders {orders_run}) do not match "
+            f"the evaluations: {n_fg} fg, {n_f} f")
     steady_s = sum(iter_secs[1:])
     emit({"phase": "optimize_cheby", "J_T_series": series,
           "iterations": res.iter, "seconds": opt_s,
@@ -2797,7 +3113,11 @@ def cheby_paths(rng, dev):
           "message": res.message, "launches": counts,
           "launches_by_direction": by_dir,
           "route_launches": {k: routes_cheby[k]
-                             for k in ("cheby_ring", "cheby_grid")}})
+                             for k in ("cheby_ring", "cheby_grid")},
+          "taylor_orders": {**orders_run, "passes": len(passes),
+                            "kernel_passes": len(kernel_orders),
+                            "orders_min_max": [min(kernel_orders),
+                                               max(kernel_orders)]}})
 
     def ring_run(what):
         """The counted run's launches, which must all have taken the ring
@@ -5866,6 +6186,10 @@ def main():
         return 2
     if len(sys.argv) > 1 and sys.argv[1] == "--parallel-rank":
         return parallel_rank(*sys.argv[2:])
+    only = sys.argv[2] if len(sys.argv) > 2 and sys.argv[1] == "--phase" \
+        else None
+    require(only in (None, "taylor_order", "cheby"),
+            f"unknown phase {only!r}")
     t_start = time.perf_counter()
 
     import grape_tpu_torch as gt
@@ -5912,6 +6236,13 @@ def main():
           "ptxas": ptxas_summary(_build.last_build["log"]),
           "sources": [os.path.relpath(p, HERE)
                       for p in sum(_build.kernel_sources(), [])]})
+    if only is not None:
+        rng = np.random.default_rng(SEED)
+        if only == "cheby":
+            cheby_paths(rng, dev)
+        taylor_order_phase(rng, dev)
+        emit({"ok": True, "phase_only": only})
+        return 0
 
     # ---- the main path's problem -----------------------------------------
     problem = two_transmon_cz_problem(d=D_TRANSMON, n_steps=N_STEPS)
@@ -6293,6 +6624,7 @@ def main():
 
     # ---- the Chebyshev path at dim 1024 -----------------------------------
     k8, counts_cheby = cheby_paths(rng, dev)
+    k_taylor = taylor_order_phase(rng, dev)
 
     # ---- the last two TPU kernels, each with its counted run --------------
     k10, counts_time = time_grid_kernel_phase(cp_ens, s_ens, rng, dev)
@@ -6417,6 +6749,12 @@ def main():
         "karatsuba_chain": (
             "grape_tpu_torch/csrc/karatsuba_chain.cu",
             "experiments/mxu_probe.py:90", counts_probe),
+        # no TPU kernel: the JAX package leaves the Taylor pass to XLA's
+        # einsums; launched once an order in the dim-1024 run
+        "taylor_order": (
+            "grape_tpu_torch/csrc/taylor_order.cu",
+            "none (grape_tpu/fg.py _backward_vectorized: XLA einsums)",
+            counts_cheby),
     }
     cz = {
         name: {"err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
@@ -6470,6 +6808,7 @@ def main():
                     "the grid-barrier kernel of csrc/cheby_scan.cu "
                     "(grid_ms)")),
                 "forward_scan_time": k10, "karatsuba_chain": k11,
+                "taylor_order": k_taylor,
                 "propagator_kernel_cluster": k_prop,
                 "state_scan_cluster": k_scan,
                 "propagator_kernel_wide": k_wide,

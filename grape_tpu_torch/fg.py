@@ -98,11 +98,13 @@ from .functionals import (
     running_cost_values, taus,
 )
 from .generators import align_generators
+from .ops import plain_forced
 from .ops.cheby import cheby_apply, cheby_coeffs, spectral_envelope
 from .ops.expm import _THETA13_F64, _THETA_TAYLOR_F32, expm
 from .ops.frechet import expm_frechet, gradgen_step, taylor_grad_step
 from .ops.hopper_cheby import CHEBY_MAX_DIM, cheby_scan
 from .ops.hopper_frechet import frechet_trace_pertraj, frechet_trace_shared
+from .ops.hopper_taylor import taylor_pass, taylor_plan
 from .ops.hopper_prop import (
     SMALLD_MAX_DIM, SMALLD_MIN_TRAJ, chi_scan_grouped, chi_scan_recompute,
     chi_scan_shared, chi_window_plain, forward_scan_grouped, forward_scan_pertraj, forward_scan_shared,
@@ -132,8 +134,9 @@ _CHEBY_MIN_DIM = 256
 _ELEMENTWISE_MAX_DIM = 4
 
 # the order count of the time-vectorized Taylor passes: the last pass's,
-# and the sum over every pass since the process started
-taylor_orders = {"last": 0, "total": 0}
+# the sum over every pass since the process started, and the part of that
+# sum run by the Taylor-order kernel (one launch an order)
+taylor_orders = {"last": 0, "total": 0, "kernel": 0}
 
 
 @dataclass
@@ -1752,7 +1755,9 @@ def _backward_vectorized(cp: CompiledProblem, consts, coeffs, dM, psis,
     One code path serves every generator layout: ``H0 (G, d, d)``,
     ``ops (G, T, d, d)`` with the K trajectories in G groups of gs (shared:
     G = 1; one generator each: gs = 1; ``per_traj_coeffs``: G = K with one
-    coefficient table per trajectory).
+    coefficient table per trajectory).  How ``H_n†`` is applied is
+    :func:`_taylor_pass_route`'s: on the card at large d, one kernel
+    launch an order (:func:`_taylor_pass_by_order`).
 
     Returns ``(tau_grads (N_T, K, L) [ρ-scaled], taylor_ok)``.
     """
@@ -1764,12 +1769,19 @@ def _backward_vectorized(cp: CompiledProblem, consts, coeffs, dM, psis,
     N, K, d = psis.shape
     gs, L = K // G, cp.n_controls
     per = cp.per_traj_coeffs
-    co = coeffs.to(cdt)  # (N_T, T) or (K, N_T, T)
-    dMc = dM.to(cdt)     # (N_T, T, L) or (K, N_T, T, L)
     # Scaled recursion (see taylor_grad_step): iterate with H†/h so the
     # iterates stay O(1); unscaled, Φ_m ~ ‖H‖^m heads for float32 overflow
     # while the coefficient underflows.
     h = max(_h_norm_bound(cp, amp_max), 1e-30)
+    route = _taylor_pass_route(d, K, G, L, T, cdt, psis.device.type,
+                               _kernels_enabled(cp))
+    if route == "kernel":
+        if not plain_forced():
+            taylor_orders["kernel"] += int(n_orders)
+        return _taylor_pass_by_order(cp, consts, coeffs, dM, psis, chis, rho,
+                                     h, n_orders)
+    co = coeffs.to(cdt)  # (N_T, T) or (K, N_T, T)
+    dMc = dM.to(cdt)     # (N_T, T, L) or (K, N_T, T, L)
     inv_h = 1.0 / h
     opsd = ops.conj().transpose(-1, -2)  # (G, T, d, d)
 
@@ -1790,10 +1802,7 @@ def _backward_vectorized(cp: CompiledProblem, consts, coeffs, dM, psis,
     # whole (N_T·K·(L+1), d) block and combine with the per-(n, t)
     # coefficients.  The same numbers; chosen where the (T+1)-fold work is
     # the cheaper side: few columns and a large d.
-    static_h = (
-        cp.dim >= _STATIC_H_MIN_DIM and (T + 1) * K * (L + 1) <= 256
-    )
-    if static_h:
+    if route == "static":
         H0d = H0.conj().transpose(-1, -2) * inv_h
         opsd_h = opsd * inv_h
         cc = co.conj()
@@ -1830,13 +1839,55 @@ def _backward_vectorized(cp: CompiledProblem, consts, coeffs, dM, psis,
         phi = mu_apply(Hm) + Z[:, :, :-1, :]
         coeff = coeff * cdt_n / m
         acc = acc + coeff[:, None, None, None] * phi
-    acc = acc * inv_h
-    # converged iff the LAST term was already below tolerance (the static
-    # bound is chosen so that this holds).  The comparison uses the SAME
-    # effective tolerance that sized the order count, float32 floor
-    # included: a stricter check than the selection rule would fail by
-    # construction.
-    last_term = coeff[:, None, None, None] * phi
+    return _taylor_pass_result(cp, acc * inv_h,
+                               coeff[:, None, None, None] * phi, psis, rho,
+                               h)
+
+
+def _taylor_pass_route(d, K, G, L, T, dtype, device_type, kernels=True):
+    """How the vectorized Taylor pass applies ``H_n†``: ``"formed"`` (the
+    ``(N_T, G, d, d)`` generators materialized; small d or many columns),
+    ``"static"`` (the T + 1 static operators applied to every vector, then
+    combined: from ``_STATIC_H_MIN_DIM`` with ``(T + 1)·K·(L + 1) ≤ 256``)
+    or, on those shapes for complex64 CUDA tensors where the kernel is
+    built for ``(K / G, L, T)`` and ``kernels`` (``_kernels_enabled``:
+    not under ``use_pallas=False``), ``"kernel"``: one launch of
+    ``hopper_taylor.taylor_order`` an order, with ``H_n†`` formed in
+    registers.  The orders of the kernel's route count in
+    ``taylor_orders["kernel"]`` unless ``plain_versions()`` runs them."""
+    if not (d >= _STATIC_H_MIN_DIM and (T + 1) * K * (L + 1) <= 256):
+        return "formed"
+    if (kernels and device_type == "cuda" and dtype == torch.complex64
+            and taylor_plan(d, 1, G, K // G, L, T) is not None):
+        return "kernel"
+    return "static"
+
+
+def _taylor_pass_by_order(cp: CompiledProblem, consts, coeffs, dM, psis,
+                          chis, rho, h, n_orders):
+    """The vectorized Taylor pass of :func:`_backward_vectorized` one
+    order a call of ``hopper_taylor.taylor_order``, the ``Hm`` chain one
+    order ahead of ``φ`` (``hopper_taylor.taylor_pass``): one kernel
+    launch an order on the card, its plain version for CPU tensors.  ``h``
+    is the recursion's scale.  Returns ``(tau_grads (N_T, K, L)
+    [ρ-scaled], taylor_ok)``."""
+    rdt = real_dtype(consts["cdtype"])
+    acc, phi, _, coef = taylor_pass(
+        consts["H0"], consts["ops"], coeffs.to(rdt).contiguous(),
+        dM.to(rdt).contiguous(), chis, consts["dt"], h, n_orders,
+        cp.per_traj_coeffs)
+    last_term = coef[:, None, None, None] * phi
+    return _taylor_pass_result(cp, acc * (1.0 / h), last_term, psis, rho, h)
+
+
+def _taylor_pass_result(cp: CompiledProblem, chi_prime, last_term, psis,
+                        rho, h):
+    """``(tau_grads, taylor_ok)`` of a vectorized Taylor pass from its sum
+    ``χ' (N_T, K, L, d)`` and its last term.  Converged iff the LAST term
+    was already below tolerance (the static bound is chosen so that this
+    holds).  The comparison uses the SAME effective tolerance that sized
+    the order count, float32 floor included: a stricter check than the
+    selection rule would fail by construction."""
     term_norm = torch.sqrt(
         torch.amax(torch.sum(torch.abs(last_term) ** 2, dim=-1))
     )
@@ -1845,8 +1896,8 @@ def _backward_vectorized(cp: CompiledProblem, consts, coeffs, dM, psis,
         taylor_ok = torch.ones_like(taylor_ok)
 
     # ∇τ_{nkl} = ρ_k ⟨χ'_{nkl} | ψ(t_n)⟩
-    grads = torch.einsum("nkli,nki->nkl", acc.conj(), psis)
-    return rho[None, :, None].to(cdt) * grads, taylor_ok
+    grads = torch.einsum("nkli,nki->nkl", chi_prime.conj(), psis)
+    return rho[None, :, None].to(chi_prime.dtype) * grads, taylor_ok
 
 
 def _adjoint_ops(cp: CompiledProblem, consts, coeffs, dM, sl):

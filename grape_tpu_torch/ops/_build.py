@@ -174,6 +174,13 @@ def _declare(lib):
                                      i, i, p, p, p]
     lib.grape_state_scan_resident.restype = i
     lib.grape_state_scan_resident.argtypes = [i, i, i, i, i, i, i]
+    lib.grape_taylor_order_plan.restype = i
+    lib.grape_taylor_order_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.grape_taylor_order.restype = i
+    lib.grape_taylor_order.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
+        ctypes.c_float, p,
+    ]
     lib.grape_error_string.restype = ctypes.c_char_p
     lib.grape_error_string.argtypes = [i]
 
